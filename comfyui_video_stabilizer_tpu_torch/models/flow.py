@@ -1,0 +1,182 @@
+"""Flow (dense optical flow) estimator + stabilizer, DIS tier.
+
+Counterpart of ``comfyui_video_stabilizer_tpu/models/flow.py``: DIS
+flow (ops/flow_dis.py) sampled on the 8-px working-res grid, then the
+robust fits for the whole fallback chain in one batched pass
+(similarity RANSAC, median translation, residual diagnostics).
+
+Only the DIS tier is ported.  The reference degrades DIS -> TV-L1 ->
+phase correlation on any exception; here a DIS failure (a kernel that
+does not build or launch included) raises, so a broken CUDA path can
+never pass as a quietly degraded run.  Perspective mode needs the
+homography fits and raises ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+
+from comfyui_video_stabilizer_tpu.models import geometry as G
+
+from ..ops import flow_dis as FD
+from ..ops import prng
+from ..ops import ransac as RS
+from ..ops.resize import can_decimate
+from ..utils.video_io import VideoContext
+from .stabilize import PairFits, StabilizationResult, estimation_chunk_spans, stabilize_clip
+
+SAMPLE_STEP = 8
+MIN_VALID = 12
+SIM_MIN_RATIO = 0.1
+
+PERSPECTIVE_NOT_PORTED = (
+    "transform_mode='perspective' is not ported to the PyTorch package yet: it "
+    "needs the homography fits (ROADMAP.md, slice 1: perspective, the 4-point "
+    "homography RANSAC and _fit_homography_dense)"
+)
+
+
+def _grid_points(h: int, w: int, step: int, device: torch.device | str) -> torch.Tensor:
+    """(P, 2) float32 (x, y) of the ``step``-px grid, row-major."""
+    ys = torch.arange(0, h, step, dtype=torch.float32, device=device)
+    xs = torch.arange(0, w, step, dtype=torch.float32, device=device)
+    gy, gx = torch.meshgrid(ys, xs, indexing="ij")
+    return torch.stack([gx.reshape(-1), gy.reshape(-1)], dim=1)
+
+
+def _fused_fits_sampled(samples: torch.Tensor, pts: torch.Tensor, seed: int,
+                        n_hyp: int) -> Dict[str, np.ndarray]:
+    """Similarity RANSAC + median translation + residuals, all pairs at
+    once; the results come back to the host as numpy arrays."""
+    b = samples.shape[0]
+    dev = samples.device
+    prev_pts = pts[None].expand(samples.shape)
+    curr_pts = prev_pts + samples
+    valid = torch.isfinite(curr_pts).all(dim=2)
+    keys = prng.fold_in(prng.PRNGKey(seed + 1, device=dev), torch.arange(b, device=dev))
+    S, n_in, n_valid = RS.ransac_similarity(keys, prev_pts, curr_pts, valid, n_hyp, RS.SIM_THRESH)
+    med = RS.masked_median_shift(prev_pts, curr_pts, valid)
+    T = torch.eye(3, dtype=torch.float32, device=dev).repeat(b, 1, 1)
+    T[:, 0, 2] = med[:, 0]
+    T[:, 1, 2] = med[:, 1]
+    out = {
+        "valid_counts": valid.sum(1),
+        "S": S, "n_in": n_in, "n_valid": n_valid,
+        "rS": RS.residuals(S, prev_pts, curr_pts, valid),
+        "T": T, "rT": RS.residuals(T, prev_pts, curr_pts, valid),
+    }
+    return {k: v.cpu().numpy() for k, v in out.items()}
+
+
+def _gray_decimation(width: int, height: int, working_size) -> int:
+    """Decimation factor the fit path absorbs into gray production: the
+    solve never reads levels finer than working-res / 2**FINEST_SCALE."""
+    dec = 1 << FD.FINEST_SCALE
+    if SAMPLE_STEP % dec:
+        return 1
+    tw, th = working_size if working_size is not None else (int(width), int(height))
+    if FD.num_levels(th, tw) < FD.FINEST_SCALE:
+        return 1
+    return dec if can_decimate(width, height, working_size, dec) else 1
+
+
+def _dis_samples_chunked(grays, step_local, finest_scale, model, tick_pairs):
+    """DIS flow over all adjacent pairs, in 32-pair chunks with a progress
+    tick + interrupt poll between chunks (identical to one dispatch:
+    DIS is per pair)."""
+    spans = estimation_chunk_spans(int(grays.shape[0]))
+    if len(spans) == 1 or tick_pairs is None:
+        return FD.dis_flow_fit(grays, step_local, finest_scale=finest_scale, model=model)
+    parts = []
+    for s, e, drop in spans:
+        part = FD.dis_flow_fit(grays[s:e], step_local, finest_scale=finest_scale, model=model)
+        parts.append(part[drop:] if drop else part)
+        tick_pairs(e - 1)
+    return torch.cat(parts, dim=0)
+
+
+def flow_estimator(
+    grays: torch.Tensor, requested_mode: str, *, seed: int = 0, decimation: int = 1,
+    tick_pairs=None,
+) -> PairFits:
+    """Per-pair fits from DIS flow; grays (N, h, w) on the working device."""
+    if requested_mode == "perspective":
+        raise NotImplementedError(PERSPECTIVE_NOT_PORTED)
+    n, h, w = grays.shape
+    b = n - 1
+    h_work, w_work = h * decimation, w * decimation
+
+    samples = _dis_samples_chunked(
+        grays,
+        SAMPLE_STEP // decimation,
+        0 if decimation > 1 else FD.FINEST_SCALE,
+        "similarity",
+        tick_pairs,
+    )
+    if decimation > 1:
+        samples = samples * float(decimation)  # back to working px units
+    pts = _grid_points(h_work, w_work, SAMPLE_STEP, grays.device)
+    fused = _fused_fits_sampled(samples, pts, seed, RS.DEFAULT_HYPOTHESES)
+
+    valid_counts = fused["valid_counts"]
+    total_pts = (
+        ((h_work + SAMPLE_STEP - 1) // SAMPLE_STEP)
+        * ((w_work + SAMPLE_STEP - 1) // SAMPLE_STEP)
+    )
+    S, n_in, n_valid = fused["S"], fused["n_in"], fused["n_valid"]
+    conf = np.where(n_valid > 0, n_in / np.maximum(n_valid, 1), 0.0)
+    finite = np.isfinite(S).all(axis=(1, 2))
+    return PairFits(
+        degenerate=valid_counts < MIN_VALID,
+        matrices={"similarity": S, "translation": fused["T"]},
+        confidences={"similarity": conf, "translation": valid_counts / max(total_pts, 1)},
+        accepted={
+            "similarity": finite & (valid_counts >= 3) & (conf >= SIM_MIN_RATIO),
+            "translation": np.ones(b, bool),
+        },
+        residuals={"similarity": fused["rS"], "translation": fused["rT"]},
+        extra_meta={"flow_backend": "DIS", "flow_fallback_reason": None},
+    )
+
+
+# engine hook: stabilize_clip consults this to produce pre-decimated grays
+flow_estimator.gray_decimation = _gray_decimation
+
+
+def stabilize_flow(
+    context: VideoContext,
+    framing_mode: G.FramingMode,
+    transform_mode: G.TransformMode,
+    camera_lock: bool,
+    strength: float,
+    smooth: float,
+    keep_fov: float,
+    padding_rgb: Tuple[int, int, int],
+    frame_rate: float,
+    progress=None,
+    interrupt_check=None,
+    device: str | torch.device = "cuda",
+) -> StabilizationResult:
+    """Flow stabilizer on ``device`` ('cuda' by default; 'cpu' runs the plain versions)."""
+    if transform_mode == "perspective":
+        raise NotImplementedError(PERSPECTIVE_NOT_PORTED)
+    return stabilize_clip(
+        context,
+        estimator=flow_estimator,
+        source_name="estimated_flow",
+        framing_mode=framing_mode,
+        transform_mode=transform_mode,
+        camera_lock=camera_lock,
+        strength=strength,
+        smooth=smooth,
+        keep_fov=keep_fov,
+        padding_rgb=padding_rgb,
+        frame_rate=frame_rate,
+        extra_meta={"flow_backend": "DIS", "flow_fallback_reason": None},
+        progress=progress,
+        interrupt_check=interrupt_check,
+        device=device,
+    )

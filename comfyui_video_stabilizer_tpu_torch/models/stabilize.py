@@ -1,0 +1,404 @@
+"""Stabilization engine (host trajectory, device pixels).
+
+Counterpart of the host engine of
+``comfyui_video_stabilizer_tpu/models/stabilize.py``:
+
+  1. fps resolution + empty/single-frame early-outs
+  2. grayscale at <=960 px working size, on the device
+  3. estimator: per-pair fits for the whole fallback chain, all pairs
+     batched, in 32-pair chunks with a progress tick and interrupt poll
+     between chunks when anyone observes them
+  4. sticky mode selection (host scan over per-pair acceptance flags)
+  5. path integration, 6. target path (camera_lock or fps smoothing)
+  7. framing: crop_and_pad (recenter) or expand (union canvas)
+  8. one batched warp (K1) + closed-form padding masks, on the device
+  9. meta assembly + motion_meta v2 attach
+
+Geometry and motion_meta are the JAX package's host modules, used by
+import, so the meta contract is identical by construction.  Crop
+framing is not ported yet and raises.
+"""
+
+from __future__ import annotations
+
+import logging
+from dataclasses import dataclass, field
+from typing import Any, Callable, Dict, List, Tuple
+
+import numpy as np
+import torch
+
+from comfyui_video_stabilizer_tpu.meta.motion_meta import (
+    applied_motion_meta_from_stabilization_warp,
+    build_stabilization_warp_meta,
+)
+from comfyui_video_stabilizer_tpu.models import geometry as G
+
+from ..ops import resize as R
+from ..ops import warp as W
+from ..utils.device import resolve_device, strict_fp32
+from ..utils.profiling import StageTimer
+from ..utils.video_io import VideoContext
+
+logger = logging.getLogger(__name__)
+
+ProgressCallback = Callable[[int, int], None]  # (done, total)
+InterruptCheck = Callable[[], None]
+
+MODE_PRIORITY: Dict[str, List[str]] = {
+    "perspective": ["perspective", "similarity", "translation"],
+    "similarity": ["similarity", "translation"],
+    "translation": ["translation"],
+}
+
+# Estimation dispatch granularity: pairs per chunk, with a progress
+# tick + interrupt poll between chunks.
+ESTIMATION_CHUNK_PAIRS = 32
+
+CROP_NOT_PORTED = (
+    "framing_mode='crop' is not ported to the PyTorch package yet: it needs "
+    "models/framing.py and ops/morphology.py (ROADMAP.md, slice 2 item 11: "
+    "crop and expand framing)"
+)
+
+
+def estimation_chunk_spans(n_frames: int, chunk: int = ESTIMATION_CHUNK_PAIRS):
+    """Frame-slice plan [(start, end, drop_leading_pairs)] covering all
+    n_frames-1 adjacent pairs in ``chunk``-pair chunks.
+
+    Every chunk spans chunk+1 frames; the last one is anchored at the
+    clip's end and overlaps its predecessor, with the duplicated leading
+    pairs dropped, so each pair is estimated from the same inputs as in
+    one whole-clip dispatch.
+    """
+    b = n_frames - 1
+    if b <= chunk:
+        return [(0, n_frames, 0)]
+    spans = []
+    s = 0
+    while s + chunk < b:
+        spans.append((s, s + chunk + 1, 0))
+        s += chunk
+    start = b - chunk
+    spans.append((start, n_frames, s - start))
+    return spans
+
+
+@dataclass
+class PairFits:
+    """Batched per-pair estimation results for the full fallback chain
+    (host numpy arrays of length B = N - 1)."""
+
+    degenerate: np.ndarray
+    matrices: Dict[str, np.ndarray]
+    confidences: Dict[str, np.ndarray]
+    accepted: Dict[str, np.ndarray]
+    residuals: Dict[str, np.ndarray] | None = None
+    extra_meta: Dict[str, Any] = field(default_factory=dict)
+
+
+@dataclass
+class StabilizationResult:
+    frames: torch.Tensor | List[torch.Tensor]
+    masks: torch.Tensor | List[torch.Tensor]
+    meta: Dict[str, Any]
+
+
+Estimator = Callable[..., PairFits]
+# (gray_frames (N, h, w) tensor, requested_mode, **kw) -> PairFits
+
+
+def sticky_select(requested_mode: str, fits: PairFits) -> Tuple[np.ndarray, List[str], List[float], List[float] | None]:
+    """The reference's loop-carried mode degradation.
+
+    active_mode starts at the requested mode; each pair tries the
+    fallback chain from the *current* active mode and the first
+    accepted model wins; a pair whose winning mode differs from
+    active_mode re-points active_mode for all later pairs.
+    """
+    b = fits.degenerate.shape[0]
+    out_mats = np.tile(np.eye(3, dtype=np.float32), (b, 1, 1))
+    out_modes: List[str] = []
+    out_confs: List[float] = []
+    out_res: List[float] | None = [] if fits.residuals is not None else None
+
+    active = requested_mode
+    for i in range(b):
+        if fits.degenerate[i]:
+            used, conf, res = "translation", 0.0, 0.0
+            mat = np.eye(3, dtype=np.float32)
+        else:
+            used = None
+            for mode in MODE_PRIORITY[active]:
+                if mode in fits.accepted and fits.accepted[mode][i]:
+                    used = mode
+                    mat = fits.matrices[mode][i]
+                    conf = float(fits.confidences[mode][i])
+                    res = float(fits.residuals[mode][i]) if fits.residuals is not None else 0.0
+                    break
+            if used is None:
+                used, conf, res = "translation", 0.0, 0.0
+                mat = np.eye(3, dtype=np.float32)
+        if used != active:
+            active = used
+        out_mats[i] = mat
+        out_modes.append(used)
+        out_confs.append(conf)
+        if out_res is not None:
+            out_res.append(res)
+    return out_mats, out_modes, out_confs, out_res
+
+
+def estimation_plan(width: int, height: int, estimator: Estimator) -> Tuple[Tuple[int, int] | None, int]:
+    """(working size or None, gray decimation) the engine estimates at."""
+    working_size = G.working_estimation_size(width, height)
+    dec_fn = getattr(estimator, "gray_decimation", None)
+    decimation = dec_fn(width, height, working_size) if dec_fn is not None else 1
+    return working_size, decimation
+
+
+def _resolve_fps_pair(frame_rate: float, context_fps) -> Tuple[float, float | None]:
+    fps_candidate = frame_rate
+    if not isinstance(fps_candidate, (int, float)) or not np.isfinite(fps_candidate) or fps_candidate <= 0.0:
+        fps_candidate = (
+            context_fps
+            if isinstance(context_fps, (int, float)) and np.isfinite(context_fps) and context_fps > 0.0
+            else 16.0
+        )
+    fps_effective = float(max(1.0, fps_candidate))
+    fps_requested = float(frame_rate) if isinstance(frame_rate, (int, float)) and frame_rate > 0.0 else None
+    return fps_effective, fps_requested
+
+
+def stabilize_clip(
+    context: VideoContext,
+    *,
+    estimator: Estimator,
+    source_name: str,
+    framing_mode: G.FramingMode,
+    transform_mode: G.TransformMode,
+    camera_lock: bool,
+    strength: float,
+    smooth: float,
+    keep_fov: float,
+    padding_rgb: Tuple[int, int, int],
+    frame_rate: float,
+    extra_meta: Dict[str, Any] | None = None,
+    progress: ProgressCallback | None = None,
+    interrupt_check: InterruptCheck | None = None,
+    device: str | torch.device = "cuda",
+) -> StabilizationResult:
+    if framing_mode == "crop":
+        raise NotImplementedError(CROP_NOT_PORTED)
+    dev = resolve_device(device)
+    strict_fp32()
+    frames = context.frames.to(dev)
+    total_frames = context.frame_count
+    width, height = context.width, context.height
+    fps_effective, fps_requested = _resolve_fps_pair(frame_rate, context.fps)
+    extra_meta = dict(extra_meta or {})
+
+    def _attach_motion_meta(meta: Dict[str, Any]) -> Dict[str, Any]:
+        try:
+            meta["motion_meta"] = applied_motion_meta_from_stabilization_warp(
+                meta["stabilization_warp"], fps=fps_effective, source=source_name
+            )
+        except (KeyError, TypeError, ValueError, np.linalg.LinAlgError):
+            logger.debug("Failed to derive motion_meta from stabilization_warp.", exc_info=True)
+        return meta
+
+    def _tick(done: int, total: int) -> None:
+        if progress is not None:
+            progress(done, total)
+        if interrupt_check is not None:
+            interrupt_check()
+
+    estimation_steps = max(0, total_frames - 1)
+    progress_total = estimation_steps + total_frames
+
+    if total_frames == 0:
+        meta = {
+            "frames": 0,
+            "note": "Empty frame sequence; nothing to stabilise.",
+            "transform_mode_requested": transform_mode,
+            "transform_mode_applied": "identity",
+            "camera_lock": camera_lock,
+            "strength": strength,
+            "strength_effective": 0.0,
+            "smooth": smooth,
+            "fps_requested": fps_requested,
+            "fps_effective": fps_effective,
+            "framing": {
+                "mode": framing_mode,
+                "input_size": [width, height],
+                "padding_color_rgb": [int(c) for c in padding_rgb],
+            },
+            "keep_fov_applied": False,
+            "padding_color_rgb": [int(c) for c in padding_rgb],
+            **extra_meta,
+            "stabilization_warp": build_stabilization_warp_meta(
+                source_size=(width, height),
+                output_size=(width, height),
+                framing_mode=framing_mode,
+                applied_matrices=[],
+            ),
+            "estimated_motion": {"per_transition": [], "path": [], "target_path": [], "target_path_effective": []},
+            "padding_fraction_mean": 0.0,
+            "padding_fraction_max": 0.0,
+        }
+        return StabilizationResult([], [], _attach_motion_meta(meta))
+
+    if total_frames == 1:
+        zero_mask = torch.zeros((1, height, width), dtype=torch.float32, device=dev)
+        meta = {
+            "frames": 1,
+            "note": "Single-frame input; bypassed stabilization.",
+            "transform_mode": transform_mode,
+            "framing_mode": framing_mode,
+            **extra_meta,
+            "stabilization_warp": build_stabilization_warp_meta(
+                source_size=(width, height),
+                output_size=(width, height),
+                framing_mode=framing_mode,
+                applied_matrices=[np.eye(3, dtype=np.float32)],
+            ),
+            "fps_requested": fps_requested,
+            "fps_effective": fps_effective,
+        }
+        _tick(progress_total, progress_total)
+        return StabilizationResult(frames.clone(), zero_mask, _attach_motion_meta(meta))
+
+    W.check_fits_device(total_frames, height, width, height, width, int(frames.shape[-1]))
+
+    # ---- estimation at working resolution (batched, on the device) ----
+    timer = StageTimer()
+    working_size, decimation = estimation_plan(width, height, estimator)
+    base_mode = transform_mode
+
+    def _tick_pairs(done_pairs: int) -> None:
+        _tick(min(int(done_pairs), estimation_steps), progress_total)
+
+    # chunked dispatch only when an observer exists
+    tick_pairs_cb = _tick_pairs if (progress is not None or interrupt_check is not None) else None
+
+    with timer.stage("grayscale_downscale"):
+        grays = R.gray_for_estimation(frames, working_size, decimation=decimation)
+    with timer.stage("estimation"):
+        fits = estimator(grays, transform_mode, decimation=decimation, tick_pairs=tick_pairs_cb)
+    matrices, modes_used, confidences, residuals = sticky_select(transform_mode, fits)
+    if working_size is not None:
+        matrices = G.rescale_transforms_to_full(matrices, (width, height), working_size)
+    extra_meta.update(fits.extra_meta)
+    active_mode = modes_used[-1] if modes_used else transform_mode
+    _tick(estimation_steps, progress_total)
+
+    delta_params = G.matrices_to_params(matrices, base_mode)
+    path = G.integrate_path(delta_params)
+
+    strength = float(np.clip(strength, 0.0, 1.0))
+    smooth = float(np.clip(smooth, 0.0, 1.0))
+
+    if camera_lock:
+        smooth = max(smooth, 0.85)
+        target_path = np.zeros_like(path)
+    else:
+        smoothed = G.smooth_path(path, smooth, fps_effective)
+        target_path = path + strength * (smoothed - path)
+
+    delta_params_full = target_path - path
+    output_size = (width, height)
+    apply_matrices = G.params_to_matrices(delta_params_full, base_mode)
+    mins, maxs = G.compute_bounding_boxes(apply_matrices, width, height)
+
+    framing_meta: Dict[str, Any] = {
+        "mode": framing_mode,
+        "input_size": [width, height],
+        "padding_color_rgb": [int(c) for c in padding_rgb],
+        "min_content_ratio": G.min_content_ratio(mins, maxs, width, height),
+    }
+    if framing_mode == "crop_and_pad":
+        x0, y0, x1, y1 = G.intersection_box(mins, maxs)
+        intersection_w = max(1.0, x1 - x0)
+        intersection_h = max(1.0, y1 - y0)
+        offset_x = width * 0.5 - (x0 + x1) * 0.5
+        offset_y = height * 0.5 - (y0 + y1) * 0.5
+        translate = G.translation_matrix(offset_x, offset_y).astype(np.float64)
+        final_matrices = np.einsum(
+            "ij,njk->nik", translate, np.asarray(apply_matrices, np.float64)
+        ).astype(np.float32)
+        framing_meta.update(
+            {
+                "safe_region_origin": [x0, y0],
+                "safe_region_size": [intersection_w, intersection_h],
+                "actual_content_ratio": min(intersection_w / width, intersection_h / height),
+                "center_offset": [offset_x, offset_y],
+            }
+        )
+    elif framing_mode == "expand":
+        translate, output_size = G.prepare_expand_transform(mins, maxs)
+        final_matrices = np.einsum(
+            "ij,njk->nik", translate.astype(np.float64), np.asarray(apply_matrices, np.float64)
+        ).astype(np.float32)
+        framing_meta["expanded_size"] = list(output_size)
+    else:
+        raise ValueError(f"Unknown framing_mode {framing_mode!r}.")
+
+    effective_target_path = path + delta_params_full
+
+    # ---- warp pass: one batched kernel + closed-form masks ----
+    border = np.asarray(padding_rgb, np.float32) / 255.0
+    out_w_i, out_h_i = int(output_size[0]), int(output_size[1])
+    W.check_fits_device(total_frames, height, width, out_h_i, out_w_i, int(frames.shape[-1]))
+    with timer.stage("warp"):
+        # the ratio fetch waits for the mask pass only; the frame warp is
+        # queued after it and runs while the host assembles the meta
+        padding_masks, ratios_dev = W.padding_mask_stats(
+            final_matrices, (width, height), output_size, dev
+        )
+        padded_ratios = ratios_dev.cpu().numpy()
+        stabilized = W.warp_clip(frames, final_matrices, output_size, "bilinear", border)
+    framing_meta["padding_detected"] = bool((padded_ratios > 0).any())
+    _tick(progress_total, progress_total)
+
+    per_transition = []
+    for idx, (mode, confidence) in enumerate(zip(modes_used, confidences)):
+        entry = {
+            "index": idx,
+            "mode": mode,
+            "confidence": confidence,
+            "matrix": matrices[idx].astype(np.float32).tolist(),
+        }
+        if residuals is not None:
+            entry["residual"] = residuals[idx]
+        per_transition.append(entry)
+
+    meta = {
+        "frames": total_frames,
+        "transform_mode_requested": transform_mode,
+        "transform_mode_applied": active_mode,
+        "camera_lock": camera_lock,
+        "strength": strength,
+        "strength_effective": strength,
+        "smooth": smooth,
+        "fps_requested": fps_requested,
+        "fps_effective": fps_effective,
+        "framing": framing_meta,
+        "keep_fov_applied": False,
+        "padding_color_rgb": [int(c) for c in padding_rgb],
+        **extra_meta,
+        "stabilization_warp": build_stabilization_warp_meta(
+            source_size=(width, height),
+            output_size=output_size,
+            framing_mode=framing_mode,
+            applied_matrices=final_matrices,
+        ),
+        "estimated_motion": {
+            "per_transition": per_transition,
+            "path": path.tolist(),
+            "target_path": target_path.tolist(),
+            "target_path_effective": effective_target_path.tolist(),
+        },
+        "padding_fraction_mean": float(padded_ratios.mean()),
+        "padding_fraction_max": float(padded_ratios.max()),
+    }
+    return StabilizationResult(stabilized, padding_masks, timer.attach(_attach_motion_meta(meta)))

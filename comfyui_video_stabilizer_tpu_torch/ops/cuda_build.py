@@ -1,0 +1,140 @@
+"""Build and bind the port's hand-written CUDA kernels.
+
+The kernels in ``csrc/`` are compiled by ``nvcc`` for Hopper (sm_90a)
+into ONE shared library with a plain C interface and loaded with
+``ctypes``; no PyTorch headers are compiled, so a build takes seconds.
+The library lands in ``build/`` next to the package directory, named
+by a hash of the sources and flags, at first use; a later call with
+unchanged sources reuses it.  Nothing here runs at import time.
+
+``-fmad=false`` keeps every multiply and add a separately rounded op,
+as in the plain PyTorch versions the kernels are checked against, so
+kernel and plain version agree bitwise.
+
+``LAUNCHES`` counts kernel launches per kernel.  Each wrapper adds one
+where it launches its kernel and nowhere else, so a caller can reset
+the counts, run the main path and see which kernels it went through.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+
+import torch
+
+PACKAGE_DIR = pathlib.Path(__file__).resolve().parents[1]
+CSRC_DIR = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR.parent / "build"
+SOURCES = ("warp.cu", "cost_volume.cu")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-fmad=false",
+    "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas=-v",
+)
+
+LAUNCHES = {"warp": 0, "cost_volume": 0}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def find_nvcc() -> str:
+    """nvcc from $CUDA_HOME / $CUDA_PATH, then $PATH, then the default
+    toolkit location; raises when there is none."""
+    candidates = []
+    for var in ("CUDA_HOME", "CUDA_PATH"):
+        root = os.environ.get(var)
+        if root:
+            candidates.append(os.path.join(root, "bin", "nvcc"))
+    on_path = shutil.which("nvcc")
+    if on_path:
+        candidates.append(on_path)
+    candidates.append("/usr/local/cuda/bin/nvcc")
+    for cand in candidates:
+        if os.path.isfile(cand) and os.access(cand, os.X_OK):
+            return cand
+    raise RuntimeError(
+        "nvcc not found (looked in $CUDA_HOME, $CUDA_PATH, $PATH and the "
+        "default toolkit location); the CUDA kernels cannot be built"
+    )
+
+
+def library_path() -> pathlib.Path:
+    digest = hashlib.sha256()
+    for name in SOURCES:
+        digest.update(name.encode())
+        digest.update((CSRC_DIR / name).read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"libcvst_kernels_{digest.hexdigest()[:16]}.so"
+
+
+def build() -> pathlib.Path:
+    """Compile the kernels unless a library of the same sources exists.
+
+    The compiler's resource report (registers, shared memory, spills
+    per kernel, from ``-Xptxas=-v``) is kept beside the library as
+    ``<name>.log``.  Writes to a temporary name and renames, so
+    concurrent builders never load a half-written library.
+    """
+    path = library_path()
+    if path.exists():
+        return path
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
+    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *(str(CSRC_DIR / s) for s in SOURCES)]
+    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(
+            f"nvcc failed with exit code {proc.returncode}:\n{' '.join(cmd)}\n"
+            f"{proc.stdout}\n{proc.stderr}"
+        )
+    path.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    os.replace(tmp, path)
+    return path
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """The built kernel library with every entry point's signature set."""
+    lib = ctypes.CDLL(str(build()))
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.cvst_warp.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32, ptr]
+    lib.cvst_warp.restype = i32
+    lib.cvst_cost_volume.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr]
+    lib.cvst_cost_volume.restype = i32
+    lib.cvst_error_string.argtypes = [i32]
+    lib.cvst_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def current_stream(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def check_launch(err: int, kernel: str) -> None:
+    """Raise when a launch was refused (cudaGetLastError() != 0)."""
+    if err != 0:
+        msg = library().cvst_error_string(err).decode()
+        raise RuntimeError(f"CUDA kernel {kernel!r} failed to launch: error {err} ({msg})")
+
+
+def require_cuda_tensor(name: str, t: torch.Tensor, dtype: torch.dtype, ndim: int) -> None:
+    """Validate a kernel argument before its pointer is passed on."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} must be a CUDA tensor, got device {t.device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if t.ndim != ndim:
+        raise ValueError(f"{name} must have {ndim} dims, got shape {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")

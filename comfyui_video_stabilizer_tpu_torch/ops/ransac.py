@@ -1,0 +1,177 @@
+"""Batched RANSAC similarity fits, median shifts and residuals (PyTorch).
+
+Counterpart of the similarity branch of
+``comfyui_video_stabilizer_tpu/ops/ransac.py``: K parallel 2-point
+hypotheses per pair, drawn over the ranks of the valid points with the
+same threefry bits as ``jax.random`` (ops/prng.py), scored on the first
+2048 points in chunks of 64 hypotheses, then two least-squares refits
+on the winner's inliers.  The JAX package vmaps one pair at a time;
+here every tensor carries a leading pair axis and hypotheses form a
+second one.
+
+The 4-point homography and its DLT refit are not ported yet
+(ROADMAP.md, slice 1: perspective).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import prng
+
+SIM_THRESH = 2.0     # px reprojection, estimateAffinePartial2D default in reference
+DEFAULT_HYPOTHESES = 512
+_CHUNK = 64
+_N_SCORE = 2048
+
+
+def _similarity_matrices(a, b, tx, ty) -> torch.Tensor:
+    """[[a, -b, tx], [b, a, ty], [0, 0, 1]] over the leading axes."""
+    zero = torch.zeros_like(a)
+    one = torch.ones_like(a)
+    rows = (torch.stack([a, -b, tx], -1), torch.stack([b, a, ty], -1),
+            torch.stack([zero, zero, one], -1))
+    return torch.stack(rows, -2)
+
+
+def _solve_similarity_2pt(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """p, q (..., 2, 2): two correspondences -> (..., 3, 3) similarity."""
+    dp = p[..., 1, :] - p[..., 0, :]
+    dq = q[..., 1, :] - q[..., 0, :]
+    den = dp[..., 0] * dp[..., 0] + dp[..., 1] * dp[..., 1]
+    den = torch.where(den == 0, 1e-12, den)
+    a = (dq[..., 0] * dp[..., 0] + dq[..., 1] * dp[..., 1]) / den
+    b = (dq[..., 1] * dp[..., 0] - dq[..., 0] * dp[..., 1]) / den
+    tx = q[..., 0, 0] - (a * p[..., 0, 0] - b * p[..., 0, 1])
+    ty = q[..., 0, 1] - (b * p[..., 0, 0] + a * p[..., 0, 1])
+    return _similarity_matrices(a, b, tx, ty)
+
+
+def _apply_homography(H: torch.Tensor, x: torch.Tensor, y: torch.Tensor):
+    """H (..., 3, 3) against coordinates x, y broadcast to (..., P)."""
+    h = [[H[..., i, j, None] for j in range(3)] for i in range(3)]
+    w = h[2][0] * x + h[2][1] * y + h[2][2]
+    w = torch.where(torch.abs(w) < 1e-12, 1e-12, w)
+    u = (h[0][0] * x + h[0][1] * y + h[0][2]) / w
+    v = (h[1][0] * x + h[1][1] * y + h[1][2]) / w
+    return u, v
+
+
+def _refit_similarity(p: torch.Tensor, q: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """Weighted LS similarity per pair: p, q (B, P, 2), weight (B, P) -> (B, 3, 3)."""
+    wsum = torch.clamp(weight.sum(-1), min=1e-6)[:, None]
+    pm = (p * weight[..., None]).sum(1) / wsum
+    qm = (q * weight[..., None]).sum(1) / wsum
+    pc = (p - pm[:, None]) * weight[..., None]
+    qc = (q - qm[:, None]) * weight[..., None]
+    den = torch.clamp((pc * pc).sum((1, 2)), min=1e-12)
+    a = (pc[..., 0] * qc[..., 0] + pc[..., 1] * qc[..., 1]).sum(1) / den
+    b = (pc[..., 0] * qc[..., 1] - pc[..., 1] * qc[..., 0]).sum(1) / den
+    tx = qm[:, 0] - (a * pm[:, 0] - b * pm[:, 1])
+    ty = qm[:, 1] - (b * pm[:, 0] + a * pm[:, 1])
+    return _similarity_matrices(a, b, tx, ty)
+
+
+def _all_finite(H: torch.Tensor) -> torch.Tensor:
+    return torch.isfinite(H).all(dim=-1).all(dim=-1)
+
+
+def ransac_similarity(keys: torch.Tensor, p: torch.Tensor, q: torch.Tensor,
+                      valid: torch.Tensor, n_hyp: int = DEFAULT_HYPOTHESES,
+                      thresh: float = SIM_THRESH):
+    """RANSAC similarity for every pair.
+
+    keys (B, 2) threefry keys; p, q (B, P, 2) float32; valid (B, P) bool.
+    Returns (matrices (B, 3, 3) float32, inlier counts (B,), valid counts (B,)).
+    """
+    B, P = valid.shape
+    m = 2
+    dev = p.device
+    vcount = valid.sum(1)                                          # (B,) int64
+
+    # rank lookup: valid point of rank r -> its index; invalid points
+    # scatter into the spare slot P, which is sliced off
+    vi = valid.to(torch.int64)
+    ranks = torch.cumsum(vi, 1) - vi
+    slots = torch.where(valid, ranks, P)
+    src = torch.arange(P, device=dev).expand(B, P)
+    lookup = torch.zeros((B, P + 1), dtype=torch.int64, device=dev).scatter_(1, slots, src)[:, :P]
+
+    u = prng.uniform(keys, (n_hyp, m))                              # (B, K, m)
+    denom = torch.clamp(vcount, min=1)
+    r = torch.minimum((u * denom.to(torch.float32)[:, None, None]).to(torch.int64),
+                      (denom - 1)[:, None, None])
+    idx = torch.gather(lookup, 1, r.reshape(B, -1)).reshape(B, n_hyp, m)
+    ps = torch.gather(p, 1, idx.reshape(B, -1, 1).expand(-1, -1, 2)).reshape(B, n_hyp, m, 2)
+    qs = torch.gather(q, 1, idx.reshape(B, -1, 1).expand(-1, -1, 2)).reshape(B, n_hyp, m, 2)
+    draw_ok = torch.gather(valid, 1, idx.reshape(B, -1)).reshape(B, n_hyp, m).all(-1)
+    draw_ok = draw_ok & (vcount >= m)[:, None]
+
+    hyps = _solve_similarity_2pt(ps, qs)                            # (B, K, 3, 3)
+    hyp_ok = draw_ok & _all_finite(hyps)
+    eye = torch.eye(3, dtype=torch.float32, device=dev)
+    hyps = torch.where(hyp_ok[..., None, None], hyps, eye)
+
+    thresh_sq = thresh * thresh
+    n_score = min(P, _N_SCORE)
+    xs, ys = p[:, None, :n_score, 0], p[:, None, :n_score, 1]
+    qx, qy = q[:, None, :n_score, 0], q[:, None, :n_score, 1]
+    score_valid = valid[:, None, :n_score].to(torch.float32)
+    n_chunks = max(1, n_hyp // _CHUNK)
+    counts = []
+    for c in range(n_chunks):
+        u_, v_ = _apply_homography(hyps[:, c * _CHUNK:(c + 1) * _CHUNK], xs, ys)
+        err = (u_ - qx) ** 2 + (v_ - qy) ** 2
+        counts.append(((err < thresh_sq) * score_valid).sum(-1))
+    counts = torch.cat(counts, 1) * hyp_ok[:, : n_chunks * _CHUNK].to(torch.float32)
+
+    best = torch.argmax(counts, dim=1)                              # first maximum
+    H_best = hyps[torch.arange(B, device=dev), best]
+
+    def refine(H):
+        u_, v_ = _apply_homography(H, p[..., 0], p[..., 1])
+        err = (u_ - q[..., 0]) ** 2 + (v_ - q[..., 1]) ** 2
+        inlier = (err < thresh_sq) & valid
+        H2 = _refit_similarity(p, q, inlier.to(torch.float32))
+        H2 = torch.where(_all_finite(H2)[:, None, None], H2, H)
+        return H2, inlier
+
+    H1, _ = refine(H_best)
+    H2, inliers = refine(H1)
+    n_in = inliers.sum(1)
+    H2 = torch.where((n_in >= m)[:, None, None], H2, H_best)
+    return H2, n_in, vcount
+
+
+def masked_median_shift(prev_pts: torch.Tensor, curr_pts: torch.Tensor,
+                        valid: torch.Tensor) -> torch.Tensor:
+    """np.median of the valid point shifts per pair -> (B, 2).
+
+    The JAX package selects the two middle order statistics by a
+    bisection on the float bits (TPU sorts are slow); a sort picks the
+    same elements exactly.
+    """
+    shifts = curr_pts - prev_pts
+    masked = torch.where(valid[..., None], shifts, 3.0e38)
+    v = valid.sum(1)
+    lo_k = torch.clamp(torch.div(v - 1, 2, rounding_mode="floor"), min=0)
+    hi_k = torch.div(v, 2, rounding_mode="floor")
+    srt = torch.sort(masked, dim=1).values                         # (B, P, 2)
+    P = srt.shape[1]
+    a = torch.gather(srt, 1, lo_k.clamp(max=P - 1)[:, None, None].expand(-1, 1, 2))[:, 0]
+    b = torch.gather(srt, 1, hi_k.clamp(max=P - 1)[:, None, None].expand(-1, 1, 2))[:, 0]
+    med = 0.5 * (a + b)
+    return torch.where((v > 0)[:, None], med, 0.0)
+
+
+def residuals(matrices: torch.Tensor, prev_pts: torch.Tensor, curr_pts: torch.Tensor,
+              valid: torch.Tensor) -> torch.Tensor:
+    """Mean |affine-projected prev - curr| per pair (the flow residual metric)."""
+    m = matrices.to(torch.float32)
+    px, py = prev_pts[..., 0], prev_pts[..., 1]
+    proj_x = m[:, 0, 0, None] * px + m[:, 0, 1, None] * py + m[:, 0, 2, None]
+    proj_y = m[:, 1, 0, None] * px + m[:, 1, 1, None] * py + m[:, 1, 2, None]
+    w = valid.to(torch.float32)
+    total = (torch.abs(proj_x - curr_pts[..., 0]) * w).sum(1) + (torch.abs(proj_y - curr_pts[..., 1]) * w).sum(1)
+    count = torch.clamp(w.sum(1), min=1.0)
+    return torch.where(valid.any(1), total / count, 0.0)

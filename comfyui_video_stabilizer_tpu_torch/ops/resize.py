@@ -1,0 +1,130 @@
+"""Grayscale and area resize for the estimation path (plain PyTorch).
+
+Counterpart of ``comfyui_video_stabilizer_tpu/ops/resize.py``.  Gray is
+the Rec.601 luma dot followed by the reference's "x255 -> uint8"
+quantization (floor).  Integer shrink factors mean-pool (the area
+weights are uniform there); other factors apply the separable
+INTER_AREA weights as two float32 matrix products.
+
+The luma dot is evaluated as the fused multiply-add chain that XLA's
+CPU backend emits for the JAX reference: products are exact in float64
+and each step is rounded once to float32.  With a different rounding
+one pixel in a few thousand lands one grey level off after the floor.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+import torch
+
+_LUMA = np.array([0.299, 0.587, 0.114], np.float32)
+
+# Frames per gray+pool chunk: bounds the float64 temporaries of the
+# luma chain (~1.3 GB for 80 frames of 1080p unchunked).
+_GRAY_CHUNK_FRAMES = 16
+
+
+def area_weights(src: int, dst: int) -> np.ndarray:
+    """(dst, src) area-overlap weights for 1-D INTER_AREA downscale."""
+    scale = src / dst
+    w = np.zeros((dst, src), np.float64)
+    for i in range(dst):
+        lo = i * scale
+        hi = (i + 1) * scale
+        j0 = int(np.floor(lo))
+        j1 = int(np.ceil(hi))
+        for j in range(j0, min(j1, src)):
+            overlap = min(hi, j + 1) - max(lo, j)
+            if overlap > 0:
+                w[i, j] = overlap
+        w[i] /= w[i].sum()
+    return w.astype(np.float32)
+
+
+def _luma(frames: torch.Tensor) -> torch.Tensor:
+    """(N,H,W,3) float32 -> (N,H,W) float32: r*L0, then fma(g, L1, .), fma(b, L2, .)."""
+    l0, l1, l2 = (float(v) for v in _LUMA)
+    acc = (frames[..., 0].double() * l0).float()
+    acc = (frames[..., 1].double() * l1 + acc.double()).float()
+    return (frames[..., 2].double() * l2 + acc.double()).float()
+
+
+def _quantize(gray: torch.Tensor) -> torch.Tensor:
+    return torch.floor(torch.clamp(gray * 255.0, 0.0, 255.0))
+
+
+def make_gray(frames: torch.Tensor, quantize: bool = True) -> torch.Tensor:
+    """(N,H,W,3) float 0..1 -> (N,H,W) float gray (integers 0..255 when quantized)."""
+    frames = frames.to(torch.float32)
+    if frames.ndim == 3:
+        frames = frames[..., None]
+    gray = frames[..., 0] if frames.shape[-1] == 1 else _luma(frames)
+    return _quantize(gray) if quantize else gray
+
+
+def box_pool(stack: torch.Tensor, fy: int, fx: int) -> torch.Tensor:
+    n, h, w = stack.shape
+    return stack.reshape(n, h // fy, fy, w // fx, fx).mean(dim=(2, 4))
+
+
+def gray_pool(frames: torch.Tensor, fy: int, fx: int, quantize: bool = True) -> torch.Tensor:
+    """Gray + integer-factor INTER_AREA, in frame chunks (no full-res gray clip)."""
+    parts = [
+        box_pool(make_gray(frames[s:s + _GRAY_CHUNK_FRAMES], quantize), fy, fx)
+        for s in range(0, frames.shape[0], _GRAY_CHUNK_FRAMES)
+    ]
+    return torch.cat(parts, dim=0)
+
+
+def area_resize(stack: torch.Tensor, out_size: Tuple[int, int]) -> torch.Tensor:
+    """INTER_AREA downscale of an (N, H, W) stack to (w, h)."""
+    out_w, out_h = int(out_size[0]), int(out_size[1])
+    n, h, w = stack.shape
+    stack = stack.to(torch.float32)
+    if (out_w, out_h) == (w, h):
+        return stack
+    if h % out_h == 0 and w % out_w == 0:
+        return box_pool(stack, h // out_h, w // out_w)
+    wr = torch.as_tensor(area_weights(h, out_h), device=stack.device)
+    wc = torch.as_tensor(area_weights(w, out_w), device=stack.device)
+    return torch.matmul(torch.matmul(wr, stack), wc.T)
+
+
+def can_decimate(
+    width: int, height: int, working_size: Tuple[int, int] | None, decimation: int
+) -> bool:
+    """True when one fused gray+pool reproduces working-res gray followed
+    by ``log2(decimation)`` exact 2x area halvings."""
+    if decimation <= 1:
+        return True
+    tw, th = working_size if working_size is not None else (int(width), int(height))
+    if int(width) % tw or int(height) % th:
+        return False
+    return th % decimation == 0 and tw % decimation == 0
+
+
+def gray_for_estimation(
+    frames: torch.Tensor,
+    working_size: Tuple[int, int] | None,
+    quantize: bool = True,
+    decimation: int = 1,
+) -> torch.Tensor:
+    """Gray at the working size (divided by ``decimation``), on the frames' device.
+
+    The caller must have checked :func:`can_decimate` for
+    ``decimation`` > 1.
+    """
+    h_in, w_in = int(frames.shape[1]), int(frames.shape[2])
+    if decimation > 1:
+        if not can_decimate(w_in, h_in, working_size, decimation):
+            raise ValueError(f"decimation {decimation} does not divide the working size")
+        tw, th = working_size if working_size is not None else (w_in, h_in)
+        working_size = (tw // decimation, th // decimation)
+    if working_size is None:
+        return make_gray(frames, quantize)
+    out_w, out_h = int(working_size[0]), int(working_size[1])
+    if frames.ndim == 4 and frames.shape[-1] == 3 and h_in % out_h == 0 and w_in % out_w == 0:
+        return gray_pool(frames, h_in // out_h, w_in // out_w, quantize)
+    return area_resize(make_gray(frames, quantize), working_size)

@@ -1,0 +1,293 @@
+"""Batched homography warp and closed-form padding masks (PyTorch + K1).
+
+Counterpart of ``comfyui_video_stabilizer_tpu/ops/warp.py``.  Source
+coordinates are formed in displacement form, exactly as there: for an
+output pixel (x, y) and the normalized inverse coefficients
+[a, b, c, d, e, f, g, h] (host float64, shipped as float32)
+
+    D  = 1 + g*x + h*y
+    Qx = (a - 1)*x + b*y + c - g*x**2 - h*x*y        # = (sx - x) * D
+    dx = Qx / D;   x0 = x + floor(dx);   fx = dx - floor(dx)
+
+so float32 carries only the small displacement, never the absolute
+coordinate.  Taps outside the source read the border colour
+(BORDER_CONSTANT); bicubic is cv2's A = -0.75 kernel; nearest rounds
+half to even.
+
+``warp_frames`` is the kernel wrapper: a CUDA tensor launches the
+hand-written kernel K1 (``csrc/warp.cu``), a CPU tensor takes
+``warp_plain``, the plain PyTorch version with the same op order.  The
+padding mask (1 - nearest coverage) and its per-frame ratios stay
+plain PyTorch, as they are XLA in the JAX package.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence, Tuple
+
+import numpy as np
+import torch
+
+from . import cuda_build
+
+Interp = str  # 'bilinear' | 'bicubic' | 'nearest'
+INTERP_CODES = {"bilinear": 0, "bicubic": 1, "nearest": 2}
+
+_DISP_LIM = 1.0e6  # px; beyond this everything is out of frame anyway
+
+# Device-memory ceiling for one clip.  Streaming clips through time
+# chunks is not ported yet, so a whole clip lives on the device: input
+# and output frames (C float32 values a pixel each) plus the float32
+# padding mask, 58,060,800 bytes a frame for 1080p RGB.  With 72 GiB of
+# an 80 GB H100 given to that live set (the rest covers the estimation
+# pyramids, the mask's temporaries and the allocator's slack), a 1080p
+# RGB clip stops fitting at 1,332 frames; beyond the ceiling the engine
+# raises instead of streaming.
+DEVICE_CLIP_BUDGET_BYTES = 72 << 30
+
+# Padding masks are computed in frame chunks of at most this many
+# pixels, bounding the coordinate temporaries (~12 float32 fields).
+_MASK_CHUNK_PIXELS = 1 << 25
+
+
+def clip_device_bytes(n: int, in_h: int, in_w: int, out_h: int, out_w: int, c: int = 3) -> int:
+    return 4 * n * (in_h * in_w * c + out_h * out_w * (c + 1))
+
+
+def check_fits_device(n: int, in_h: int, in_w: int, out_h: int, out_w: int, c: int = 3) -> None:
+    """Raise for clips whose frames, output and masks exceed the budget."""
+    need = clip_device_bytes(n, in_h, in_w, out_h, out_w, c)
+    if need > DEVICE_CLIP_BUDGET_BYTES:
+        per_frame = clip_device_bytes(1, in_h, in_w, out_h, out_w, c)
+        raise MemoryError(
+            f"clip of {n} frames needs {need} bytes of device memory "
+            f"(budget {DEVICE_CLIP_BUDGET_BYTES}, at most "
+            f"{DEVICE_CLIP_BUDGET_BYTES // per_frame} frames of this size); "
+            "streaming long clips through time chunks is not ported yet "
+            "(ROADMAP.md, slice 1: streaming)"
+        )
+
+
+# ---------------------------------------------------------------------------
+# Host-side matrix preparation (float64, as in the JAX package)
+# ---------------------------------------------------------------------------
+
+def prepare_inverse_coeffs(matrices: np.ndarray) -> np.ndarray:
+    """(N, 3, 3) forward src->dst matrices -> (N, 8) displacement coeffs.
+
+    Per-frame [a, b, c, d, e, f, g, h] of the *inverse* map, normalized
+    so that the constant denominator term is 1; float64 on the host.
+    """
+    matrices = np.asarray(matrices, dtype=np.float64)
+    if matrices.ndim == 2:
+        matrices = matrices[None]
+    n = matrices.shape[0]
+    coeffs = np.zeros((n, 8), dtype=np.float64)
+    for i in range(n):
+        try:
+            minv = np.linalg.inv(matrices[i])
+        except np.linalg.LinAlgError:
+            minv = np.eye(3)
+        w0 = minv[2, 2]
+        if w0 != 0.0 and np.isfinite(w0):
+            minv = minv / w0
+        coeffs[i] = [
+            minv[0, 0], minv[0, 1], minv[0, 2],
+            minv[1, 0], minv[1, 1], minv[1, 2],
+            minv[2, 0], minv[2, 1],
+        ]
+    return coeffs
+
+
+# ---------------------------------------------------------------------------
+# Coordinates (plain PyTorch; K1 repeats this arithmetic per pixel)
+# ---------------------------------------------------------------------------
+
+def _displacements(coeffs: torch.Tensor, out_h: int, out_w: int):
+    """Per-pixel (dx, dy, safe) of shape (N, out_h, out_w)."""
+    dev = coeffs.device
+    xx = torch.arange(out_w, device=dev, dtype=torch.float32)[None, None, :]
+    yy = torch.arange(out_h, device=dev, dtype=torch.float32)[None, :, None]
+    a, b, c, d, e, f, g, h = (coeffs[:, i, None, None] for i in range(8))
+    denom = 1.0 + g * xx + h * yy
+    qx = (a - 1.0) * xx + b * yy + c - (g * xx) * xx - (h * xx) * yy
+    qy = d * xx + (e - 1.0) * yy + f - (g * yy) * xx - (h * yy) * yy
+    safe = denom != 0.0
+    inv_d = torch.where(safe, 1.0 / torch.where(safe, denom, 1.0), 0.0)
+    return qx * inv_d, qy * inv_d, safe
+
+
+def _split_coords(coeffs: torch.Tensor, out_h: int, out_w: int):
+    """int32 (x0, y0) = floor(source) and float32 fractions (fx, fy)."""
+    dx, dy, safe = _displacements(coeffs, out_h, out_w)
+    dev = coeffs.device
+    xi = torch.arange(out_w, device=dev, dtype=torch.int32)[None, None, :]
+    yi = torch.arange(out_h, device=dev, dtype=torch.int32)[None, :, None]
+    dx = torch.where(safe, dx.clamp(-_DISP_LIM, _DISP_LIM), -_DISP_LIM)
+    dy = torch.where(safe, dy.clamp(-_DISP_LIM, _DISP_LIM), -_DISP_LIM)
+    dxf = torch.floor(dx)
+    dyf = torch.floor(dy)
+    return xi + dxf.to(torch.int32), yi + dyf.to(torch.int32), dx - dxf, dy - dyf
+
+
+def _nearest_coords(coeffs: torch.Tensor, out_h: int, out_w: int):
+    """Round-half-to-even integer source coords (cv2 INTER_NEAREST)."""
+    x0, y0, fx, fy = _split_coords(coeffs, out_h, out_w)
+
+    def rnd(base, frac):
+        return base + torch.where(frac > 0.5, 1, torch.where(frac < 0.5, 0, base & 1))
+
+    return rnd(x0, fx), rnd(y0, fy)
+
+
+def _gather_taps(frames: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor) -> torch.Tensor:
+    """frames (N,H,W,C), ys/xs (N,OH,OW) int32 -> (N,OH,OW,C), indices clipped."""
+    n, h, w, c = frames.shape
+    lin = (ys.clamp(0, h - 1).long() * w + xs.clamp(0, w - 1).long()).reshape(n, -1, 1)
+    out = torch.gather(frames.reshape(n, h * w, c), 1, lin.expand(-1, -1, c))
+    return out.reshape(n, ys.shape[1], ys.shape[2], c)
+
+
+def _cubic_weights(t: torch.Tensor):
+    """OpenCV's bicubic kernel (A = -0.75) at offsets -1, 0, 1, 2."""
+    A = -0.75
+    w0 = ((A * (t + 1) - 5 * A) * (t + 1) + 8 * A) * (t + 1) - 4 * A
+    w1 = ((A + 2) * t - (A + 3)) * t * t + 1
+    w2 = ((A + 2) * (1 - t) - (A + 3)) * (1 - t) * (1 - t) + 1
+    w3 = 1.0 - w0 - w1 - w2
+    return (w0, w1, w2, w3)
+
+
+def warp_plain(frames: torch.Tensor, coeffs: torch.Tensor, border: torch.Tensor,
+               out_h: int, out_w: int, interp: Interp) -> torch.Tensor:
+    """Plain PyTorch version of K1 (same op order; gather based)."""
+    n, h, w, c = frames.shape
+    border_vec = border.reshape(1, 1, 1, c)
+
+    def tap(ys, xs):
+        valid = ((xs >= 0) & (xs < w) & (ys >= 0) & (ys < h))[..., None]
+        return torch.where(valid, _gather_taps(frames, ys, xs), border_vec)
+
+    if interp == "nearest":
+        xn, yn = _nearest_coords(coeffs, out_h, out_w)
+        return tap(yn, xn)
+
+    x0, y0, fx, fy = _split_coords(coeffs, out_h, out_w)
+    acc = torch.zeros((n, out_h, out_w, c), dtype=torch.float32, device=frames.device)
+    if interp == "bilinear":
+        taps = (
+            (0, 0, (1.0 - fy) * (1.0 - fx)),
+            (0, 1, (1.0 - fy) * fx),
+            (1, 0, fy * (1.0 - fx)),
+            (1, 1, fy * fx),
+        )
+        for dy_t, dx_t, wgt in taps:
+            acc = acc + tap(y0 + dy_t, x0 + dx_t) * wgt[..., None]
+        return acc
+    if interp == "bicubic":
+        wxs = _cubic_weights(fx)
+        wys = _cubic_weights(fy)
+        for iy in range(4):
+            for ix in range(4):
+                acc = acc + tap(y0 + iy - 1, x0 + ix - 1) * (wys[iy] * wxs[ix])[..., None]
+        return acc
+    raise ValueError(f"Unsupported interpolation {interp!r}.")
+
+
+def warp_frames(frames: torch.Tensor, coeffs: torch.Tensor, border: torch.Tensor,
+                out_h: int, out_w: int, interp: Interp = "bilinear") -> torch.Tensor:
+    """Warp (N,H,W,C) float32 frames by per-frame (N,8) inverse coeffs.
+
+    CUDA tensors launch K1 (raising if it cannot build or launch); CPU
+    tensors take :func:`warp_plain`.
+    """
+    if interp not in INTERP_CODES:
+        raise ValueError(f"Unsupported interpolation {interp!r}.")
+    if frames.device.type == "cpu":
+        return warp_plain(frames, coeffs, border, out_h, out_w, interp)
+    n, h, w, c = frames.shape
+    cuda_build.require_cuda_tensor("frames", frames, torch.float32, 4)
+    cuda_build.require_cuda_tensor("coeffs", coeffs, torch.float32, 2)
+    cuda_build.require_cuda_tensor("border", border, torch.float32, 1)
+    if coeffs.shape != (n, 8) or border.shape != (c,):
+        raise ValueError(f"coeffs {tuple(coeffs.shape)} / border {tuple(border.shape)} "
+                         f"do not match {n} frames of {c} channels")
+    if not 1 <= c <= 4 or not 1 <= n <= 65535:
+        raise ValueError(f"K1 takes 1..4 channels and 1..65535 frames, got {c} and {n}")
+    if coeffs.device != frames.device or border.device != frames.device:
+        raise ValueError("frames, coeffs and border must be on one device")
+    out = torch.empty((n, out_h, out_w, c), dtype=torch.float32, device=frames.device)
+    with torch.cuda.device(frames.device):
+        err = cuda_build.library().cvst_warp(
+            frames.data_ptr(), coeffs.data_ptr(), border.data_ptr(), out.data_ptr(),
+            n, h, w, c, out_h, out_w, INTERP_CODES[interp],
+            cuda_build.current_stream(frames.device),
+        )
+    cuda_build.check_launch(err, "warp")
+    cuda_build.LAUNCHES["warp"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Padding masks (plain PyTorch)
+# ---------------------------------------------------------------------------
+
+def padding_mask_stats(
+    matrices: np.ndarray,
+    in_size: Tuple[int, int],
+    out_size: Tuple[int, int],
+    device: torch.device | str,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(padding masks (N, out_h, out_w), padded ratios (N,)) on ``device``.
+
+    The mask is 1 - nearest coverage (binary, so the reference's
+    zero-small step is the identity on it); ratios are per-frame means.
+    """
+    in_w, in_h = int(in_size[0]), int(in_size[1])
+    out_w, out_h = int(out_size[0]), int(out_size[1])
+    coeffs = torch.as_tensor(
+        prepare_inverse_coeffs(matrices).astype(np.float32), device=device
+    )
+    n = coeffs.shape[0]
+    mask = torch.empty((n, out_h, out_w), dtype=torch.float32, device=device)
+    chunk = max(1, _MASK_CHUNK_PIXELS // max(out_h * out_w, 1))
+    for s in range(0, n, chunk):
+        xn, yn = _nearest_coords(coeffs[s:s + chunk], out_h, out_w)
+        inside = (xn >= 0) & (xn < in_w) & (yn >= 0) & (yn < in_h)
+        mask[s:s + chunk] = 1.0 - inside.to(torch.float32)
+    return mask, mask.reshape(n, -1).mean(dim=1)
+
+
+def zero_small(mask: torch.Tensor) -> torch.Tensor:
+    """Zero sub-1e-3 mask values (reference mask[mask < 1e-3] = 0)."""
+    return torch.where(mask < 1e-3, 0.0, mask)
+
+
+# ---------------------------------------------------------------------------
+# Public API
+# ---------------------------------------------------------------------------
+
+def warp_clip(
+    frames: torch.Tensor,
+    matrices: np.ndarray,
+    out_size: Tuple[int, int],
+    interp: Interp = "bilinear",
+    border: Sequence[float] | float = (0.0, 0.0, 0.0),
+) -> torch.Tensor:
+    """Warp a whole clip: frames (N,H,W,C) by per-frame src->dst matrices.
+
+    ``out_size`` is (width, height), the cv2 convention.  The result
+    lies on the frames' device; matrices are host values.
+    """
+    out_w, out_h = int(out_size[0]), int(out_size[1])
+    n, _, _, c = frames.shape
+    if n == 0:
+        return torch.zeros((0, out_h, out_w, c), dtype=torch.float32, device=frames.device)
+    coeffs = torch.as_tensor(
+        prepare_inverse_coeffs(matrices).astype(np.float32), device=frames.device
+    )
+    border_arr = np.broadcast_to(np.asarray(border, np.float32), (c,))
+    return warp_frames(
+        frames.to(torch.float32).contiguous(), coeffs,
+        torch.as_tensor(border_arr.copy(), device=frames.device), out_h, out_w, interp,
+    )

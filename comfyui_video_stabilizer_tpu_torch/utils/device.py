@@ -1,0 +1,37 @@
+"""Device policy of the port.
+
+The device is always explicit and defaults to ``"cuda"``.  Asking for
+CUDA where there is none raises; nothing carries on quietly on the
+CPU.  The CPU runs only when a caller names it (the parity tests do),
+and then every kernel wrapper takes its plain PyTorch version.
+"""
+
+from __future__ import annotations
+
+import torch
+
+DEFAULT_DEVICE = "cuda"
+
+
+def resolve_device(device: str | torch.device | None = DEFAULT_DEVICE) -> torch.device:
+    """``device`` as a ``torch.device``; raises when CUDA is asked for and absent."""
+    dev = torch.device(DEFAULT_DEVICE if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(dev)!r} requested but torch.cuda.is_available() is False; "
+            "pass device='cpu' to run the plain PyTorch path on the CPU"
+        )
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {str(dev)!r}: use 'cuda' or 'cpu'")
+    return dev
+
+
+def strict_fp32() -> None:
+    """Keep float32 matrix products and convolutions in full float32.
+
+    cuDNN convolutions default to TF32 (about three decimal digits); the
+    main path is held to the JAX reference in float32, so both switches
+    are set explicitly.
+    """
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False

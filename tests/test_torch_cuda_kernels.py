@@ -1,0 +1,114 @@
+"""The CUDA kernels against their plain PyTorch versions, on the card.
+
+Every test here needs an NVIDIA GPU (marker ``cuda``) and skips without
+one.  The file imports no JAX, so on a machine without JAX it runs
+without the suite's conftest:
+
+    python -m pytest --noconftest tests/test_torch_cuda_kernels.py -q
+
+Tolerance: bitwise.  The kernels are built with ``-fmad=false`` and
+follow the plain versions' op order, so every multiply and add rounds
+the same way.  The end-to-end case compares the CUDA path with the CPU
+path (the plain versions) on a small clip: per-pair modes equal,
+matrices <= 1e-3, frames p99 <= 1e-3 (reductions run in another order
+on the card).
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from comfyui_video_stabilizer_tpu_torch.ops import cuda_build  # noqa: E402
+from comfyui_video_stabilizer_tpu_torch.ops import cv_cuda as CV  # noqa: E402
+from comfyui_video_stabilizer_tpu_torch.ops import warp as W  # noqa: E402
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    return torch.device("cuda", 0)
+
+
+def _mats(n, seed, persp=0.0, shift=(0.0, 0.0)):
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n):
+        th = rng.uniform(-0.02, 0.02)
+        s = np.exp(rng.uniform(-0.01, 0.01))
+        tx, ty = rng.uniform(-6, 6, 2) + np.asarray(shift) * (-1) ** i
+        out.append(np.array([[s * np.cos(th), -s * np.sin(th), tx],
+                             [s * np.sin(th), s * np.cos(th), ty], [persp, -persp / 2, 1.0]]))
+    return np.stack(out)
+
+
+@pytest.mark.parametrize("interp", ["bilinear", "bicubic", "nearest"])
+@pytest.mark.parametrize("channels", [1, 3, 4])
+@pytest.mark.parametrize("case", ["similarity", "perspective", "past_edge"])
+def test_warp_kernel_bitwise(cuda, interp, channels, case):
+    n, h, w = 3, 97, 161
+    frames = torch.rand((n, h, w, channels), generator=torch.Generator().manual_seed(1)).to(cuda)
+    mats = _mats(n, 2, persp=1e-4 if case == "perspective" else 0.0,
+                 shift=(150.0, 60.0) if case == "past_edge" else (0.0, 0.0))
+    coeffs = torch.as_tensor(W.prepare_inverse_coeffs(mats).astype(np.float32), device=cuda)
+    border = torch.linspace(0.1, 0.9, channels, device=cuda)
+    out = W.warp_frames(frames, coeffs, border, h + 5, w - 7, interp)
+    ref = W.warp_plain(frames, coeffs, border, h + 5, w - 7, interp)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("radius", [2, 3])
+@pytest.mark.parametrize("shape", [(3, 18, 24), (2, 37, 53), (4, 135, 240)])
+def test_cost_volume_kernel_bitwise(cuda, radius, shape):
+    gen = torch.Generator().manual_seed(5)
+    I = (torch.rand(shape, generator=gen) * 255).floor()
+    J = torch.roll(I, (1, -2), (1, 2)) + torch.randn(shape, generator=gen) * 3
+    I, J = I.to(cuda), J.to(cuda)
+    out = CV.cost_volume_subpixel(I, J, radius, 8)
+    ref = CV.cost_volume_plain(I, J, radius, 8)
+    torch.cuda.synchronize()
+    for a, b in zip(out, ref):
+        assert torch.equal(a, b)
+
+
+def test_wrappers_validate_arguments(cuda):
+    frames = torch.rand((1, 8, 8, 3), device=cuda)
+    coeffs = torch.zeros((1, 8), device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        W.warp_frames(frames.transpose(1, 2), coeffs, torch.zeros(3, device=cuda), 8, 8)
+    with pytest.raises(TypeError, match="float32"):
+        CV.cost_volume_subpixel(torch.zeros((1, 8, 8), device=cuda, dtype=torch.float64),
+                                torch.zeros((1, 8, 8), device=cuda, dtype=torch.float64), 2, 8)
+    with pytest.raises(ValueError, match="radius"):
+        CV.cost_volume_subpixel(torch.zeros((1, 8, 8), device=cuda), torch.zeros((1, 8, 8), device=cuda), 4, 8)
+
+
+def test_slice_on_cuda_launches_kernels_and_matches_cpu(cuda):
+    from comfyui_video_stabilizer_tpu_torch.models.flow import stabilize_flow
+    from comfyui_video_stabilizer_tpu_torch.utils.video_io import normalize_video_input
+
+    gen = torch.Generator().manual_seed(3)
+    base = torch.nn.functional.avg_pool2d(torch.rand((1, 1, 208, 272), generator=gen), 5, 1, 2)[0, 0]
+    base = torch.stack([base, base * 0.7 + 0.1, 1.0 - base], dim=-1)
+    shake = [np.eye(3)]
+    for d in _mats(7, 4) * np.array([[1, 1, 0.4], [1, 1, 0.4], [1, 1, 1]]):
+        shake.append(d @ shake[-1])
+    crop = np.eye(3)
+    crop[0, 2] = crop[1, 2] = -32
+    view = np.stack([crop @ np.linalg.inv(m) for m in shake])
+    frames = W.warp_clip(base[None].expand(8, *base.shape).contiguous(), view, (192, 144), "bilinear", (0.5,) * 3)
+    args = ("crop_and_pad", "similarity", False, 0.8, 0.6, 0.6, (127, 127, 127), 30.0)
+    cpu = stabilize_flow(normalize_video_input(frames, device="cpu"), *args, device="cpu")
+    cuda_build.reset_launches()
+    gpu = stabilize_flow(normalize_video_input(frames, device=cuda), *args, device=cuda)
+    torch.cuda.synchronize()
+    assert cuda_build.LAUNCHES["warp"] == 1 and cuda_build.LAUNCHES["cost_volume"] >= 4
+    tc, tg = cpu.meta["estimated_motion"]["per_transition"], gpu.meta["estimated_motion"]["per_transition"]
+    assert [t["mode"] for t in tg] == [t["mode"] for t in tc]
+    assert np.abs(np.array([t["matrix"] for t in tg]) - np.array([t["matrix"] for t in tc])).max() <= 1e-3
+    d = (gpu.frames.cpu() - cpu.frames).abs()
+    assert float(torch.quantile(d.flatten()[::7], 0.99)) <= 1e-3

@@ -1,0 +1,125 @@
+"""The PyTorch package imports no JAX, shares the JAX package's
+constants, and refuses CUDA where there is none.
+
+The no-JAX check runs in a subprocess: this test session imports JAX
+for every test (tests/conftest.py).
+"""
+
+import os
+import pathlib
+import subprocess
+import sys
+import textwrap
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+
+_CPU_SLICE = textwrap.dedent(
+    """
+    import sys
+    import numpy as np
+    import torch
+    import comfyui_video_stabilizer_tpu_torch
+    from comfyui_video_stabilizer_tpu_torch import nodes
+    from comfyui_video_stabilizer_tpu_torch.ops import cuda_build, cv_cuda, flow_dis, prng, ransac, resize, warp
+    from comfyui_video_stabilizer_tpu_torch.models import flow, stabilize
+    from comfyui_video_stabilizer_tpu_torch.utils import device, profiling, video_io
+
+    rng = np.random.default_rng(0)
+    base = rng.random((80, 112)).astype(np.float32)
+    base = (base + np.roll(base, 1, 0) + np.roll(base, 1, 1) + np.roll(base, (1, 1), (0, 1))) / 4
+    frames = np.stack([np.roll(base, (i, 2 * i), (0, 1))[8:72, 8:104] for i in range(5)])
+    frames = np.repeat(frames[..., None], 3, axis=-1)
+    out = nodes.VideoStabilizerFlow.execute(
+        torch.from_numpy(frames), 16.0, "crop_and_pad", "similarity", False,
+        0.8, 0.6, 0.6, "#7F7F7F", device="cpu")
+    assert tuple(out[0].shape) == (5, 64, 96, 3), out[0].shape
+    assert out[2]["flow_backend"] == "DIS"
+    assert "jax" not in sys.modules, sorted(m for m in sys.modules if m.startswith("jax"))
+    print("NO_JAX_OK")
+    """
+)
+
+
+def test_port_imports_and_runs_without_jax():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT) + os.pathsep + env.get("PYTHONPATH", "")
+    proc = subprocess.run(
+        [sys.executable, "-c", _CPU_SLICE], cwd=str(ROOT), env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "NO_JAX_OK" in proc.stdout
+
+
+def _constant_pairs():
+    from comfyui_video_stabilizer_tpu.models import flow as JFL
+    from comfyui_video_stabilizer_tpu.models import stabilize as JST
+    from comfyui_video_stabilizer_tpu.ops import flow_dis as JFD
+    from comfyui_video_stabilizer_tpu.ops import ransac as JRS
+    from comfyui_video_stabilizer_tpu.ops import resize as JR
+    from comfyui_video_stabilizer_tpu_torch.models import flow as TFL
+    from comfyui_video_stabilizer_tpu_torch.models import stabilize as TST
+    from comfyui_video_stabilizer_tpu_torch.ops import flow_dis as TFD
+    from comfyui_video_stabilizer_tpu_torch.ops import ransac as TRS
+    from comfyui_video_stabilizer_tpu_torch.ops import resize as TR
+
+    return {
+        "SAMPLE_STEP": (JFL.SAMPLE_STEP, TFL.SAMPLE_STEP),
+        "MIN_VALID": (JFL.MIN_VALID, TFL.MIN_VALID),
+        "SIM_MIN_RATIO": (JFL.SIM_MIN_RATIO, TFL.SIM_MIN_RATIO),
+        "FINEST_SCALE": (JFD.FINEST_SCALE, TFD.FINEST_SCALE),
+        "RADIUS": (JFD.RADIUS, TFD.RADIUS),
+        "PATCH": (JFD.PATCH, TFD.PATCH),
+        "DEFAULT_HYPOTHESES": (JRS.DEFAULT_HYPOTHESES, TRS.DEFAULT_HYPOTHESES),
+        "SIM_THRESH": (JRS.SIM_THRESH, TRS.SIM_THRESH),
+        "_CHUNK": (JRS._CHUNK, TRS._CHUNK),
+        "_LUMA": (JR._LUMA.tolist(), TR._LUMA.tolist()),
+        "ESTIMATION_CHUNK_PAIRS": (JST.ESTIMATION_CHUNK_PAIRS, TST.ESTIMATION_CHUNK_PAIRS),
+        "MODE_PRIORITY": (JST.MODE_PRIORITY, TST.MODE_PRIORITY),
+    }
+
+
+@pytest.mark.parametrize("name", [
+    "SAMPLE_STEP", "MIN_VALID", "SIM_MIN_RATIO", "FINEST_SCALE",
+    "RADIUS", "PATCH", "DEFAULT_HYPOTHESES", "SIM_THRESH", "_CHUNK", "_LUMA",
+    "ESTIMATION_CHUNK_PAIRS", "MODE_PRIORITY",
+])
+def test_constants_equal_jax(name):
+    """Tolerance: exact (the constants are copied, not derived)."""
+    ref, ours = _constant_pairs()[name]
+    assert ours == ref
+
+
+def test_cuda_request_without_card_raises(monkeypatch):
+    from comfyui_video_stabilizer_tpu_torch.models.flow import stabilize_flow
+    from comfyui_video_stabilizer_tpu_torch.utils import device as D
+    from comfyui_video_stabilizer_tpu_torch.utils.video_io import normalize_video_input
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="is_available"):
+        D.resolve_device("cuda")
+    with pytest.raises(RuntimeError, match="is_available"):
+        normalize_video_input(torch.zeros((2, 16, 16, 3)))  # default device is cuda
+    ctx = normalize_video_input(torch.zeros((2, 16, 16, 3)), device="cpu")
+    with pytest.raises(RuntimeError, match="is_available"):
+        stabilize_flow(ctx, "crop_and_pad", "similarity", False, 0.8, 0.6, 0.6, (0, 0, 0), 30.0)
+    assert D.resolve_device("cpu").type == "cpu"
+
+
+def test_cpu_tensor_takes_plain_versions_without_launching():
+    """A CPU tensor never reaches the kernel library (no build, no launch)."""
+    from comfyui_video_stabilizer_tpu_torch.ops import cuda_build, cv_cuda, warp
+
+    cuda_build.reset_launches()
+    frames = torch.rand((1, 8, 8, 3))
+    coeffs = torch.tensor([[1.0, 0, 0.5, 0, 1.0, 0.25, 0, 0]])
+    out = warp.warp_frames(frames, coeffs, torch.zeros(3), 8, 8)
+    assert torch.equal(out, warp.warp_plain(frames, coeffs, torch.zeros(3), 8, 8, "bilinear"))
+    grays = torch.rand((2, 12, 12)) * 255
+    fx, fy, cmin = cv_cuda.cost_volume_subpixel(grays, grays, 2, 8)
+    assert torch.equal(cmin, cv_cuda.cost_volume_plain(grays, grays, 2, 8)[2])
+    assert cuda_build.LAUNCHES == {"warp": 0, "cost_volume": 0}
