@@ -13,7 +13,18 @@ Phases (any failure raises and the script exits non-zero):
      with launch counts, output checks, a CPU-path reference on a small
      clip, and the warm frames/s
   6. the Flow node on a CPU tensor of 16 frames at 1080p
-  7. a JSON line per kernel, the card line, then {"ok": true, ...} last
+  7. K4 (GFTT scores) against its plain version on the Classic slice's
+     Sobel products, (79, 540, 960)
+  8. K6 (window extraction) against its plain version at (79, 400, 49)
+     and (79, 400, 36) on the level-0 stack with the real GFTT corners
+  9. K5 (LK Gauss-Newton) against its plain version: one level-0 solve
+     on the real clip's windows, with the iteration histogram
+ 10. the Classic slice: stabilize_classic on the same 1080p x 80 clip,
+     with launch counts, output checks, the warm frames/s, a stage split,
+     and BASELINE config 1 (854x480, 64 frames) once
+ 11. Classic, CUDA path against CPU path on a small clip; the Classic
+     node on a CPU tensor of 16 frames at 1080p
+ 12. a JSON line per kernel, the card line, then {"ok": true, ...} last
 
 Exits 2 without printing a result when torch.cuda.is_available() is false.
 """
@@ -37,6 +48,10 @@ K2_CMIN_RTOL = 1e-6
 K2_EQUAL_FRAC = 0.9999  # a one-ulp cost difference may flip a tie
 SMALL_MAT_TOL = 1e-3    # CUDA path vs CPU path on the small clip
 SMALL_FRAME_P99 = 1e-3
+K4_RTOL = 1e-6          # expected bitwise: the same doubling-tree order
+K5_STATUS_EQUAL = 0.999  # expected bitwise: the same op and reduction order
+K5_TRACK_TOL = 1e-3     # px, live tracks
+BASELINE1 = (64, 480, 854)  # BASELINE.json config 1: Classic 480p / 64 frames
 
 
 class SmokeFailure(RuntimeError):
@@ -163,8 +178,9 @@ def ptxas_summary(text: str):
     for line in text.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            t = re.search(r"\d([a-z][a-z_]*_kernel)I((?:Li\d+E)+)E", m.group(1))
-            name = f"{t.group(1)}<{','.join(re.findall(r'Li(\d+)E', t.group(2)))}>" if t else m.group(1)
+            t = re.search(r"\d([a-z][a-z_]*_kernel)(?:I((?:Li\d+E)+)E)?", m.group(1))
+            name = m.group(1) if not t else t.group(1) if not t.group(2) else \
+                f"{t.group(1)}<{','.join(re.findall(r'Li(\d+)E', t.group(2)))}>"
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m:
@@ -294,6 +310,13 @@ def run_slice(ctx, device):
                           (127, 127, 127), 30.0, device=device)
 
 
+def run_classic(ctx, device):
+    from comfyui_video_stabilizer_tpu_torch.models.classic import stabilize_classic
+
+    return stabilize_classic(ctx, "crop_and_pad", "similarity", False, 0.8, 0.6, 0.6,
+                             (127, 127, 127), 30.0, device=device)
+
+
 def phase_slice(device, frames):
     import torch
 
@@ -338,14 +361,14 @@ def phase_slice(device, frames):
     return launches, fps
 
 
-def phase_small_reference(device):
+def phase_small_reference(device, run=run_slice, name="reference"):
     """The CUDA path against the CPU path (the plain versions, which the
     CPU tests hold to the JAX reference) on a small shaken clip."""
     import torch
 
     frames = synth_clip(8, 144, 192, seed=9, device="cpu")
-    cpu = run_slice(make_context(frames), "cpu")
-    gpu = run_slice(make_context(frames.to(device)), device)
+    cpu = run(make_context(frames), "cpu")
+    gpu = run(make_context(frames.to(device)), device)
     pc = [t["mode"] for t in cpu.meta["estimated_motion"]["per_transition"]]
     pg = [t["mode"] for t in gpu.meta["estimated_motion"]["per_transition"]]
     check(pc == pg, f"per-pair modes differ: {pc} vs {pg}")
@@ -354,20 +377,21 @@ def phase_small_reference(device):
     mat_err = float(np.abs(mc - mg).max())
     d = (cpu.frames - gpu.frames.cpu()).abs().flatten()
     p99 = float(torch.quantile(d[:: max(1, d.numel() // 1_000_000)], 0.99))
-    log(f"[reference] 8x144x192 clip, CUDA vs CPU path: modes equal, matrices max|d| {mat_err:.3e}, "
+    log(f"[{name}] 8x144x192 clip, CUDA vs CPU path: modes equal, matrices max|d| {mat_err:.3e}, "
         f"frames p99 {p99:.3e}, max {float(d.max()):.3e}")
     check(mat_err <= SMALL_MAT_TOL, f"matrices differ by {mat_err}")
     check(p99 <= SMALL_FRAME_P99, f"frames p99 {p99}")
 
 
-def phase_node(frames_cpu):
+def phase_node(frames_cpu, node_name="VideoStabilizerFlow"):
     import torch
 
-    from comfyui_video_stabilizer_tpu_torch.nodes import VideoStabilizerFlow
+    from comfyui_video_stabilizer_tpu_torch import nodes
 
+    node = getattr(nodes, node_name)
     t0 = time.perf_counter()
-    out = VideoStabilizerFlow.execute(frames_cpu, 30.0, "crop_and_pad", "similarity", False,
-                                      0.8, 0.6, 0.6, "#7F7F7F")
+    out = node.execute(frames_cpu, 30.0, "crop_and_pad", "similarity", False,
+                       0.8, 0.6, 0.6, "#7F7F7F")
     secs = time.perf_counter() - t0
     video, mask, meta = out[0], out[1], out[2]
     n = frames_cpu.shape[0]
@@ -377,8 +401,261 @@ def phase_node(frames_cpu):
     check(tuple(mask.shape) == (n, HEIGHT, WIDTH) and mask.device.type == "cpu", f"node masks {tuple(mask.shape)}")
     check(meta["frames"] == n and "motion_meta" in meta, "node meta incomplete")
     check(bool(torch.isfinite(video).all()), "node frames not finite")
-    log(f"[node] VideoStabilizerFlow.execute on a CPU tensor ({n}, {HEIGHT}, {WIDTH}, 3): "
+    log(f"[node] {node_name}.execute on a CPU tensor ({n}, {HEIGHT}, {WIDTH}, 3): "
         f"{secs:.3f} s, mode {meta['transform_mode_applied']}")
+
+
+def classic_grays(frames):
+    """The Classic slice's working grays: (80, 540, 960), no decimation."""
+    from comfyui_video_stabilizer_tpu_torch.models.classic import classic_estimator
+    from comfyui_video_stabilizer_tpu_torch.models.stabilize import estimation_plan
+    from comfyui_video_stabilizer_tpu_torch.ops import resize as R
+
+    working, dec = estimation_plan(WIDTH, HEIGHT, classic_estimator)
+    check(dec == 1, f"Classic decimation {dec}")
+    return R.gray_for_estimation(frames, working, decimation=dec)
+
+
+def timed_pair(kernel, plain, kernel_reps: int, plain_reps: int):
+    """(kernel ms, plain ms) in the order plain, kernel, kernel, plain; best of each."""
+    t_plain = [cuda_ms(plain, plain_reps)]
+    t_kern = [cuda_ms(kernel, kernel_reps) for _ in range(2)]
+    t_plain.append(cuda_ms(plain, plain_reps))
+    return min(t_kern), min(t_plain), t_kern, t_plain
+
+
+def phase_k4(grays):
+    import torch
+
+    from comfyui_video_stabilizer_tpu_torch.ops import gftt_cuda as GF
+    from comfyui_video_stabilizer_tpu_torch.ops import lk as LK
+
+    g = grays[:-1]
+    dx, dy = LK._conv2(g, LK._SOBEL_X), LK._conv2(g, LK._SOBEL_Y)
+    prods = [(dx * dx).contiguous(), (dx * dy).contiguous(), (dy * dy).contiguous()]
+    del dx, dy
+    out = GF.gftt_scores(*prods)
+    ref = GF.gftt_plain(*prods)
+    torch.cuda.synchronize()
+    keep, keep_ref = torch.isfinite(out), torch.isfinite(ref)
+    check(bool(torch.equal(keep, keep_ref)), "K4: NMS masks differ")
+    diff = (out[keep] - ref[keep]).abs()
+    rel = float((diff / ref[keep].abs().clamp(min=1e-30)).max())
+    unequal = int((out[keep] != ref[keep]).sum())
+    log(f"[K4] {tuple(g.shape)}: NMS masks equal ({int(keep.sum())} kept), unequal scores {unequal}, "
+        f"max rel diff {rel:.3e}")
+    check(rel <= K4_RTOL, f"K4: max rel diff {rel} > {K4_RTOL}")
+    ms, plain_ms, tk, tp = timed_pair(lambda: GF.gftt_scores(*prods), lambda: GF.gftt_plain(*prods), 20, 3)
+    log(f"[K4] {tuple(g.shape)}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (runs {tk}, {tp})")
+    return {"max_abs_err": float(diff.max()) if diff.numel() else 0.0, "ms": ms, "plain_ms": plain_ms}
+
+
+def phase_k6(grays):
+    import torch
+
+    from comfyui_video_stabilizer_tpu_torch.ops import extract_cuda as EX
+    from comfyui_video_stabilizer_tpu_torch.ops import lk as LK
+    from comfyui_video_stabilizer_tpu_torch.ops.pad import reflect_pad
+
+    I, J = grays[:-1], grays[1:].contiguous()
+    pts, _ = LK.gftt_batch(I)
+    half = LK.WIN // 2
+    cur = (torch.floor(pts).to(torch.int32) - half - LK.TRAVEL).contiguous()
+    tpl = (torch.floor(pts).to(torch.int32) - half - 1).contiguous()
+    Ir = reflect_pad(I, 1, 1).contiguous()
+    result = {"max_abs_err": 0.0}
+    for name, src, corners, wext in (("search", J, cur, LK.WEXT), ("template", Ir, tpl, LK.WIN + 5)):
+        out = EX.extract_windows(src, corners, wext)
+        ref = EX.extract_plain(src, corners, wext)
+        torch.cuda.synchronize()
+        check(bool(torch.equal(out, ref)), f"K6 {name} windows differ from the plain version")
+        ms, plain_ms, tk, tp = timed_pair(lambda: EX.extract_windows(src, corners, wext),
+                                          lambda: EX.extract_plain(src, corners, wext), 20, 3)
+        log(f"[K6] {name} {tuple(out.shape)}: bitwise equal; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
+            f"(runs {tk}, {tp})")
+        if name == "search":
+            result["ms"], result["plain_ms"] = ms, plain_ms
+        del out, ref
+    return result
+
+
+def phase_k5(grays):
+    import torch
+
+    from comfyui_video_stabilizer_tpu_torch.ops import lk as LK
+    from comfyui_video_stabilizer_tpu_torch.ops import lk_cuda as LKC
+
+    pts, counts = LK.gftt_batch(grays[:-1])
+    pyr = LK.gaussian_pyramid(grays)
+    F = pts.shape[1]
+    valid = torch.arange(F, device=pts.device)[None, :] < counts[:, None]
+    g = pts / (2.0 ** LK.MAX_LEVEL)
+    for lvl in range(LK.MAX_LEVEL, 0, -1):   # the coarse levels give the level-0 guesses
+        g, status = LK.lk_level(pyr[lvl][:-1], pyr[lvl][1:], pts / (2.0 ** lvl), g, valid)
+        g, valid = g * 2.0, valid & status
+    I, J = pyr[0][:-1], pyr[0][1:]
+    B, H, W = I.shape
+    prep = LK._lk_prep(I, J, pts, g, LK.WIN)
+    runnable = prep[8]
+    n = B * F
+    args = LK.gn_inputs(prep, g)
+    del prep
+    out, iters = LKC.lk_gn_iterate(*args, LK.MAX_ITERS, LK.EPS)
+    ref, iters_ref = LKC.lk_gn_plain(*args, LK.MAX_ITERS, LK.EPS)
+    torch.cuda.synchronize()
+    t_out, s_out = LK._lk_post(out.reshape(B, F, 2), g, valid, runnable, LK.WIN, H, W, True)
+    t_ref, s_ref = LK._lk_post(ref.reshape(B, F, 2), g, valid, runnable, LK.WIN, H, W, True)
+    eq = float((s_out == s_ref).float().mean())
+    live = s_out & s_ref
+    err = float((t_out - t_ref).abs()[live].max()) if bool(live.any()) else 0.0
+    hist = torch.bincount(iters[runnable.reshape(-1)].long(), minlength=LK.MAX_ITERS + 1).tolist()
+    log(f"[K5] level 0, {B} pairs x {F} features ({int(valid.sum())} valid, {int(runnable.sum())} runnable): "
+        f"status equal {eq:.6f}, live tracks {int(live.sum())}, max|kernel - plain| {err:.3e} px, "
+        f"iterations equal {bool(torch.equal(iters, iters_ref))}, bitwise {bool(torch.equal(out, ref))}")
+    log(f"[K5] iteration histogram of runnable features (index = iterations): {hist}")
+    check(eq >= K5_STATUS_EQUAL, f"K5: status equal on {eq} < {K5_STATUS_EQUAL}")
+    check(err <= K5_TRACK_TOL, f"K5: live tracks differ by {err} px > {K5_TRACK_TOL}")
+    ms, plain_ms, tk, tp = timed_pair(lambda: LKC.lk_gn_iterate(*args, LK.MAX_ITERS, LK.EPS),
+                                      lambda: LKC.lk_gn_plain(*args, LK.MAX_ITERS, LK.EPS), 10, 1)
+    log(f"[K5] level 0 {n} features: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (runs {tk}, {tp})")
+    return {"max_abs_err": float((out - ref).abs().max()), "ms": ms, "plain_ms": plain_ms}
+
+
+def classic_stage_split(frames, device):
+    """One Classic estimation stage by stage, a synchronize after each (ms)."""
+    import torch
+
+    from comfyui_video_stabilizer_tpu_torch.models import classic as CL
+    from comfyui_video_stabilizer_tpu_torch.ops import lk as LK
+    from comfyui_video_stabilizer_tpu_torch.ops import lk_cuda as LKC
+    from comfyui_video_stabilizer_tpu_torch.ops import ransac as RS
+    from comfyui_video_stabilizer_tpu_torch.ops import warp as W
+
+    ms = {}
+
+    def stage(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ms[name] = ms.get(name, 0.0) + 1e3 * (time.perf_counter() - t0)
+        return out
+
+    grays = stage("gray", lambda: classic_grays(frames))
+    stage("GFTT scores + top-k", lambda: LK._topk_packed(grays[:-1], LK.TOP_K))
+    pts, counts = stage("gftt_batch", lambda: LK.gftt_batch(grays[:-1]))
+    # gftt_batch = scores + top-k, then the (B, 2048) fetch and the host greedy
+    ms["greedy fetch + host greedy"] = ms.pop("gftt_batch") - ms["GFTT scores + top-k"]
+    pyr = stage("pyramid", lambda: LK.gaussian_pyramid(grays))
+    F = pts.shape[1]
+    valid = torch.arange(F, device=device)[None, :] < counts[:, None]
+    g = pts / (2.0 ** LK.MAX_LEVEL)
+    for lvl in range(LK.MAX_LEVEL, -1, -1):
+        I, J = pyr[lvl][:-1], pyr[lvl][1:]
+        B, H, W_ = I.shape
+        pl = pts / (2.0 ** lvl)
+        prep = stage("LK prep (incl. K6)", lambda: LK._lk_prep(I, J, pl, g, LK.WIN))
+        args = LK.gn_inputs(prep, g)
+        res, _ = stage("K5", lambda: LKC.lk_gn_iterate(*args, LK.MAX_ITERS, LK.EPS))
+        g, status = LK._lk_post(res.reshape(B, F, 2), g, valid, prep[8], LK.WIN, H, W_, lvl == 0)
+        if lvl > 0:
+            g = g * 2.0
+        valid = valid & status
+    stage("fits + host fetch", lambda: CL._fused_classic_fits(pts, g, valid, 0, RS.DEFAULT_HYPOTHESES))
+    mats = np.tile(np.eye(3, dtype=np.float32), (frames.shape[0], 1, 1))
+    stage("padding mask", lambda: W.padding_mask_stats(mats, (WIDTH, HEIGHT), (WIDTH, HEIGHT), device)[1].cpu())
+    stage("warp (K1)", lambda: W.warp_clip(frames, mats, (WIDTH, HEIGHT), "bilinear", (0.5, 0.5, 0.5)))
+    return ms
+
+
+def profile_call(fn):
+    """torch.profiler over one call: (device events -- kernels and copies --,
+    device busy ms, wall ms)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in device) / 1e3
+    return len(device), busy, wall
+
+
+def phase_classic(device, frames):
+    import torch
+
+    from comfyui_video_stabilizer_tpu_torch.ops import cuda_build
+
+    ctx = make_context(frames)
+    torch.cuda.synchronize()
+    cuda_build.reset_launches()
+    res = run_classic(ctx, device)
+    torch.cuda.synchronize()
+    launches = dict(cuda_build.LAUNCHES)
+    log(f"[classic] launches in one stabilize_classic call: {launches}")
+    check(launches["gftt"] >= 1, "K4 was not launched by the Classic slice")
+    check(launches["lk_gn"] >= 4, "K5 was launched fewer than 4 times by the Classic slice")
+    check(launches["extract_windows"] >= 8, "K6 was launched fewer than 8 times by the Classic slice")
+    check(launches["warp"] >= 1, "K1 was not launched by the Classic slice")
+    meta = res.meta
+    trans = meta["estimated_motion"]["per_transition"]
+    modes = [t["mode"] for t in trans]
+    confs = [t["confidence"] for t in trans]
+    log(f"[classic] modes {sorted(set(modes))}, similarity confidence min {min(confs):.4f}, "
+        f"median {float(np.median(confs)):.4f}")
+    check(meta["transform_mode_applied"] == "similarity",
+          f"transform_mode_applied {meta['transform_mode_applied']!r}")
+    check(all(m == "similarity" for m in modes) and min(confs) > 0.0,
+          "a pair fell back (degenerate or rejected similarity)")
+    check(tuple(res.frames.shape) == (CLIP_FRAMES, HEIGHT, WIDTH, 3), f"frames {tuple(res.frames.shape)}")
+    check(tuple(res.masks.shape) == (CLIP_FRAMES, HEIGHT, WIDTH), f"masks {tuple(res.masks.shape)}")
+    check(res.frames.device.type == "cuda" and res.masks.device.type == "cuda", "outputs left the card")
+    check(bool(torch.isfinite(res.frames).all()) and bool(torch.isfinite(res.masks).all()),
+          "non-finite outputs")
+    orig = interior_motion(frames, 100)
+    stab = interior_motion(res.frames, 100)
+    log(f"[classic] mean interior inter-frame difference: input {orig:.5f}, stabilized {stab:.5f}")
+    check(stab < 0.8 * orig, "Classic did not lower the inter-frame difference")
+    del res
+
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run_classic(ctx, device)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        del out
+    fps = [CLIP_FRAMES / t for t in times]
+    log(f"[classic] warm stabilize_classic 1080p x {CLIP_FRAMES}: "
+        f"{', '.join(f'{f:.1f}' for f in fps)} f/s; best {max(fps):.1f}, median {float(np.median(fps)):.1f}; "
+        f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    n_kernels, busy, wall = profile_call(lambda: run_classic(ctx, device))
+    log(f"[classic] torch.profiler over one call: {n_kernels} device events, device busy {busy:.1f} ms "
+        f"of {wall:.1f} ms wall (busy share {busy / wall:.2f} under the profiler)")
+    split = [classic_stage_split(frames, device) for _ in range(3)]
+    log("[classic] stage split, ms (median of 3, synchronize after each stage): " + ", ".join(
+        f"{k} {float(np.median([s[k] for s in split])):.2f}" for k in split[0]))
+
+    n, h, w = BASELINE1
+    small = synth_clip(n, h, w, seed=1, device=device)
+    sctx = make_context(small)
+    run_classic(sctx, device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = run_classic(sctx, device)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    modes = {t["mode"] for t in out.meta["estimated_motion"]["per_transition"]}
+    check(bool(torch.isfinite(out.frames).all()), "BASELINE config 1: non-finite frames")
+    log(f"[classic] BASELINE config 1 ({w}x{h}, {n} frames, similarity, crop_and_pad): warm call "
+        f"{1e3 * secs:.1f} ms, {n / secs:.1f} f/s; modes {sorted(modes)}")
+    return launches, fps
 
 
 def main() -> int:
@@ -408,6 +685,16 @@ def main() -> int:
     launches, _fps = phase_slice(device, frames)
     phase_small_reference(device)
     phase_node(frames[:16].cpu())
+
+    grays = classic_grays(frames)
+    torch.cuda.synchronize()
+    k4 = phase_k4(grays)
+    k6 = phase_k6(grays)
+    k5 = phase_k5(grays)
+    del grays
+    classic_launches, _ = phase_classic(device, frames)
+    phase_small_reference(device, run_classic, "classic reference")
+    phase_node(frames[:16].cpu(), "VideoStabilizerClassic")
     check("jax" not in sys.modules, "jax was imported")
 
     kernels = [
@@ -419,6 +706,18 @@ def main() -> int:
          "source": "comfyui_video_stabilizer_tpu_torch/csrc/cost_volume.cu",
          "replaces": "comfyui_video_stabilizer_tpu/ops/cv_pallas.py:178",
          "launches": launches["cost_volume"], **k2},
+        {"name": "gftt", "route": "cuda",
+         "source": "comfyui_video_stabilizer_tpu_torch/csrc/gftt.cu",
+         "replaces": "comfyui_video_stabilizer_tpu/ops/gftt_pallas.py:151",
+         "launches": classic_launches["gftt"], **k4},
+        {"name": "lk_gn", "route": "cuda",
+         "source": "comfyui_video_stabilizer_tpu_torch/csrc/lk.cu",
+         "replaces": "comfyui_video_stabilizer_tpu/ops/lk_pallas.py:177",
+         "launches": classic_launches["lk_gn"], **k5},
+        {"name": "extract_windows", "route": "cuda",
+         "source": "comfyui_video_stabilizer_tpu_torch/csrc/extract.cu",
+         "replaces": "comfyui_video_stabilizer_tpu/ops/extract_pallas.py:133",
+         "launches": classic_launches["extract_windows"], **k6},
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -14,8 +14,9 @@ device of the tensors they are given: a CUDA tensor launches the
 hand-written kernel (or raises), a CPU tensor takes its plain PyTorch
 version.  This package never imports JAX.
 
-Ported so far: the Flow stabilizer (DIS tier) with crop_and_pad and
-expand framing and the translation/similarity models.
+Ported so far: the Flow stabilizer (DIS tier) and the Classic
+stabilizer (GFTT + pyramidal LK) with crop_and_pad and expand framing
+and the translation/similarity models.
 """
 
 from __future__ import annotations

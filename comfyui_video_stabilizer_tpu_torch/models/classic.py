@@ -1,0 +1,147 @@
+"""Classic (sparse feature tracking) estimator + stabilizer.
+
+Counterpart of ``comfyui_video_stabilizer_tpu/models/classic.py``: GFTT
+corners on every pair's leading frame, pyramidal LK tracks to the next
+frame (ops/lk.py, kernels K4, K5 and K6), then the robust fits for the
+similarity -> translation fallback chain of all pairs at once.  The
+sticky mode degradation is the shared engine's host scan.
+
+Acceptance contract (the reference's thresholds):
+  <12 detected features or <8 surviving tracks -> degenerate pair
+  similarity:  >=3 points, RANSAC inlier ratio >= 0.1
+  translation: always accepted; confidence = survivors / detected
+
+Perspective needs the homography fits and raises
+``NotImplementedError``; crop framing raises in the engine.  The JAX
+package's zero-sync fast path (``_classic_fast_path``,
+``models/fastpath.py``) is not ported (ROADMAP.md, slice 2 item 10).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+
+from comfyui_video_stabilizer_tpu.models import geometry as G
+
+from ..ops import lk as LK
+from ..ops import prng
+from ..ops import ransac as RS
+from ..utils.video_io import VideoContext
+from .flow import PERSPECTIVE_NOT_PORTED
+from .stabilize import PairFits, StabilizationResult, estimation_chunk_spans, stabilize_clip
+
+MIN_FEATURES = 12
+MIN_TRACKS = 8
+SIM_MIN_RATIO = 0.1
+
+
+def _fused_classic_fits(pts, tracked, status, seed: int, n_hyp: int) -> Dict[str, np.ndarray]:
+    """Survivor counts, the similarity RANSAC (key salt 1) and the median
+    translation of every pair; one fetch brings them to the host."""
+    b = pts.shape[0]
+    dev = pts.device
+    keys = prng.fold_in(prng.PRNGKey(seed + 1, device=dev), torch.arange(b, device=dev))
+    S, n_in, n_valid = RS.ransac_similarity(keys, pts, tracked, status, n_hyp, RS.SIM_THRESH)
+    med = RS.masked_median_shift(pts, tracked, status)
+    T = torch.eye(3, dtype=torch.float32, device=dev).repeat(b, 1, 1)
+    T[:, 0, 2] = med[:, 0]
+    T[:, 1, 2] = med[:, 1]
+    out = {"surv": status.sum(1), "S": S, "n_in": n_in, "n_valid": n_valid, "T": T}
+    return {k: v.cpu().numpy() for k, v in out.items()}
+
+
+def _tracks(grays: torch.Tensor):
+    """GFTT on the leading frames, the clip pyramid, LK over all pairs."""
+    pts, det_counts = LK.gftt_batch(grays[:-1])
+    pyr = LK.gaussian_pyramid(grays)
+    tracked, status = LK.lk_track([lvl[:-1] for lvl in pyr], [lvl[1:] for lvl in pyr],
+                                  pts, det_counts)
+    return pts, det_counts, tracked, status
+
+
+def _lk_tracks_chunked(grays: torch.Tensor, tick_pairs):
+    """_tracks over all adjacent pairs in 32-pair chunks, with a progress
+    tick + interrupt poll between chunks (models/stabilize.py::
+    estimation_chunk_spans).  GFTT is per frame and LK per pair, so the
+    concatenation equals one whole-clip call."""
+    spans = estimation_chunk_spans(int(grays.shape[0]))
+    if len(spans) == 1 or tick_pairs is None:
+        return _tracks(grays)
+    parts = []
+    for s, e, drop in spans:
+        part = _tracks(grays[s:e])
+        parts.append(tuple(x[drop:] for x in part) if drop else part)
+        tick_pairs(e - 1)
+    return tuple(torch.cat(xs, dim=0) for xs in zip(*parts))
+
+
+def classic_estimator(grays: torch.Tensor, requested_mode: str, *, seed: int = 0,
+                      decimation: int = 1, tick_pairs=None) -> PairFits:
+    """Per-pair fits from GFTT + LK tracks; grays (N, h, w) on the working device.
+
+    Classic estimates at the working size itself: ``decimation`` is
+    accepted from the engine and must be 1.
+    """
+    if requested_mode == "perspective":
+        raise NotImplementedError(PERSPECTIVE_NOT_PORTED)
+    if decimation != 1:
+        raise ValueError(f"the Classic estimator takes no gray decimation, got {decimation}")
+    b = grays.shape[0] - 1
+    pts, det_counts, tracked, status = _lk_tracks_chunked(grays, tick_pairs)
+    fused = _fused_classic_fits(pts, tracked, status, seed, RS.DEFAULT_HYPOTHESES)
+    det_counts = det_counts.cpu().numpy()
+    surv = fused["surv"]
+    S, n_in, n_valid = fused["S"], fused["n_in"], fused["n_valid"]
+    conf = np.where(n_valid > 0, n_in / np.maximum(n_valid, 1), 0.0)
+    finite = np.isfinite(S).all(axis=(1, 2))
+    return PairFits(
+        degenerate=(det_counts < MIN_FEATURES) | (surv < MIN_TRACKS),
+        matrices={"similarity": S, "translation": fused["T"]},
+        confidences={
+            "similarity": conf,
+            "translation": np.where(det_counts > 0, surv / np.maximum(det_counts, 1), 0.0),
+        },
+        accepted={
+            "similarity": finite & (surv >= 3) & (conf >= SIM_MIN_RATIO),
+            "translation": np.ones(b, bool),
+        },
+        residuals=None,
+    )
+
+
+def stabilize_classic(
+    context: VideoContext,
+    framing_mode: G.FramingMode,
+    transform_mode: G.TransformMode,
+    camera_lock: bool,
+    strength: float,
+    smooth: float,
+    keep_fov: float,
+    padding_rgb: Tuple[int, int, int],
+    frame_rate: float,
+    progress=None,
+    interrupt_check=None,
+    device: str | torch.device = "cuda",
+) -> StabilizationResult:
+    """Classic stabilizer on ``device`` ('cuda' by default; 'cpu' runs the plain versions)."""
+    if transform_mode == "perspective":
+        raise NotImplementedError(PERSPECTIVE_NOT_PORTED)
+    return stabilize_clip(
+        context,
+        estimator=classic_estimator,
+        source_name="estimated_classic",
+        framing_mode=framing_mode,
+        transform_mode=transform_mode,
+        camera_lock=camera_lock,
+        strength=strength,
+        smooth=smooth,
+        keep_fov=keep_fov,
+        padding_rgb=padding_rgb,
+        frame_rate=frame_rate,
+        progress=progress,
+        interrupt_check=interrupt_check,
+        device=device,
+    )

@@ -1,4 +1,4 @@
-"""Node registration of the PyTorch package (the Flow node so far).
+"""Node registration of the PyTorch package (the Classic and Flow nodes so far).
 
 Both packages register the same node ids, so one ComfyUI install loads
 one of them, not both.
@@ -7,16 +7,17 @@ one of them, not both.
 from __future__ import annotations
 
 from .comfy_compat import ComfyExtension
-from .stabilizer_nodes import VideoStabilizerFlow
+from .stabilizer_nodes import VideoStabilizerClassic, VideoStabilizerFlow
 
 __all__ = [
+    "VideoStabilizerClassic",
     "VideoStabilizerFlow",
     "VideoStabilizerSuiteExtension",
     "comfy_entrypoint",
     "ALL_NODES",
 ]
 
-ALL_NODES = [VideoStabilizerFlow]
+ALL_NODES = [VideoStabilizerClassic, VideoStabilizerFlow]
 
 
 class VideoStabilizerSuiteExtension(ComfyExtension):

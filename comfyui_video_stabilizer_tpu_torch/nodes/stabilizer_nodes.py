@@ -1,6 +1,7 @@
-"""Flow stabilizer node shell (ComfyUI V3 schema) on the PyTorch engine.
+"""Classic and Flow stabilizer node shells (ComfyUI V3 schema) on the
+PyTorch engine.
 
-The schema equals the JAX package's ``VideoStabilizerFlow`` field for
+Each schema equals the JAX package's node of the same name field for
 field (node id, display name, widget ids/order, defaults, sockets).
 Work runs on ``cuda`` unless ``execute`` is given another ``device``;
 the outputs are CPU tensors, as ComfyUI expects.
@@ -12,6 +13,7 @@ from typing import Any
 
 from comfyui_video_stabilizer_tpu.utils.color import parse_padding_color
 
+from ..models.classic import stabilize_classic
 from ..models.flow import stabilize_flow
 from ..utils.video_io import (
     convert_masks_for_output,
@@ -132,6 +134,47 @@ def _run_stabilizer(engine, frames, frame_rate, framing_mode, transform_mode,
     video_payload = reconstruct_video(result.frames, context)
     mask_payload = convert_masks_for_output(result.masks)
     return io.NodeOutput(video_payload, mask_payload, result.meta)
+
+
+class VideoStabilizerClassic(io.ComfyNode):
+    """Sparse feature-tracking stabilizer (GFTT + pyramidal LK, CUDA kernels)."""
+
+    @classmethod
+    def define_schema(cls) -> io.Schema:
+        schema = io.Schema(
+            node_id="video_stabilizer_classic",
+            display_name="Video Stabilizer Classic",
+            category="Video/Stabilization",
+            description=(
+                "Video stabilization using sparse feature tracking with configurable transforms "
+                "and framing, emitting both stabilized frames and a padding mask."
+            ),
+        )
+        schema.inputs = _stabilizer_inputs(
+            "Select the geometric model used to estimate camera motion.",
+            "Choose how to handle borders produced by stabilization.",
+        )
+        schema.outputs = _STAB_OUTPUTS()
+        return schema
+
+    @classmethod
+    def execute(
+        cls,
+        frames: Any,
+        frame_rate: float,
+        framing_mode: str,
+        transform_mode: str,
+        camera_lock: bool,
+        strength: float,
+        smooth: float,
+        keep_fov: float,
+        padding_color: str,
+        device: str = "cuda",
+    ) -> io.NodeOutput:
+        return _run_stabilizer(
+            stabilize_classic, frames, frame_rate, framing_mode, transform_mode,
+            camera_lock, strength, smooth, keep_fov, padding_color, device,
+        )
 
 
 class VideoStabilizerFlow(io.ComfyNode):

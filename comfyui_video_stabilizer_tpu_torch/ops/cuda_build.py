@@ -1,8 +1,9 @@
 """Build and bind the port's hand-written CUDA kernels.
 
-The kernels in ``csrc/`` are compiled by ``nvcc`` for Hopper (sm_90a)
-into ONE shared library with a plain C interface and loaded with
-``ctypes``; no PyTorch headers are compiled, so a build takes seconds.
+The kernels in ``csrc/`` are compiled by ``nvcc`` for Hopper (sm_90a),
+one ``nvcc`` per source, all started together, then linked into ONE
+shared library with a plain C interface and loaded with ``ctypes``; no
+PyTorch headers are compiled, so a build takes seconds.
 The library lands in ``build/`` next to the package directory, named
 by a hash of the sources and flags, at first use; a later call with
 unchanged sources reuses it.  Nothing here runs at import time.
@@ -31,15 +32,15 @@ import torch
 PACKAGE_DIR = pathlib.Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build"
-SOURCES = ("warp.cu", "cost_volume.cu")
+SOURCES = ("warp.cu", "cost_volume.cu", "gftt.cu", "lk.cu", "extract.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-fmad=false",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
     "-Xptxas=-v",
 )
 
-LAUNCHES = {"warp": 0, "cost_volume": 0}
+LAUNCHES = {"warp": 0, "cost_volume": 0, "gftt": 0, "lk_gn": 0, "extract_windows": 0}
 
 
 def reset_launches() -> None:
@@ -80,7 +81,9 @@ def library_path() -> pathlib.Path:
 def build() -> pathlib.Path:
     """Compile the kernels unless a library of the same sources exists.
 
-    The compiler's resource report (registers, shared memory, spills
+    Each source compiles in its own ``nvcc`` process, all started
+    together; the objects are then linked into one library.  The
+    compiler's resource report (registers, shared memory, spills
     per kernel, from ``-Xptxas=-v``) is kept beside the library as
     ``<name>.log``.  Writes to a temporary name and renames, so
     concurrent builders never load a half-written library.
@@ -88,18 +91,34 @@ def build() -> pathlib.Path:
     path = library_path()
     if path.exists():
         return path
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = find_nvcc()
+    objdir = BUILD_DIR / f"{path.stem}.{os.getpid()}.objs"
+    objdir.mkdir(parents=True, exist_ok=True)
     tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *(str(CSRC_DIR / s) for s in SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-    if proc.returncode != 0:
+    try:
+        compiles = []
+        for name in SOURCES:
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(objdir / f"{name}.o"), str(CSRC_DIR / name)]
+            compiles.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        report = [proc.communicate()[0] for _, proc in compiles]
+        for (cmd, proc), out in zip(compiles, report):
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed with exit code {proc.returncode}:\n{' '.join(cmd)}\n{out}"
+                )
+        link = [nvcc, "-shared", "-o", str(tmp), *(str(objdir / f"{s}.o") for s in SOURCES)]
+        proc = subprocess.run(link, capture_output=True, text=True, check=False)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed with exit code {proc.returncode}:\n{' '.join(link)}\n"
+                f"{proc.stdout}\n{proc.stderr}"
+            )
+        path.with_suffix(".log").write_text("".join(report))
+        os.replace(tmp, path)
+    finally:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed with exit code {proc.returncode}:\n{' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}"
-        )
-    path.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, path)
+        shutil.rmtree(objdir, ignore_errors=True)
     return path
 
 
@@ -112,6 +131,12 @@ def library() -> ctypes.CDLL:
     lib.cvst_warp.restype = i32
     lib.cvst_cost_volume.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr]
     lib.cvst_cost_volume.restype = i32
+    lib.cvst_gftt.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, ptr]
+    lib.cvst_gftt.restype = i32
+    lib.cvst_lk_gn.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, ctypes.c_float, ptr]
+    lib.cvst_lk_gn.restype = i32
+    lib.cvst_extract_windows.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr]
+    lib.cvst_extract_windows.restype = i32
     lib.cvst_error_string.argtypes = [i32]
     lib.cvst_error_string.restype = ctypes.c_char_p
     return lib

@@ -8,7 +8,7 @@ without the suite's conftest:
 
 Tolerance: bitwise.  The kernels are built with ``-fmad=false`` and
 follow the plain versions' op order, so every multiply and add rounds
-the same way.  The end-to-end case compares the CUDA path with the CPU
+the same way.  The end-to-end cases compare the CUDA path with the CPU
 path (the plain versions) on a small clip: per-pair modes equal,
 matrices <= 1e-3, frames p99 <= 1e-3 (reductions run in another order
 on the card).
@@ -21,6 +21,10 @@ torch = pytest.importorskip("torch")
 
 from comfyui_video_stabilizer_tpu_torch.ops import cuda_build  # noqa: E402
 from comfyui_video_stabilizer_tpu_torch.ops import cv_cuda as CV  # noqa: E402
+from comfyui_video_stabilizer_tpu_torch.ops import extract_cuda as EX  # noqa: E402
+from comfyui_video_stabilizer_tpu_torch.ops import gftt_cuda as GF  # noqa: E402
+from comfyui_video_stabilizer_tpu_torch.ops import lk as LK  # noqa: E402
+from comfyui_video_stabilizer_tpu_torch.ops import lk_cuda as LKC  # noqa: E402
 from comfyui_video_stabilizer_tpu_torch.ops import warp as W  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -75,6 +79,56 @@ def test_cost_volume_kernel_bitwise(cuda, radius, shape):
         assert torch.equal(a, b)
 
 
+def _textured(shape, seed):
+    gen = torch.Generator().manual_seed(seed)
+    base = torch.rand((shape[0], 1, shape[1] + 4, shape[2] + 4), generator=gen)
+    return (torch.nn.functional.avg_pool2d(base, 5, 1)[:, 0] * 255).floor()
+
+
+@pytest.mark.parametrize("shape", [(2, 10, 12), (3, 67, 93), (2, 135, 240)])
+def test_gftt_kernel_bitwise(cuda, shape):
+    g = _textured(shape, 7).to(cuda)
+    dx, dy = LK._conv2(g, LK._SOBEL_X), LK._conv2(g, LK._SOBEL_Y)
+    prods = [(dx * dx).contiguous(), (dx * dy).contiguous(), (dy * dy).contiguous()]
+    out = GF.gftt_scores(*prods)
+    ref = GF.gftt_plain(*prods)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("wext", [13, 36, 49])
+def test_extract_kernel_bitwise(cuda, wext):
+    gen = torch.Generator().manual_seed(8)
+    B, H, W_, F = 3, 61, 83, 37
+    stack = torch.rand((B, H, W_), generator=gen).to(cuda)
+    corners = torch.stack([torch.randint(-60, W_ + 60, (B, F), generator=gen),
+                           torch.randint(-60, H + 60, (B, F), generator=gen)], -1).to(torch.int32)
+    corners[0, :3] = torch.tensor([[0, 0], [W_ - 1, H - 1], [-wext, H]], dtype=torch.int32)
+    corners = corners.to(cuda)
+    out = EX.extract_windows(stack, corners, wext)
+    ref = EX.extract_plain(stack, corners, wext)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("offset", [0.0, 2.5, 7.0])
+def test_lk_gn_kernel_bitwise(cuda, offset):
+    """One level of a shifted textured pair, through the real _lk_prep."""
+    g = _textured((2, 96, 128), 9)
+    J = torch.roll(g, (1, -2), (1, 2)).to(cuda)
+    I = g.to(cuda)
+    pts, counts = LK.gftt_batch(I)
+    guess = pts + offset
+    prep = LK._lk_prep(I, J, pts, guess, LK.WIN)
+    runnable = prep[8]
+    args = LK.gn_inputs(prep, guess)
+    out, it = LKC.lk_gn_iterate(*args, LK.MAX_ITERS, LK.EPS)
+    ref, it_ref = LKC.lk_gn_plain(*args, LK.MAX_ITERS, LK.EPS)
+    torch.cuda.synchronize()
+    assert int(runnable.sum()) > 100
+    assert torch.equal(out, ref) and torch.equal(it, it_ref)
+
+
 def test_wrappers_validate_arguments(cuda):
     frames = torch.rand((1, 8, 8, 3), device=cuda)
     coeffs = torch.zeros((1, 8), device=cuda)
@@ -85,6 +139,13 @@ def test_wrappers_validate_arguments(cuda):
                                 torch.zeros((1, 8, 8), device=cuda, dtype=torch.float64), 2, 8)
     with pytest.raises(ValueError, match="radius"):
         CV.cost_volume_subpixel(torch.zeros((1, 8, 8), device=cuda), torch.zeros((1, 8, 8), device=cuda), 4, 8)
+    with pytest.raises(ValueError, match="match"):
+        GF.gftt_scores(*(torch.zeros((1, 8, s), device=cuda) for s in (8, 8, 9)))
+    with pytest.raises(TypeError, match="int32"):
+        EX.extract_windows(torch.zeros((1, 8, 8), device=cuda), torch.zeros((1, 2, 2), device=cuda), 5)
+    with pytest.raises(ValueError, match="K5"):
+        LKC.lk_gn_iterate(torch.zeros((1, 48, 48), device=cuda), *(torch.zeros((1, 31, 31), device=cuda),) * 3,
+                          torch.zeros((1, 9), device=cuda), 50, 0.01)
 
 
 def test_slice_on_cuda_launches_kernels_and_matches_cpu(cuda):
@@ -107,6 +168,35 @@ def test_slice_on_cuda_launches_kernels_and_matches_cpu(cuda):
     gpu = stabilize_flow(normalize_video_input(frames, device=cuda), *args, device=cuda)
     torch.cuda.synchronize()
     assert cuda_build.LAUNCHES["warp"] == 1 and cuda_build.LAUNCHES["cost_volume"] >= 4
+    tc, tg = cpu.meta["estimated_motion"]["per_transition"], gpu.meta["estimated_motion"]["per_transition"]
+    assert [t["mode"] for t in tg] == [t["mode"] for t in tc]
+    assert np.abs(np.array([t["matrix"] for t in tg]) - np.array([t["matrix"] for t in tc])).max() <= 1e-3
+    d = (gpu.frames.cpu() - cpu.frames).abs()
+    assert float(torch.quantile(d.flatten()[::7], 0.99)) <= 1e-3
+
+
+def test_classic_slice_on_cuda_launches_kernels_and_matches_cpu(cuda):
+    from comfyui_video_stabilizer_tpu_torch.models.classic import stabilize_classic
+    from comfyui_video_stabilizer_tpu_torch.utils.video_io import normalize_video_input
+
+    gen = torch.Generator().manual_seed(4)
+    base = torch.nn.functional.avg_pool2d(torch.rand((1, 1, 208, 272), generator=gen), 3, 1, 1)[0, 0]
+    base = torch.stack([base, base * 0.8 + 0.1, 1.0 - base], dim=-1)
+    shake = [np.eye(3)]
+    for d in _mats(7, 5) * np.array([[1, 1, 0.4], [1, 1, 0.4], [1, 1, 1]]):
+        shake.append(d @ shake[-1])
+    crop = np.eye(3)
+    crop[0, 2] = crop[1, 2] = -32
+    view = np.stack([crop @ np.linalg.inv(m) for m in shake])
+    frames = W.warp_clip(base[None].expand(8, *base.shape).contiguous(), view, (192, 144), "bilinear", (0.5,) * 3)
+    args = ("crop_and_pad", "similarity", False, 0.8, 0.6, 0.6, (127, 127, 127), 30.0)
+    cpu = stabilize_classic(normalize_video_input(frames, device="cpu"), *args, device="cpu")
+    cuda_build.reset_launches()
+    gpu = stabilize_classic(normalize_video_input(frames, device=cuda), *args, device=cuda)
+    torch.cuda.synchronize()
+    launches = dict(cuda_build.LAUNCHES)
+    assert launches["gftt"] == 1 and launches["lk_gn"] == 4 and launches["extract_windows"] == 8
+    assert launches["warp"] == 1 and launches["cost_volume"] == 0
     tc, tg = cpu.meta["estimated_motion"]["per_transition"], gpu.meta["estimated_motion"]["per_transition"]
     assert [t["mode"] for t in tg] == [t["mode"] for t in tc]
     assert np.abs(np.array([t["matrix"] for t in tg]) - np.array([t["matrix"] for t in tc])).max() <= 1e-3

@@ -25,7 +25,8 @@ _CPU_SLICE = textwrap.dedent(
     import comfyui_video_stabilizer_tpu_torch
     from comfyui_video_stabilizer_tpu_torch import nodes
     from comfyui_video_stabilizer_tpu_torch.ops import cuda_build, cv_cuda, flow_dis, prng, ransac, resize, warp
-    from comfyui_video_stabilizer_tpu_torch.models import flow, stabilize
+    from comfyui_video_stabilizer_tpu_torch.ops import extract_cuda, gftt_cuda, lk, lk_cuda, pad
+    from comfyui_video_stabilizer_tpu_torch.models import classic, flow, stabilize
     from comfyui_video_stabilizer_tpu_torch.utils import device, profiling, video_io
 
     rng = np.random.default_rng(0)
@@ -38,6 +39,11 @@ _CPU_SLICE = textwrap.dedent(
         0.8, 0.6, 0.6, "#7F7F7F", device="cpu")
     assert tuple(out[0].shape) == (5, 64, 96, 3), out[0].shape
     assert out[2]["flow_backend"] == "DIS"
+    out = nodes.VideoStabilizerClassic.execute(
+        torch.from_numpy(frames), 16.0, "crop_and_pad", "similarity", False,
+        0.8, 0.6, 0.6, "#7F7F7F", device="cpu")
+    assert tuple(out[0].shape) == (5, 64, 96, 3), out[0].shape
+    assert len(out[2]["estimated_motion"]["per_transition"]) == 4
     assert "jax" not in sys.modules, sorted(m for m in sys.modules if m.startswith("jax"))
     print("NO_JAX_OK")
     """
@@ -55,15 +61,26 @@ def test_port_imports_and_runs_without_jax():
     assert "NO_JAX_OK" in proc.stdout
 
 
+_LK_CONSTANTS = ["MAX_CORNERS", "QUALITY_LEVEL", "MIN_DISTANCE", "BLOCK_SIZE", "WIN", "MAX_LEVEL",
+                 "MAX_ITERS", "EPS", "TRAVEL", "WEXT"]
+_LK_KERNELS = ["_SOBEL_X", "_SOBEL_Y", "_SCHARR_LK_X", "_SCHARR_LK_Y"]
+
+
 def _constant_pairs():
+    from comfyui_video_stabilizer_tpu.models import classic as JCL
     from comfyui_video_stabilizer_tpu.models import flow as JFL
     from comfyui_video_stabilizer_tpu.models import stabilize as JST
     from comfyui_video_stabilizer_tpu.ops import flow_dis as JFD
+    from comfyui_video_stabilizer_tpu.ops import gftt_pallas as JGP
+    from comfyui_video_stabilizer_tpu.ops import lk as JLK
     from comfyui_video_stabilizer_tpu.ops import ransac as JRS
     from comfyui_video_stabilizer_tpu.ops import resize as JR
+    from comfyui_video_stabilizer_tpu_torch.models import classic as TCL
     from comfyui_video_stabilizer_tpu_torch.models import flow as TFL
     from comfyui_video_stabilizer_tpu_torch.models import stabilize as TST
     from comfyui_video_stabilizer_tpu_torch.ops import flow_dis as TFD
+    from comfyui_video_stabilizer_tpu_torch.ops import gftt_cuda as TGF
+    from comfyui_video_stabilizer_tpu_torch.ops import lk as TLK
     from comfyui_video_stabilizer_tpu_torch.ops import ransac as TRS
     from comfyui_video_stabilizer_tpu_torch.ops import resize as TR
 
@@ -80,13 +97,20 @@ def _constant_pairs():
         "_LUMA": (JR._LUMA.tolist(), TR._LUMA.tolist()),
         "ESTIMATION_CHUNK_PAIRS": (JST.ESTIMATION_CHUNK_PAIRS, TST.ESTIMATION_CHUNK_PAIRS),
         "MODE_PRIORITY": (JST.MODE_PRIORITY, TST.MODE_PRIORITY),
+        "MIN_FEATURES": (JCL.MIN_FEATURES, TCL.MIN_FEATURES),
+        "MIN_TRACKS": (JCL.MIN_TRACKS, TCL.MIN_TRACKS),
+        "CLASSIC_SIM_MIN_RATIO": (JCL.SIM_MIN_RATIO, TCL.SIM_MIN_RATIO),
+        "GFTT_RADIUS": (JGP.RADIUS, TGF.RADIUS),
+        **{name: (getattr(JLK, name), getattr(TLK, name)) for name in _LK_CONSTANTS},
+        **{name: (getattr(JLK, name).tolist(), getattr(TLK, name).tolist()) for name in _LK_KERNELS},
     }
 
 
 @pytest.mark.parametrize("name", [
     "SAMPLE_STEP", "MIN_VALID", "SIM_MIN_RATIO", "FINEST_SCALE",
     "RADIUS", "PATCH", "DEFAULT_HYPOTHESES", "SIM_THRESH", "_CHUNK", "_LUMA",
-    "ESTIMATION_CHUNK_PAIRS", "MODE_PRIORITY",
+    "ESTIMATION_CHUNK_PAIRS", "MODE_PRIORITY", "MIN_FEATURES", "MIN_TRACKS",
+    "CLASSIC_SIM_MIN_RATIO", "GFTT_RADIUS", *_LK_CONSTANTS, *_LK_KERNELS,
 ])
 def test_constants_equal_jax(name):
     """Tolerance: exact (the constants are copied, not derived)."""
@@ -112,7 +136,7 @@ def test_cuda_request_without_card_raises(monkeypatch):
 
 def test_cpu_tensor_takes_plain_versions_without_launching():
     """A CPU tensor never reaches the kernel library (no build, no launch)."""
-    from comfyui_video_stabilizer_tpu_torch.ops import cuda_build, cv_cuda, warp
+    from comfyui_video_stabilizer_tpu_torch.ops import cuda_build, cv_cuda, extract_cuda, gftt_cuda, lk_cuda, warp
 
     cuda_build.reset_launches()
     frames = torch.rand((1, 8, 8, 3))
@@ -122,4 +146,17 @@ def test_cpu_tensor_takes_plain_versions_without_launching():
     grays = torch.rand((2, 12, 12)) * 255
     fx, fy, cmin = cv_cuda.cost_volume_subpixel(grays, grays, 2, 8)
     assert torch.equal(cmin, cv_cuda.cost_volume_plain(grays, grays, 2, 8)[2])
-    assert cuda_build.LAUNCHES == {"warp": 0, "cost_volume": 0}
+    prods = [torch.rand((2, 12, 12)) for _ in range(3)]
+    assert torch.equal(gftt_cuda.gftt_scores(*prods), gftt_cuda.gftt_plain(*prods))
+    corners = torch.tensor([[[0, 0], [5, -3]], [[11, 11], [-20, 4]]], dtype=torch.int32)
+    assert torch.equal(extract_cuda.extract_windows(grays, corners, 7),
+                       extract_cuda.extract_plain(grays, corners, 7))
+    n = 2
+    jw = torch.rand((n, 49, 49))
+    T, gx, gy = (torch.rand((n, 31, 31)) for _ in range(3))
+    scal = torch.tensor([[50.0, 1.0, 60.0, 1 / 2999.0, 1.0, 0.0, 0.0, 24.5, 23.5]] * n)
+    g, count = lk_cuda.lk_gn_iterate(jw, T, gx, gy, scal, 50, 0.01)
+    g_ref, count_ref = lk_cuda.lk_gn_plain(jw, T, gx, gy, scal, 50, 0.01)
+    assert torch.equal(g, g_ref) and torch.equal(count, count_ref)
+    assert set(cuda_build.LAUNCHES) == {"warp", "cost_volume", "gftt", "lk_gn", "extract_windows"}
+    assert all(v == 0 for v in cuda_build.LAUNCHES.values()), cuda_build.LAUNCHES
