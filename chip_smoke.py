@@ -24,7 +24,26 @@ Phases (any failure raises and the script exits non-zero):
      and BASELINE config 1 (854x480, 64 frames) once
  11. Classic, CUDA path against CPU path on a small clip; the Classic
      node on a CPU tensor of 16 frames at 1080p
- 12. a JSON line per kernel, the card line, then {"ok": true, ...} last
+ 12. K3 (shutter-blur warp) against its plain version at 1080p: 8 frames,
+     bicubic S = 33 and bilinear S = 5, then once at the Motion Apply
+     slice's shape (80 frames, bicubic, S = 33)
+ 13. the Motion Apply slice, BASELINE config 4: apply_motion (bicubic,
+     blur 0.5, 33 samples, crop_and_pad) on the 1080p x 80 clip with the
+     action shake of seed 3 at 24 fps: launch counts, output checks, the
+     warm frames/s, a stage split and the peak device memory; then crop
+     and expand once each
+ 14. BASELINE config 2: the handheld shake of seed 7 at 1280x720 x 80,
+     bilinear, no blur (K1), run twice and compared bitwise
+ 15. Motion Apply, CUDA path against CPU path on a small clip, with and
+     without blur; the Motion Apply, Inverse and both Shake Generator
+     nodes on CPU tensors of 16 frames at 1080p
+ 16. a JSON line per kernel (its time, its plain version's, its bound
+     and the time of a PyTorch call that computes the same function,
+     where one exists), the card line, then {"ok": true, ...} last
+
+Every kernel's bound is the larger of its bytes over 3.35 TB/s and its
+float32 operations over 67 TFLOP/s (the H100 SXM data sheet), counted
+from this run's inputs.
 
 Exits 2 without printing a result when torch.cuda.is_available() is false.
 """
@@ -52,6 +71,12 @@ K4_RTOL = 1e-6          # expected bitwise: the same doubling-tree order
 K5_STATUS_EQUAL = 0.999  # expected bitwise: the same op and reduction order
 K5_TRACK_TOL = 1e-3     # px, live tracks
 BASELINE1 = (64, 480, 854)  # BASELINE.json config 1: Classic 480p / 64 frames
+BASELINE2 = (80, 720, 1280)  # BASELINE.json config 2: shake -> Motion Apply 720p, bilinear
+K3_TOL = 0.0            # expected bitwise: K1's per-sample arithmetic, the same sum and division
+APPLY_FRAME_P99 = 1e-6  # Motion Apply, CUDA path vs CPU path: the same matrices, no reductions
+APPLY_MASK_UNEQUAL = 1e-3  # a coverage tie may flip on a one-ulp coordinate
+PEAK_BYTES = 3.35e12    # H100 SXM HBM3, bytes/s (NVIDIA data sheet)
+PEAK_FLOPS = 67e12      # H100 SXM float32 outside the tensor cores, FLOP/s (data sheet)
 
 
 class SmokeFailure(RuntimeError):
@@ -75,11 +100,13 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Mean milliseconds per call of fn() on the current stream (CUDA events)."""
+def cuda_ms(fn, reps: int, warm: bool = True) -> float:
+    """Mean milliseconds per call of fn() on the current stream (CUDA events);
+    one untimed call first unless warm is False."""
     import torch
 
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -89,6 +116,52 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def bound(nbytes: float, flops: float) -> dict:
+    """The least time the card could take: bytes over the memory rate or
+    operations over the float32 rate, whichever is larger."""
+    t_bytes = 1e3 * nbytes / PEAK_BYTES
+    t_ops = 1e3 * flops / PEAK_FLOPS
+    return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def warp_ops_per_sample(interp: str, c: int) -> int:
+    """float32 operations of one output pixel of one sample in csrc/warp.cu:
+    33 for the displacement, the clip and the split, then the weights
+    (bilinear 6; bicubic 2 x 21 for cubic_weights and 16 products) and a
+    multiply and an add per tap and channel."""
+    if interp == "bilinear":
+        return 33 + 6 + 4 * 2 * c
+    return 33 + 2 * 21 + 16 + 16 * 2 * c
+
+
+def warp_bound(n, h, w, c, out_h, out_w, interp, samples=1) -> dict:
+    """K1 (samples 1) or K3: frames read once, output written once; the S
+    samples' arithmetic, their running sum and the division."""
+    nbytes = 4 * (n * h * w * c + n * out_h * out_w * c + n * samples * 8 + c)
+    per_pixel = samples * warp_ops_per_sample(interp, c) + ((samples - 1) * c + c if samples > 1 else 0)
+    return bound(nbytes, n * out_h * out_w * per_pixel)
+
+
+def grid_sample_ms(frames_nchw, coeffs, out_h: int, out_w: int, reps: int) -> float:
+    """One torch.nn.functional.grid_sample call (bilinear, zero padding,
+    align_corners=True) at the warp's source coordinates; the grid is
+    built beforehand and not timed."""
+    import torch
+    import torch.nn.functional as F
+
+    from comfyui_video_stabilizer_tpu_torch.ops import warp as W
+
+    h, w = frames_nchw.shape[2], frames_nchw.shape[3]
+    dx, dy, _ = W._displacements(coeffs, out_h, out_w)
+    xs = torch.arange(out_w, device=coeffs.device, dtype=torch.float32)[None, None, :] + dx
+    ys = torch.arange(out_h, device=coeffs.device, dtype=torch.float32)[None, :, None] + dy
+    del dx, dy
+    grid = torch.stack([xs * (2.0 / (w - 1)) - 1.0, ys * (2.0 / (h - 1)) - 1.0], dim=-1)
+    del xs, ys
+    return cuda_ms(lambda: F.grid_sample(frames_nchw, grid, mode="bilinear", padding_mode="zeros",
+                                         align_corners=True), reps)
 
 
 def shake_matrices(n: int, seed: int, rot: float, trans: float):
@@ -245,9 +318,15 @@ def phase_k1(device):
               for _ in range(2)]
     t_plain.append(cuda_ms(lambda: W.warp_plain(big, coeffs, border, HEIGHT, WIDTH, "bilinear"), 3))
     ms, plain_ms = min(t_kern), min(t_plain)
-    log(f"[K1] {tuple(big.shape)} bilinear: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms "
-        f"(runs {t_kern}, {t_plain})")
-    return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms}
+    nchw = big.permute(0, 3, 1, 2).contiguous()
+    del big
+    library_ms = grid_sample_ms(nchw, coeffs, HEIGHT, WIDTH, 10)
+    del nchw
+    b = warp_bound(CLIP_FRAMES, HEIGHT, WIDTH, 3, HEIGHT, WIDTH, "bilinear")
+    log(f"[K1] ({CLIP_FRAMES}, {HEIGHT}, {WIDTH}, 3) bilinear: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms "
+        f"(runs {t_kern}, {t_plain}); grid_sample {library_ms:.3f} ms; bound {b['bound_ms']:.3f} ms "
+        f"({b['bound_by']})")
+    return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms, **b, "library_ms": library_ms}
 
 
 def phase_k2(device, frames):
@@ -289,6 +368,12 @@ def phase_k2(device, frames):
             f"(runs {t_kern}, {t_plain})")
         if level is pyr[0]:
             result["ms"], result["plain_ms"] = min(t_kern), min(t_plain)
+            # per pixel: 25 candidates x (64 differences, 64 squares, 63 adds, 1 scale),
+            # the two input scalings, ~20 for the argmin and the parabolas
+            px = I.numel()
+            result.update(bound(4 * 5 * px, px * (25 * 192 + 2 + 20)), library_ms=None)
+            log(f"[K2] {shape}: bound {result['bound_ms']:.4f} ms ({result['bound_by']}); "
+                "no single PyTorch call computes it")
     return result
 
 
@@ -446,8 +531,14 @@ def phase_k4(grays):
         f"max rel diff {rel:.3e}")
     check(rel <= K4_RTOL, f"K4: max rel diff {rel} > {K4_RTOL}")
     ms, plain_ms, tk, tp = timed_pair(lambda: GF.gftt_scores(*prods), lambda: GF.gftt_plain(*prods), 20, 3)
-    log(f"[K4] {tuple(g.shape)}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (runs {tk}, {tp})")
-    return {"max_abs_err": float(diff.max()) if diff.numel() else 0.0, "ms": ms, "plain_ms": plain_ms}
+    # per pixel: 3 products x (20 row adds + 20 column adds), 8 for the
+    # eigenvalue, 9 maxima for the NMS; three products in, the scores out
+    px = g.numel()
+    b = bound(4 * 4 * px, px * (3 * 40 + 8 + 9))
+    log(f"[K4] {tuple(g.shape)}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (runs {tk}, {tp}); "
+        f"bound {b['bound_ms']:.4f} ms ({b['bound_by']}); no single PyTorch call computes it")
+    return {"max_abs_err": float(diff.max()) if diff.numel() else 0.0, "ms": ms, "plain_ms": plain_ms,
+            **b, "library_ms": None}
 
 
 def phase_k6(grays):
@@ -475,8 +566,30 @@ def phase_k6(grays):
             f"(runs {tk}, {tp})")
         if name == "search":
             result["ms"], result["plain_ms"] = ms, plain_ms
+            # a copy: the stack and the corners read once, the windows written once
+            result.update(bound(4 * (src.numel() + corners.numel() + out.numel()), 0))
+            result["library_ms"] = index_gather_ms(src, corners, wext)
+            log(f"[K6] search: one advanced-index gather {result['library_ms']:.4f} ms; "
+                f"bound {result['bound_ms']:.4f} ms ({result['bound_by']})")
         del out, ref
     return result
+
+
+def index_gather_ms(stack, corners, wext: int) -> float:
+    """One advanced-index gather of the windows from the zero-padded stack
+    (the pad and the index tensor built beforehand, not timed)."""
+    import torch
+    import torch.nn.functional as F
+
+    B, H, W_ = stack.shape
+    flat_src = F.pad(stack, (wext, wext, wext, wext)).reshape(-1)
+    hp, wp = H + 2 * wext, W_ + 2 * wext
+    cy = torch.clamp(corners[..., 1].to(torch.int64) + wext, 0, H + wext)
+    cx = torch.clamp(corners[..., 0].to(torch.int64) + wext, 0, W_ + wext)
+    ar = torch.arange(wext, device=stack.device)
+    rows = torch.arange(B, device=stack.device)[:, None, None] * hp + cy[..., None] + ar
+    index = rows[..., :, None] * wp + (cx[..., None] + ar)[..., None, :]
+    return cuda_ms(lambda: flat_src[index], 20)
 
 
 def phase_k5(grays):
@@ -517,8 +630,17 @@ def phase_k5(grays):
     check(err <= K5_TRACK_TOL, f"K5: live tracks differ by {err} px > {K5_TRACK_TOL}")
     ms, plain_ms, tk, tp = timed_pair(lambda: LKC.lk_gn_iterate(*args, LK.MAX_ITERS, LK.EPS),
                                       lambda: LKC.lk_gn_plain(*args, LK.MAX_ITERS, LK.EPS), 10, 1)
-    log(f"[K5] level 0 {n} features: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (runs {tk}, {tp})")
-    return {"max_abs_err": float((out - ref).abs().max()), "ms": ms, "plain_ms": plain_ms}
+    # data-dependent: this run's iterations x the operations of one (31 rows
+    # x (3 + 31 x 11) for the blend, residual and products, 60 row-sum adds,
+    # ~20 for the step and the stop rule); every input read once
+    total_iters = int(iters.sum())
+    nbytes = sum(4 * a.numel() for a in args) + 12 * n
+    b = bound(nbytes, total_iters * (31 * (3 + 31 * 11) + 60 + 20))
+    log(f"[K5] level 0 {n} features: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (runs {tk}, {tp}); "
+        f"{total_iters} iterations in all; bound {b['bound_ms']:.4f} ms ({b['bound_by']}); "
+        "no single PyTorch call computes it")
+    return {"max_abs_err": float((out - ref).abs().max()), "ms": ms, "plain_ms": plain_ms, **b,
+            "library_ms": None}
 
 
 def classic_stage_split(frames, device):
@@ -658,6 +780,292 @@ def phase_classic(device, frames):
     return launches, fps
 
 
+def shake_meta(style: str, seed: int, n: int, h: int, w: int) -> dict:
+    """BASELINE configs 2 and 4: a generated shake at 24 fps, amount 1, speed 1."""
+    from comfyui_video_stabilizer_tpu_torch.models.shake import STYLES, generate_shake_motion_meta
+
+    return {"motion_meta": generate_shake_motion_meta(
+        recipe=STYLES[style], frame_count=n, width=w, height=h, fps=24.0,
+        amount=1.0, speed=1.0, seed=seed, style=style)}
+
+
+def run_apply(ctx, meta, device, framing="crop_and_pad", interp="bicubic", blur=0.5, samples=33):
+    from comfyui_video_stabilizer_tpu_torch.models.motion_apply import apply_motion
+
+    return apply_motion(ctx, meta, (127, 127, 127), framing_mode=framing, interpolation=interp,
+                        motion_blur=blur, motion_blur_samples=samples, device=device)
+
+
+def sample_coeffs(meta, samples: int, device):
+    """The (N, S, 8) float32 K3 coefficients apply_motion makes for blur 0.5."""
+    import torch
+
+    from comfyui_video_stabilizer_tpu_torch.meta.motion_meta import resolve_motion_meta
+    from comfyui_video_stabilizer_tpu_torch.models.motion_apply import blurred_sample_matrices
+    from comfyui_video_stabilizer_tpu_torch.ops import warp as W
+
+    mats = resolve_motion_meta(meta).matrices()
+    sm = blurred_sample_matrices(mats, 0.5, samples)
+    n = sm.shape[0]
+    coeffs = W.prepare_inverse_coeffs(sm.reshape(n * samples, 3, 3)).reshape(n, samples, 8)
+    return torch.as_tensor(coeffs.astype(np.float32), device=device)
+
+
+def phase_k3(device, frames, meta4):
+    """K3 against its plain version: 8 frames of 1080p (bicubic S = 33,
+    bilinear S = 5), then the Motion Apply slice's own inputs (80 frames,
+    bicubic, S = 33), where the JSON line's times are taken."""
+    import torch
+
+    from comfyui_video_stabilizer_tpu_torch.ops import warp as W
+
+    border = torch.full((3,), 127 / 255.0, device=device)
+    max_err = 0.0
+    for interp, s in (("bicubic", 33), ("bilinear", 5)):
+        small = frames[:8].contiguous()
+        coeffs = sample_coeffs(meta4, s, device)[:8].contiguous()
+        out = W.warp_blur_frames(small, coeffs, border, HEIGHT, WIDTH, interp)
+        ref = W.warp_blur_plain(small, coeffs, border, HEIGHT, WIDTH, interp)
+        torch.cuda.synchronize()
+        err = float((out - ref).abs().max())
+        check(bool(torch.isfinite(out).all()), f"K3 {interp} S={s}: non-finite output")
+        check(err <= K3_TOL, f"K3 {interp} S={s}: max|kernel - plain| {err} > {K3_TOL}")
+        max_err = max(max_err, err)
+        del out, ref
+        ms, plain_ms, tk, tp = timed_pair(lambda: W.warp_blur_frames(small, coeffs, border, HEIGHT, WIDTH, interp),
+                                          lambda: W.warp_blur_plain(small, coeffs, border, HEIGHT, WIDTH, interp),
+                                          10, 1)
+        nchw = small.permute(0, 3, 1, 2).contiguous()
+        lib = sum(grid_sample_ms(nchw, coeffs[:, k].contiguous(), HEIGHT, WIDTH, 3) for k in range(s))
+        del nchw
+        log(f"[K3] (8, {HEIGHT}, {WIDTH}, 3) {interp} S={s}: bitwise equal {err == 0.0}; kernel {ms:.3f} ms, "
+            f"plain {plain_ms:.3f} ms (runs {tk}, {tp}); {s} grid_sample calls {lib:.3f} ms")
+
+    coeffs = sample_coeffs(meta4, 33, device)
+    out = W.warp_blur_frames(frames, coeffs, border, HEIGHT, WIDTH, "bicubic")
+    ref = W.warp_blur_plain(frames, coeffs, border, HEIGHT, WIDTH, "bicubic")
+    torch.cuda.synchronize()
+    err = float((out - ref).abs().max())
+    check(err <= K3_TOL, f"K3 at the slice shape: {err} > {K3_TOL}")
+    max_err = max(max_err, err)
+    del out, ref
+    # plain, kernel, kernel, plain: the plain version (~10 s a call) once each side, unwarmed
+    t_plain = [cuda_ms(lambda: W.warp_blur_plain(frames, coeffs, border, HEIGHT, WIDTH, "bicubic"), 1, warm=False)]
+    t_kern = [cuda_ms(lambda: W.warp_blur_frames(frames, coeffs, border, HEIGHT, WIDTH, "bicubic"), 5)
+              for _ in range(2)]
+    t_plain.append(cuda_ms(lambda: W.warp_blur_plain(frames, coeffs, border, HEIGHT, WIDTH, "bicubic"), 1,
+                           warm=False))
+    ms, plain_ms = min(t_kern), min(t_plain)
+    nchw = frames.permute(0, 3, 1, 2).contiguous()
+    library_ms = sum(grid_sample_ms(nchw, coeffs[:, k].contiguous(), HEIGHT, WIDTH, 2) for k in range(33))
+    del nchw
+    b = warp_bound(CLIP_FRAMES, HEIGHT, WIDTH, 3, HEIGHT, WIDTH, "bicubic", samples=33)
+    log(f"[K3] ({CLIP_FRAMES}, {HEIGHT}, {WIDTH}, 3) bicubic S=33 (the config 4 inputs): bitwise equal "
+        f"{err == 0.0}; kernel {ms:.3f} ms, plain {plain_ms:.1f} ms (runs {t_kern}, {t_plain}); "
+        f"33 grid_sample calls {library_ms:.3f} ms; bound {b['bound_ms']:.3f} ms ({b['bound_by']})")
+    return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms, **b, "library_ms": library_ms}
+
+
+def apply_stage_split(device, ctx, meta):
+    """One config 4 call's device stages, a synchronize after each (ms)."""
+    import torch
+
+    from comfyui_video_stabilizer_tpu_torch.models.motion_apply import resolve_motion_for_context
+    from comfyui_video_stabilizer_tpu_torch.ops import warp as W
+
+    ms = {}
+
+    def stage(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ms[name] = 1e3 * (time.perf_counter() - t0)
+        return out
+
+    stage("resolve meta", lambda: resolve_motion_for_context(meta, ctx))
+    coeffs = stage("samples + coeffs (host) + upload", lambda: sample_coeffs(meta, 33, device))
+    border = torch.full((3,), 127 / 255.0, device=device)
+    stage("K3", lambda: W.warp_blur_frames(ctx.frames, coeffs, border, HEIGHT, WIDTH, "bicubic"))
+    stage("soft mask", lambda: W.zero_small(1.0 - W._coverage_mean(coeffs, HEIGHT, WIDTH, HEIGHT, WIDTH)))
+    return ms
+
+
+def phase_motion_apply(device, frames, meta4):
+    """BASELINE config 4 on the 1080p x 80 clip, then crop and expand."""
+    import torch
+
+    from comfyui_video_stabilizer_tpu_torch.ops import cuda_build
+
+    ctx = make_context(frames)
+    torch.cuda.synchronize()
+    cuda_build.reset_launches()
+    res = run_apply(ctx, meta4, device)
+    torch.cuda.synchronize()
+    launches = dict(cuda_build.LAUNCHES)
+    log(f"[apply] launches in one apply_motion call (config 4): {launches}")
+    check(launches["warp_blur"] == 1, f"K3 launched {launches['warp_blur']} times, not once")
+    check(launches["warp"] == 0, f"K1 launched {launches['warp']} times by the blur path")
+    check(tuple(res.frames.shape) == (CLIP_FRAMES, HEIGHT, WIDTH, 3), f"frames {tuple(res.frames.shape)}")
+    check(tuple(res.masks.shape) == (CLIP_FRAMES, HEIGHT, WIDTH), f"masks {tuple(res.masks.shape)}")
+    check(res.frames.device.type == "cuda" and res.masks.device.type == "cuda", "outputs left the card")
+    check(bool(torch.isfinite(res.frames).all()), "non-finite frames")
+    check(bool(((res.masks >= 0) & (res.masks <= 1)).all()), "masks outside [0, 1]")
+    soft = float(((res.masks > 0) & (res.masks < 1)).float().mean())
+    block = res.meta["motion_apply"]
+    check(block["motion_blur_samples"] == 33 and block["interpolation"] == "bicubic", f"meta {block}")
+    log(f"[apply] soft-mask share {soft:.5f}, padded share {float(res.masks.mean()):.5f}")
+    del res
+
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run_apply(ctx, meta4, device)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        del out
+    fps = [CLIP_FRAMES / t for t in times]
+    log(f"[apply] warm apply_motion config 4 (1080p x {CLIP_FRAMES}, bicubic, blur 0.5, 33 samples): "
+        f"{', '.join(f'{f:.1f}' for f in fps)} f/s; best {max(fps):.1f}, median {float(np.median(fps)):.1f}; "
+        f"{', '.join(f'{1e3 * t:.1f}' for t in times)} ms; "
+        f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    n_events, busy, wall = profile_call(lambda: run_apply(ctx, meta4, device))
+    log(f"[apply] torch.profiler over one call: {n_events} device events, device busy {busy:.1f} ms "
+        f"of {wall:.1f} ms wall (busy share {busy / wall:.2f} under the profiler)")
+    split = [apply_stage_split(device, ctx, meta4) for _ in range(3)]
+    med = {k: float(np.median([s[k] for s in split])) for k in split[0]}
+    rest = 1e3 * float(np.median(times)) - sum(med.values())
+    log("[apply] stage split, ms (median of 3, synchronize after each stage): " + ", ".join(
+        f"{k} {v:.2f}" for k, v in med.items()) + f"; the rest of the median call {rest:.2f}")
+
+    for framing in ("crop", "expand"):
+        cuda_build.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = run_apply(ctx, meta4, device, framing=framing)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        block = res.meta["motion_apply"]
+        ow, oh = block["output_size"]
+        check(tuple(res.frames.shape) == (CLIP_FRAMES, oh, ow, 3), f"{framing}: frames {tuple(res.frames.shape)}")
+        check(tuple(res.masks.shape) == (CLIP_FRAMES, oh, ow), f"{framing}: masks {tuple(res.masks.shape)}")
+        check(bool(torch.isfinite(res.frames).all()), f"{framing}: non-finite frames")
+        check(cuda_build.LAUNCHES["warp_blur"] == 1, f"{framing}: K3 launches {cuda_build.LAUNCHES}")
+        if framing == "crop":
+            check(block["framing_mode"] == "crop" and "framing_fallback" not in res.meta,
+                  f"crop fell back: {block['framing_mode']}")
+            check(float(res.masks.max()) == 0.0, "crop: masks not all zero")
+        else:
+            check(block["framing_mode"] == "expand" and ow >= WIDTH and oh >= HEIGHT,
+                  f"expand: canvas {ow}x{oh}")
+            check(bool(((res.masks >= 0) & (res.masks <= 1)).all()), "expand: masks outside [0, 1]")
+        log(f"[apply] {framing}: status {block['framing_mode']}, output {ow}x{oh}, one call {1e3 * secs:.1f} ms")
+        del res
+    return launches, fps
+
+
+def phase_config2(device):
+    """BASELINE config 2: handheld shake, seed 7, 1280x720 x 80, bilinear,
+    no blur (K1); two calls must give bitwise-equal frames."""
+    import torch
+
+    from comfyui_video_stabilizer_tpu_torch.ops import cuda_build
+
+    n, h, w = BASELINE2
+    clip = synth_clip(n, h, w, seed=7, device=device)
+    meta = shake_meta("handheld", 7, n, h, w)
+    ctx = make_context(clip)
+    torch.cuda.synchronize()
+    cuda_build.reset_launches()
+    a = run_apply(ctx, meta, device, interp="bilinear", blur=0.0)
+    torch.cuda.synchronize()
+    launches = dict(cuda_build.LAUNCHES)
+    check(launches["warp"] == 1 and launches["warp_blur"] == 0, f"config 2 launches {launches}")
+    b = run_apply(ctx, meta, device, interp="bilinear", blur=0.0)
+    torch.cuda.synchronize()
+    check(bool(torch.equal(a.frames, b.frames)) and bool(torch.equal(a.masks, b.masks)),
+          "config 2: two calls differ")
+    check(bool(torch.isfinite(a.frames).all()), "config 2: non-finite frames")
+    del a, b
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run_apply(ctx, meta, device, interp="bilinear", blur=0.0)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    log(f"[config2] {w}x{h} x {n}, handheld seed 7, bilinear, no blur: launches {launches}; "
+        f"deterministic (bitwise); warm calls {', '.join(f'{1e3 * t:.1f}' for t in times)} ms, "
+        f"{', '.join(f'{n / t:.1f}' for t in times)} f/s")
+
+
+def phase_apply_reference(device):
+    """Motion Apply, CUDA path against CPU path, on a small clip."""
+    import torch
+
+    frames = synth_clip(8, 144, 192, seed=9, device="cpu")
+    meta = shake_meta("action", 3, 8, 144, 192)
+    for blur in (0.0, 0.5):
+        cpu = run_apply(make_context(frames), meta, "cpu", blur=blur)
+        gpu = run_apply(make_context(frames.to(device)), meta, device, blur=blur)
+        d = (cpu.frames - gpu.frames.cpu()).abs().flatten()
+        p99 = float(torch.quantile(d[:: max(1, d.numel() // 1_000_000)], 0.99))
+        unequal = float((cpu.masks != gpu.masks.cpu()).float().mean())
+        log(f"[apply reference] 8x144x192, bicubic, blur {blur}: frames p99 {p99:.3e}, max {float(d.max()):.3e}; "
+            f"masks unequal on {unequal:.2e} of pixels")
+        check(p99 <= APPLY_FRAME_P99, f"blur {blur}: frames p99 {p99}")
+        check(unequal <= APPLY_MASK_UNEQUAL, f"blur {blur}: masks unequal on {unequal}")
+
+
+def phase_motion_nodes(frames_cpu):
+    """The Motion Apply, Inverse and both Shake Generator nodes on CPU tensors."""
+    import torch
+
+    from comfyui_video_stabilizer_tpu_torch import nodes
+    from comfyui_video_stabilizer_tpu_torch.meta.motion_meta import build_stabilization_warp_meta
+
+    n = frames_cpu.shape[0]
+    t0 = time.perf_counter()
+    shake = nodes.VideoStabilizerShakeGenerator.execute(frames_cpu, 24.0, "action", 1.0, 1.0, 3)[0]
+    manual = nodes.VideoStabilizerShakeGeneratorManual.execute(
+        frames_cpu, 24.0, 0.4, 0.33, 0.5, 0.003, 0.35, 0.35, 5.0, 0.0, 0.0, 0.3, 60.0, 1.0, 1.0, 7)[0]
+    secs_shake = time.perf_counter() - t0
+    for m in (shake, manual):
+        block = m["motion_meta"]
+        check(block["frame_count"] == n and block["input_size"] == [WIDTH, HEIGHT], f"shake meta {block['input_size']}")
+    t0 = time.perf_counter()
+    video, mask, meta = nodes.VideoStabilizerMotionApply.execute(
+        frames_cpu, shake, "crop_and_pad", "bicubic", "#7F7F7F", 0.5, "Ultra")
+    secs_apply = time.perf_counter() - t0
+    check(isinstance(video, torch.Tensor) and video.device.type == "cpu" and video.is_contiguous(),
+          "Motion Apply node frames not a contiguous CPU tensor")
+    check(tuple(video.shape) == (n, HEIGHT, WIDTH, 3) and tuple(mask.shape) == (n, HEIGHT, WIDTH),
+          f"Motion Apply node {tuple(video.shape)} {tuple(mask.shape)}")
+    check(bool(torch.isfinite(video).all()) and bool(((mask >= 0) & (mask <= 1)).all()),
+          "Motion Apply node outputs out of range")
+    check(meta["motion_apply"]["motion_blur_quality"] == "Ultra", "Motion Apply node meta")
+    mats = np.array([e["matrix"] for e in manual["motion_meta"]["per_frame"]], np.float32)
+    legacy = {"stabilization_warp": build_stabilization_warp_meta(
+        source_size=(WIDTH, HEIGHT), output_size=(WIDTH, HEIGHT), framing_mode="crop_and_pad",
+        applied_matrices=mats)}
+    shaken = nodes.VideoStabilizerMotionApply.execute(
+        frames_cpu, manual, "crop_and_pad", "bilinear", "#7F7F7F", 0.0, "Standard")[0]
+    t0 = time.perf_counter()
+    restored, rmask, rmeta = nodes.VideoStabilizerInverse.execute(shaken, legacy, "#7F7F7F")
+    secs_inverse = time.perf_counter() - t0
+    check(tuple(restored.shape) == (n, HEIGHT, WIDTH, 3) and restored.device.type == "cpu",
+          f"Inverse node {tuple(restored.shape)}")
+    check("inverse_stabilization" in rmeta and "motion_apply" not in rmeta, "Inverse node meta")
+    valid = rmask < 0.5
+    err = (restored - frames_cpu).abs()[valid]
+    log(f"[nodes] on CPU tensors ({n}, {HEIGHT}, {WIDTH}, 3): both shake generators {secs_shake:.3f} s; "
+        f"Motion Apply (bicubic, Ultra blur) {secs_apply:.3f} s; Inverse {secs_inverse:.3f} s "
+        f"(round trip of a bilinear shake: mean |err| {float(err.mean()):.4f} on {float(valid.float().mean()):.3f} "
+        "of the pixels)")
+
+
 def main() -> int:
     try:
         import torch
@@ -695,13 +1103,26 @@ def main() -> int:
     classic_launches, _ = phase_classic(device, frames)
     phase_small_reference(device, run_classic, "classic reference")
     phase_node(frames[:16].cpu(), "VideoStabilizerClassic")
+
+    meta4 = shake_meta("action", 3, CLIP_FRAMES, HEIGHT, WIDTH)
+    k3 = phase_k3(device, frames, meta4)
+    apply_launches, _ = phase_motion_apply(device, frames, meta4)
+    phase_config2(device)
+    phase_apply_reference(device)
+    phase_motion_nodes(frames[:16].cpu())
     check("jax" not in sys.modules, "jax was imported")
+    jax_pkg = [m for m in sys.modules if m.split(".")[0] == "comfyui_video_stabilizer_tpu"]
+    check(not jax_pkg, f"modules of the JAX package were imported: {sorted(jax_pkg)}")
 
     kernels = [
         {"name": "warp", "route": "cuda",
          "source": "comfyui_video_stabilizer_tpu_torch/csrc/warp.cu",
          "replaces": "comfyui_video_stabilizer_tpu/ops/warp_pallas.py:525",
          "launches": launches["warp"], **k1},
+        {"name": "warp_blur", "route": "cuda",
+         "source": "comfyui_video_stabilizer_tpu_torch/csrc/warp.cu",
+         "replaces": "comfyui_video_stabilizer_tpu/ops/warp_pallas.py:525",
+         "launches": apply_launches["warp_blur"], **k3},
         {"name": "cost_volume", "route": "cuda",
          "source": "comfyui_video_stabilizer_tpu_torch/csrc/cost_volume.cu",
          "replaces": "comfyui_video_stabilizer_tpu/ops/cv_pallas.py:178",

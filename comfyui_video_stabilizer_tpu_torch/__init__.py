@@ -3,20 +3,24 @@
 The JAX package ``comfyui_video_stabilizer_tpu`` beside it is the
 reference this package is held against.  The layers mirror it:
 ``ops/`` (kernel wrappers and tensor ops), ``models/`` (engines),
-``nodes/`` (ComfyUI shells), ``utils/`` (I/O, device policy, timing)
-and ``csrc/`` (the hand-written CUDA kernels).  Host-only modules of
-the JAX package that import no JAX (``meta.motion_meta``,
-``models.geometry``, ``utils.color``) are used by import.
+``nodes/`` (ComfyUI shells), ``meta/`` (motion_meta v2), ``native/``
+(the host corner greedy), ``utils/`` (I/O, device policy, timing) and
+``csrc/`` (the hand-written CUDA kernels).  The JAX package's host-only
+modules (``meta.motion_meta``, ``models.geometry``, ``models.shake``,
+``utils.color`` and the native greedy) are copied, not imported.
 
 Device policy: engine entry points take ``device`` and default to
 ``"cuda"``; asking for CUDA without a card raises.  Ops follow the
 device of the tensors they are given: a CUDA tensor launches the
 hand-written kernel (or raises), a CPU tensor takes its plain PyTorch
-version.  This package never imports JAX.
+version.  This package never imports JAX, nor any module of the JAX
+package.
 
 Ported so far: the Flow stabilizer (DIS tier) and the Classic
 stabilizer (GFTT + pyramidal LK) with crop_and_pad and expand framing
-and the translation/similarity models.
+and the translation/similarity models; Motion Apply (all three
+framings, shutter blur), the shake generators and the legacy inverse
+engine, with all six nodes.
 """
 
 from __future__ import annotations

@@ -24,12 +24,11 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
-from comfyui_video_stabilizer_tpu.models import geometry as G
-
 from ..ops import lk as LK
 from ..ops import prng
 from ..ops import ransac as RS
 from ..utils.video_io import VideoContext
+from . import geometry as G
 from .flow import PERSPECTIVE_NOT_PORTED
 from .stabilize import PairFits, StabilizationResult, estimation_chunk_spans, stabilize_clip
 

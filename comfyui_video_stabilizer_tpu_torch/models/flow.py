@@ -19,13 +19,12 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
-from comfyui_video_stabilizer_tpu.models import geometry as G
-
 from ..ops import flow_dis as FD
 from ..ops import prng
 from ..ops import ransac as RS
 from ..ops.resize import can_decimate
 from ..utils.video_io import VideoContext
+from . import geometry as G
 from .stabilize import PairFits, StabilizationResult, estimation_chunk_spans, stabilize_clip
 
 SAMPLE_STEP = 8

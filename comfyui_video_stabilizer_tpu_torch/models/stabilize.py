@@ -14,9 +14,9 @@ Counterpart of the host engine of
   8. one batched warp (K1) + closed-form padding masks, on the device
   9. meta assembly + motion_meta v2 attach
 
-Geometry and motion_meta are the JAX package's host modules, used by
-import, so the meta contract is identical by construction.  Crop
-framing is not ported yet and raises.
+Geometry and motion_meta are the port's copies of the JAX package's
+host modules (numpy, the same code), so the meta contract is
+identical.  Crop framing is not ported yet and raises.
 """
 
 from __future__ import annotations
@@ -28,17 +28,16 @@ from typing import Any, Callable, Dict, List, Tuple
 import numpy as np
 import torch
 
-from comfyui_video_stabilizer_tpu.meta.motion_meta import (
+from ..meta.motion_meta import (
     applied_motion_meta_from_stabilization_warp,
     build_stabilization_warp_meta,
 )
-from comfyui_video_stabilizer_tpu.models import geometry as G
-
 from ..ops import resize as R
 from ..ops import warp as W
 from ..utils.device import resolve_device, strict_fp32
 from ..utils.profiling import StageTimer
 from ..utils.video_io import VideoContext
+from . import geometry as G
 
 logger = logging.getLogger(__name__)
 

@@ -1,0 +1,71 @@
+"""ctypes binding of the port's native corner greedy (``rectangle.cpp``).
+
+A copy of the greedy half of ``comfyui_video_stabilizer_tpu/native/
+rectangle.py``.  The shared library is built with ``g++`` at first use
+into the repository's git-ignored ``build/`` directory, beside the CUDA
+kernel library, named by a hash of the source and flags; it is never
+written next to its source.  A build with no compiler raises (there is
+no Python fallback).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import pathlib
+import subprocess
+
+import numpy as np
+
+_SRC = pathlib.Path(__file__).resolve().parent / "rectangle.cpp"
+BUILD_DIR = _SRC.parents[2] / "build"
+GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
+
+
+def library_path() -> pathlib.Path:
+    digest = hashlib.sha256(_SRC.read_bytes() + " ".join(GXX_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"librectangle_{digest}.so"
+
+
+@functools.lru_cache(maxsize=None)
+def _load() -> ctypes.CDLL:
+    """Build (once; to a temporary name, then renamed, so concurrent
+    builders never load a half-written file) and load the library."""
+    path = library_path()
+    if not path.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
+        try:
+            subprocess.run(["g++", *GXX_FLAGS, str(_SRC), "-o", str(tmp)], check=True, capture_output=True)
+            os.replace(tmp, path)
+        finally:
+            tmp.unlink(missing_ok=True)
+    lib = ctypes.CDLL(str(path))
+    lib.greedy_min_distance.argtypes = [
+        ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int64),
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+        ctypes.c_double, ctypes.c_int64, ctypes.POINTER(ctypes.c_int64),
+    ]
+    lib.greedy_min_distance.restype = ctypes.c_int64
+    return lib
+
+
+def greedy_min_distance(
+    ys: np.ndarray, xs: np.ndarray, height: int, width: int,
+    min_distance: float, max_corners: int,
+) -> np.ndarray:
+    """Score-descending greedy acceptance; returns (k, 2) xy points."""
+    lib = _load()
+    ys64 = np.ascontiguousarray(ys, np.int64)
+    xs64 = np.ascontiguousarray(xs, np.int64)
+    out = np.zeros((max_corners, 2), np.int64)
+    k = lib.greedy_min_distance(
+        ys64.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+        xs64.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+        ctypes.c_int64(len(ys64)), ctypes.c_int64(height), ctypes.c_int64(width),
+        ctypes.c_double(min_distance), ctypes.c_int64(max_corners),
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+    )
+    return out[:k]

@@ -11,10 +11,9 @@ from __future__ import annotations
 
 from typing import Any
 
-from comfyui_video_stabilizer_tpu.utils.color import parse_padding_color
-
 from ..models.classic import stabilize_classic
 from ..models.flow import stabilize_flow
+from ..utils.color import parse_padding_color
 from ..utils.video_io import (
     convert_masks_for_output,
     normalize_video_input,

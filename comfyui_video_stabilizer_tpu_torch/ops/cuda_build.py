@@ -40,7 +40,7 @@ NVCC_FLAGS = (
     "-Xptxas=-v",
 )
 
-LAUNCHES = {"warp": 0, "cost_volume": 0, "gftt": 0, "lk_gn": 0, "extract_windows": 0}
+LAUNCHES = {"warp": 0, "warp_blur": 0, "cost_volume": 0, "gftt": 0, "lk_gn": 0, "extract_windows": 0}
 
 
 def reset_launches() -> None:
@@ -129,6 +129,8 @@ def library() -> ctypes.CDLL:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.cvst_warp.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32, ptr]
     lib.cvst_warp.restype = i32
+    lib.cvst_warp_blur.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32, i32, ptr]
+    lib.cvst_warp_blur.restype = i32
     lib.cvst_cost_volume.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr]
     lib.cvst_cost_volume.restype = i32
     lib.cvst_gftt.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, ptr]

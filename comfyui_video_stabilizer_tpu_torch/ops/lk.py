@@ -6,8 +6,8 @@ product path:
 * ``gftt_batch``: Sobel gradients (``_conv2``), the fused score map
   (K4, ops/gftt_cuda.py), the quality threshold and the top 2048
   candidates on the device; the score-descending min-distance-7 greedy
-  runs on the host in the JAX package's native C++ helper
-  (``native/rectangle.py``), the sequential oracle the JAX package
+  runs on the host in the port's native C++ helper
+  (``native/rectangle.py``, a copy of the JAX package's), the sequential oracle the JAX package
   holds its device scan to.  One (B, 2048) int32 array leaves the
   device per call.
 * ``lk_track``: a 4-level Gaussian pyramid, then per level ``_lk_prep``
@@ -28,8 +28,7 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
-from comfyui_video_stabilizer_tpu.native import rectangle as _native
-
+from ..native import rectangle as _native
 from . import extract_cuda as EX
 from . import gftt_cuda as GF
 from . import lk_cuda as LKC

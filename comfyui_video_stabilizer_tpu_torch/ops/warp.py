@@ -16,9 +16,13 @@ half to even.
 
 ``warp_frames`` is the kernel wrapper: a CUDA tensor launches the
 hand-written kernel K1 (``csrc/warp.cu``), a CPU tensor takes
-``warp_plain``, the plain PyTorch version with the same op order.  The
-padding mask (1 - nearest coverage) and its per-frame ratios stay
-plain PyTorch, as they are XLA in the JAX package.
+``warp_plain``, the plain PyTorch version with the same op order.
+``warp_blur_frames`` does the same for K3, the shutter-blur warp (the
+mean of S sample warps, ``warp_blur_plain`` on the CPU).  The padding
+mask (1 - nearest coverage), its per-frame ratios and the blur's soft
+mask (1 - mean coverage over the samples) stay plain PyTorch, as they
+are XLA in the JAX package.  Streaming clips through time chunks is not
+ported: the engines raise past the device budget (``check_fits_device``).
 """
 
 from __future__ import annotations
@@ -194,6 +198,20 @@ def warp_plain(frames: torch.Tensor, coeffs: torch.Tensor, border: torch.Tensor,
     raise ValueError(f"Unsupported interpolation {interp!r}.")
 
 
+def warp_blur_plain(frames: torch.Tensor, coeffs_s: torch.Tensor, border: torch.Tensor,
+                    out_h: int, out_w: int, interp: Interp) -> torch.Tensor:
+    """Plain PyTorch version of K3: ``warp_plain`` once per sample,
+    summed in sample order, divided by S."""
+    s = coeffs_s.shape[1]
+    acc = None
+    for k in range(s):
+        w = warp_plain(frames, coeffs_s[:, k], border, out_h, out_w, interp)
+        acc = w if acc is None else acc + w
+    # the divisor is a tensor on acc's device: dividing a CUDA tensor by a
+    # Python number multiplies by its reciprocal, one ulp off K3's division
+    return acc / torch.tensor(float(s), device=acc.device)
+
+
 def warp_frames(frames: torch.Tensor, coeffs: torch.Tensor, border: torch.Tensor,
                 out_h: int, out_w: int, interp: Interp = "bilinear") -> torch.Tensor:
     """Warp (N,H,W,C) float32 frames by per-frame (N,8) inverse coeffs.
@@ -228,9 +246,56 @@ def warp_frames(frames: torch.Tensor, coeffs: torch.Tensor, border: torch.Tensor
     return out
 
 
+def warp_blur_frames(frames: torch.Tensor, coeffs_s: torch.Tensor, border: torch.Tensor,
+                     out_h: int, out_w: int, interp: Interp = "bilinear") -> torch.Tensor:
+    """Mean of S sample warps of (N,H,W,C) float32 frames by (N,S,8)
+    sample-minor inverse coeffs.
+
+    CUDA tensors launch K3 (raising if it cannot build or launch); CPU
+    tensors take :func:`warp_blur_plain`.  Nearest has no blur and raises.
+    """
+    if interp not in ("bilinear", "bicubic"):
+        raise ValueError(f"Unsupported interpolation {interp!r}; the blur warp takes bilinear or bicubic.")
+    if frames.device.type == "cpu":
+        return warp_blur_plain(frames, coeffs_s, border, out_h, out_w, interp)
+    n, h, w, c = frames.shape
+    cuda_build.require_cuda_tensor("frames", frames, torch.float32, 4)
+    cuda_build.require_cuda_tensor("coeffs_s", coeffs_s, torch.float32, 3)
+    cuda_build.require_cuda_tensor("border", border, torch.float32, 1)
+    s = coeffs_s.shape[1]
+    if coeffs_s.shape != (n, s, 8) or border.shape != (c,):
+        raise ValueError(f"coeffs_s {tuple(coeffs_s.shape)} / border {tuple(border.shape)} "
+                         f"do not match {n} frames of {c} channels")
+    if not 1 <= c <= 4 or not 1 <= n <= 65535 or not 3 <= s <= 33:
+        raise ValueError(f"K3 takes 1..4 channels, 1..65535 frames and 3..33 samples, "
+                         f"got {c}, {n} and {s}")
+    if coeffs_s.device != frames.device or border.device != frames.device:
+        raise ValueError("frames, coeffs_s and border must be on one device")
+    out = torch.empty((n, out_h, out_w, c), dtype=torch.float32, device=frames.device)
+    with torch.cuda.device(frames.device):
+        err = cuda_build.library().cvst_warp_blur(
+            frames.data_ptr(), coeffs_s.data_ptr(), border.data_ptr(), out.data_ptr(),
+            n, h, w, c, out_h, out_w, INTERP_CODES[interp], s,
+            cuda_build.current_stream(frames.device),
+        )
+    cuda_build.check_launch(err, "warp_blur")
+    cuda_build.LAUNCHES["warp_blur"] += 1
+    return out
+
+
 # ---------------------------------------------------------------------------
-# Padding masks (plain PyTorch)
+# Padding and coverage masks (plain PyTorch)
 # ---------------------------------------------------------------------------
+
+def _mask_chunk(out_h: int, out_w: int) -> int:
+    return max(1, _MASK_CHUNK_PIXELS // max(out_h * out_w, 1))
+
+
+def _inside(coeffs: torch.Tensor, out_h: int, out_w: int, in_h: int, in_w: int) -> torch.Tensor:
+    """Nearest coverage: True where the round-half-even source lies in the frame."""
+    xn, yn = _nearest_coords(coeffs, out_h, out_w)
+    return (xn >= 0) & (xn < in_w) & (yn >= 0) & (yn < in_h)
+
 
 def padding_mask_stats(
     matrices: np.ndarray,
@@ -250,12 +315,51 @@ def padding_mask_stats(
     )
     n = coeffs.shape[0]
     mask = torch.empty((n, out_h, out_w), dtype=torch.float32, device=device)
-    chunk = max(1, _MASK_CHUNK_PIXELS // max(out_h * out_w, 1))
+    chunk = _mask_chunk(out_h, out_w)
     for s in range(0, n, chunk):
-        xn, yn = _nearest_coords(coeffs[s:s + chunk], out_h, out_w)
-        inside = (xn >= 0) & (xn < in_w) & (yn >= 0) & (yn < in_h)
+        inside = _inside(coeffs[s:s + chunk], out_h, out_w, in_h, in_w)
         mask[s:s + chunk] = 1.0 - inside.to(torch.float32)
     return mask, mask.reshape(n, -1).mean(dim=1)
+
+
+def coverage_mask(
+    matrices: np.ndarray,
+    in_size: Tuple[int, int],
+    out_size: Tuple[int, int],
+    device: torch.device | str,
+) -> torch.Tensor:
+    """Closed form of warping an all-ones (in_h, in_w) image with NEAREST:
+    float32 (N, out_h, out_w) on ``device``, 1.0 where the output pixel
+    lands inside the source image."""
+    in_w, in_h = int(in_size[0]), int(in_size[1])
+    out_w, out_h = int(out_size[0]), int(out_size[1])
+    coeffs = torch.as_tensor(
+        prepare_inverse_coeffs(matrices).astype(np.float32), device=device
+    )
+    n = coeffs.shape[0]
+    cover = torch.empty((n, out_h, out_w), dtype=torch.float32, device=device)
+    chunk = _mask_chunk(out_h, out_w)
+    for s in range(0, n, chunk):
+        cover[s:s + chunk] = _inside(coeffs[s:s + chunk], out_h, out_w, in_h, in_w).to(torch.float32)
+    return cover
+
+
+def _coverage_mean(coeffs_s: torch.Tensor, out_h: int, out_w: int, in_h: int, in_w: int) -> torch.Tensor:
+    """Mean nearest coverage over the shutter samples of (N, S, 8) coeffs.
+
+    Per frame chunk, the S coverages accumulate in float32 in sample
+    order and the sum is multiplied by 1/S, as the JAX package's scan;
+    no (N, S, H, W) stack is ever formed."""
+    n, s = coeffs_s.shape[:2]
+    mean = torch.empty((n, out_h, out_w), dtype=torch.float32, device=coeffs_s.device)
+    chunk = _mask_chunk(out_h, out_w)
+    for start in range(0, n, chunk):
+        part = coeffs_s[start:start + chunk]
+        acc = torch.zeros((part.shape[0], out_h, out_w), dtype=torch.float32, device=coeffs_s.device)
+        for k in range(s):
+            acc += _inside(part[:, k], out_h, out_w, in_h, in_w).to(torch.float32)
+        mean[start:start + chunk] = acc * (1.0 / s)
+    return mean
 
 
 def zero_small(mask: torch.Tensor) -> torch.Tensor:
@@ -291,3 +395,43 @@ def warp_clip(
         frames.to(torch.float32).contiguous(), coeffs,
         torch.as_tensor(border_arr.copy(), device=frames.device), out_h, out_w, interp,
     )
+
+
+def warp_clip_blur(
+    frames: torch.Tensor,
+    sample_matrices: np.ndarray,
+    out_size: Tuple[int, int],
+    interp: Interp = "bilinear",
+    border: Sequence[float] | float = (0.0, 0.0, 0.0),
+    with_mask: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor | None]:
+    """Shutter-sampled motion blur: the mean of S warps per frame.
+
+    ``sample_matrices`` has shape (N, S, 3, 3).  The warp goes through
+    :func:`warp_blur_frames` (K3 on a CUDA tensor) and reads the frames
+    once, never replicated S-fold; the soft mask is 1 - mean coverage,
+    small values zeroed.  Both lie on the frames' device.
+    """
+    n, s = sample_matrices.shape[:2]
+    out_w, out_h = int(out_size[0]), int(out_size[1])
+    c = frames.shape[-1]
+    dev = frames.device
+    if n == 0:
+        empty = torch.zeros((0, out_h, out_w, c), dtype=torch.float32, device=dev)
+        mask = torch.zeros((0, out_h, out_w), dtype=torch.float32, device=dev) if with_mask else None
+        return empty, mask
+    in_w, in_h = int(frames.shape[2]), int(frames.shape[1])
+    # one (N*S)-coefficient host pass feeds both the warp and the mask
+    sample_coeffs = prepare_inverse_coeffs(
+        np.asarray(sample_matrices, np.float64).reshape(n * s, 3, 3)
+    ).reshape(n, s, 8)
+    coeffs_s = torch.as_tensor(sample_coeffs.astype(np.float32), device=dev)
+    border_arr = np.broadcast_to(np.asarray(border, np.float32), (c,))
+    acc = warp_blur_frames(
+        frames.to(torch.float32).contiguous(), coeffs_s,
+        torch.as_tensor(border_arr.copy(), device=dev), out_h, out_w, interp,
+    )
+    if not with_mask:
+        return acc, None
+    cover = _coverage_mean(coeffs_s, out_h, out_w, in_h, in_w)
+    return acc, zero_small(1.0 - cover)

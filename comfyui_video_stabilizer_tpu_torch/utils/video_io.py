@@ -57,6 +57,13 @@ class VideoContext:
         return int(self.frames.shape[0])
 
 
+def resolve_fps(context: VideoContext, frame_rate: float, default: float = 16.0) -> float:
+    for candidate in (context.fps, frame_rate, default):
+        if isinstance(candidate, (int, float)) and np.isfinite(candidate) and candidate > 0.0:
+            return float(candidate)
+    return float(default)
+
+
 def _normalize_batch(arr: torch.Tensor, origin: str, detect_chw: bool = True):
     """4-D batch -> (float32 RGB batch, FrameAdapter), on arr's device."""
     first = arr[0]

@@ -11,7 +11,9 @@ follow the plain versions' op order, so every multiply and add rounds
 the same way.  The end-to-end cases compare the CUDA path with the CPU
 path (the plain versions) on a small clip: per-pair modes equal,
 matrices <= 1e-3, frames p99 <= 1e-3 (reductions run in another order
-on the card).
+on the card); Motion Apply, which has no reductions, frames p99 <= 1e-6
+and masks differing on <= 0.1 % of pixels (a round-half-even tie of the
+coverage may flip on a one-ulp coordinate).
 """
 
 import numpy as np
@@ -61,6 +63,26 @@ def test_warp_kernel_bitwise(cuda, interp, channels, case):
     border = torch.linspace(0.1, 0.9, channels, device=cuda)
     out = W.warp_frames(frames, coeffs, border, h + 5, w - 7, interp)
     ref = W.warp_plain(frames, coeffs, border, h + 5, w - 7, interp)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("samples", [5, 33])
+@pytest.mark.parametrize("interp", ["bilinear", "bicubic"])
+@pytest.mark.parametrize("channels", [1, 3, 4])
+@pytest.mark.parametrize("case", ["similarity", "past_edge"])
+def test_warp_blur_kernel_bitwise(cuda, interp, channels, samples, case):
+    n, h, w = 3, 97, 161
+    frames = torch.rand((n, h, w, channels), generator=torch.Generator().manual_seed(2)).to(cuda)
+    mats = np.concatenate([_mats(n, 3, persp=1e-4, shift=(150.0, 60.0) if case == "past_edge" else (0.0, 0.0)),
+                           _mats(1, 4)])
+    ts = np.linspace(0.0, 0.6, samples)  # shutter samples toward the next matrix
+    sample_mats = mats[:n, None] + (mats[1:] - mats[:-1])[:, None] * ts[None, :, None, None]
+    coeffs = torch.as_tensor(W.prepare_inverse_coeffs(sample_mats.reshape(-1, 3, 3))
+                             .astype(np.float32).reshape(n, samples, 8), device=cuda)
+    border = torch.linspace(0.1, 0.9, channels, device=cuda)
+    out = W.warp_blur_frames(frames, coeffs, border, h + 5, w - 7, interp)
+    ref = W.warp_blur_plain(frames, coeffs, border, h + 5, w - 7, interp)
     torch.cuda.synchronize()
     assert torch.equal(out, ref)
 
@@ -143,6 +165,11 @@ def test_wrappers_validate_arguments(cuda):
         GF.gftt_scores(*(torch.zeros((1, 8, s), device=cuda) for s in (8, 8, 9)))
     with pytest.raises(TypeError, match="int32"):
         EX.extract_windows(torch.zeros((1, 8, 8), device=cuda), torch.zeros((1, 2, 2), device=cuda), 5)
+    with pytest.raises(ValueError, match="bilinear or bicubic"):
+        W.warp_blur_frames(frames, torch.zeros((1, 5, 8), device=cuda), torch.zeros(3, device=cuda), 8, 8,
+                           "nearest")
+    with pytest.raises(ValueError, match="K3"):
+        W.warp_blur_frames(frames, torch.zeros((1, 2, 8), device=cuda), torch.zeros(3, device=cuda), 8, 8)
     with pytest.raises(ValueError, match="K5"):
         LKC.lk_gn_iterate(torch.zeros((1, 48, 48), device=cuda), *(torch.zeros((1, 31, 31), device=cuda),) * 3,
                           torch.zeros((1, 9), device=cuda), 50, 0.01)
@@ -202,3 +229,27 @@ def test_classic_slice_on_cuda_launches_kernels_and_matches_cpu(cuda):
     assert np.abs(np.array([t["matrix"] for t in tg]) - np.array([t["matrix"] for t in tc])).max() <= 1e-3
     d = (gpu.frames.cpu() - cpu.frames).abs()
     assert float(torch.quantile(d.flatten()[::7], 0.99)) <= 1e-3
+
+
+@pytest.mark.parametrize("blur", [0.0, 0.5])
+def test_motion_apply_on_cuda_launches_kernels_and_matches_cpu(cuda, blur):
+    from comfyui_video_stabilizer_tpu_torch.models.motion_apply import apply_motion
+    from comfyui_video_stabilizer_tpu_torch.models.shake import STYLES, generate_shake_motion_meta
+    from comfyui_video_stabilizer_tpu_torch.utils.video_io import normalize_video_input
+
+    gen = torch.Generator().manual_seed(6)
+    frames = torch.nn.functional.avg_pool2d(torch.rand((8, 3, 148, 196), generator=gen), 5, 1)
+    frames = frames.permute(0, 2, 3, 1).contiguous()
+    meta = {"motion_meta": generate_shake_motion_meta(
+        recipe=STYLES["action"], frame_count=8, width=192, height=144, fps=24.0, amount=1.5,
+        speed=1.0, seed=3)}
+    kw = dict(interpolation="bicubic", motion_blur=blur, motion_blur_samples=9)
+    cpu = apply_motion(normalize_video_input(frames, device="cpu"), meta, (127, 127, 127), device="cpu", **kw)
+    cuda_build.reset_launches()
+    gpu = apply_motion(normalize_video_input(frames, device=cuda), meta, (127, 127, 127), device=cuda, **kw)
+    torch.cuda.synchronize()
+    launches = dict(cuda_build.LAUNCHES)
+    assert (launches["warp_blur"], launches["warp"]) == ((1, 0) if blur else (0, 1))
+    d = (gpu.frames.cpu() - cpu.frames).abs()
+    assert float(torch.quantile(d.flatten()[::7], 0.99)) <= 1e-6
+    assert (gpu.masks.cpu() != cpu.masks).float().mean().item() <= 1e-3

@@ -1,8 +1,10 @@
-"""The PyTorch package imports no JAX, shares the JAX package's
-constants, and refuses CUDA where there is none.
+"""The PyTorch package imports no JAX and no module of the JAX
+package, shares the JAX package's constants, and refuses CUDA where
+there is none.
 
-The no-JAX check runs in a subprocess: this test session imports JAX
-for every test (tests/conftest.py).
+The import check runs in a subprocess: this test session imports JAX
+for every test (tests/conftest.py).  It imports every module of the
+port and runs all six nodes on the CPU before it looks.
 """
 
 import os
@@ -10,6 +12,7 @@ import pathlib
 import subprocess
 import sys
 import textwrap
+from dataclasses import asdict
 
 import pytest
 
@@ -26,8 +29,12 @@ _CPU_SLICE = textwrap.dedent(
     from comfyui_video_stabilizer_tpu_torch import nodes
     from comfyui_video_stabilizer_tpu_torch.ops import cuda_build, cv_cuda, flow_dis, prng, ransac, resize, warp
     from comfyui_video_stabilizer_tpu_torch.ops import extract_cuda, gftt_cuda, lk, lk_cuda, pad
-    from comfyui_video_stabilizer_tpu_torch.models import classic, flow, stabilize
-    from comfyui_video_stabilizer_tpu_torch.utils import device, profiling, video_io
+    from comfyui_video_stabilizer_tpu_torch.models import classic, flow, geometry, inverse, motion_apply
+    from comfyui_video_stabilizer_tpu_torch.models import shake, stabilize
+    from comfyui_video_stabilizer_tpu_torch.meta import motion_meta
+    from comfyui_video_stabilizer_tpu_torch.native import rectangle
+    from comfyui_video_stabilizer_tpu_torch.nodes import replacements
+    from comfyui_video_stabilizer_tpu_torch.utils import color, device, profiling, video_io
 
     rng = np.random.default_rng(0)
     base = rng.random((80, 112)).astype(np.float32)
@@ -44,7 +51,23 @@ _CPU_SLICE = textwrap.dedent(
         0.8, 0.6, 0.6, "#7F7F7F", device="cpu")
     assert tuple(out[0].shape) == (5, 64, 96, 3), out[0].shape
     assert len(out[2]["estimated_motion"]["per_transition"]) == 4
+    stab_meta = out[2]
+    clip = torch.from_numpy(frames)
+    shake_meta = nodes.VideoStabilizerShakeGenerator.execute(clip, 16.0, "handheld", 1.0, 1.0, 3)[0]
+    manual = nodes.VideoStabilizerShakeGeneratorManual.execute(
+        clip, 16.0, 0.4, 0.33, 0.5, 0.003, 0.35, 0.35, 5.0, 0.0, 0.0, 0.3, 60.0, 1.0, 1.0, 3)[0]
+    assert manual["motion_meta"]["frame_count"] == 5
+    out = nodes.VideoStabilizerMotionApply.execute(
+        clip, shake_meta, "crop_and_pad", "bicubic", "#7F7F7F", 0.5, "Draft", device="cpu")
+    assert tuple(out[0].shape) == (5, 64, 96, 3) and out[2]["motion_apply"]["motion_blur_samples"] == 5
+    out = nodes.VideoStabilizerInverse.execute(out[0], stab_meta, "#7F7F7F", device="cpu")
+    assert "inverse_stabilization" in out[2]
+    assert all(v == 0 for v in cuda_build.LAUNCHES.values()), cuda_build.LAUNCHES
+    assert "warp_blur" in cuda_build.LAUNCHES
     assert "jax" not in sys.modules, sorted(m for m in sys.modules if m.startswith("jax"))
+    jax_pkg = sorted(m for m in sys.modules if m == "comfyui_video_stabilizer_tpu"
+                     or m.startswith("comfyui_video_stabilizer_tpu."))
+    assert not jax_pkg, jax_pkg
     print("NO_JAX_OK")
     """
 )
@@ -68,6 +91,8 @@ _LK_KERNELS = ["_SOBEL_X", "_SOBEL_Y", "_SCHARR_LK_X", "_SCHARR_LK_Y"]
 
 def _constant_pairs():
     from comfyui_video_stabilizer_tpu.models import classic as JCL
+    from comfyui_video_stabilizer_tpu.models import shake as JSH
+    from comfyui_video_stabilizer_tpu.nodes import motion_apply_node as JMAN
     from comfyui_video_stabilizer_tpu.models import flow as JFL
     from comfyui_video_stabilizer_tpu.models import stabilize as JST
     from comfyui_video_stabilizer_tpu.ops import flow_dis as JFD
@@ -76,6 +101,8 @@ def _constant_pairs():
     from comfyui_video_stabilizer_tpu.ops import ransac as JRS
     from comfyui_video_stabilizer_tpu.ops import resize as JR
     from comfyui_video_stabilizer_tpu_torch.models import classic as TCL
+    from comfyui_video_stabilizer_tpu_torch.models import shake as TSH
+    from comfyui_video_stabilizer_tpu_torch.nodes import motion_apply_node as TMAN
     from comfyui_video_stabilizer_tpu_torch.models import flow as TFL
     from comfyui_video_stabilizer_tpu_torch.models import stabilize as TST
     from comfyui_video_stabilizer_tpu_torch.ops import flow_dis as TFD
@@ -101,6 +128,9 @@ def _constant_pairs():
         "MIN_TRACKS": (JCL.MIN_TRACKS, TCL.MIN_TRACKS),
         "CLASSIC_SIM_MIN_RATIO": (JCL.SIM_MIN_RATIO, TCL.SIM_MIN_RATIO),
         "GFTT_RADIUS": (JGP.RADIUS, TGF.RADIUS),
+        "BLUR_QUALITY_SAMPLES": (JMAN.BLUR_QUALITY_SAMPLES, TMAN.BLUR_QUALITY_SAMPLES),
+        "STYLES": ({k: asdict(v) for k, v in JSH.STYLES.items()},
+                   {k: asdict(v) for k, v in TSH.STYLES.items()}),
         **{name: (getattr(JLK, name), getattr(TLK, name)) for name in _LK_CONSTANTS},
         **{name: (getattr(JLK, name).tolist(), getattr(TLK, name).tolist()) for name in _LK_KERNELS},
     }
@@ -110,7 +140,8 @@ def _constant_pairs():
     "SAMPLE_STEP", "MIN_VALID", "SIM_MIN_RATIO", "FINEST_SCALE",
     "RADIUS", "PATCH", "DEFAULT_HYPOTHESES", "SIM_THRESH", "_CHUNK", "_LUMA",
     "ESTIMATION_CHUNK_PAIRS", "MODE_PRIORITY", "MIN_FEATURES", "MIN_TRACKS",
-    "CLASSIC_SIM_MIN_RATIO", "GFTT_RADIUS", *_LK_CONSTANTS, *_LK_KERNELS,
+    "CLASSIC_SIM_MIN_RATIO", "GFTT_RADIUS", "BLUR_QUALITY_SAMPLES", "STYLES",
+    *_LK_CONSTANTS, *_LK_KERNELS,
 ])
 def test_constants_equal_jax(name):
     """Tolerance: exact (the constants are copied, not derived)."""
@@ -158,5 +189,11 @@ def test_cpu_tensor_takes_plain_versions_without_launching():
     g, count = lk_cuda.lk_gn_iterate(jw, T, gx, gy, scal, 50, 0.01)
     g_ref, count_ref = lk_cuda.lk_gn_plain(jw, T, gx, gy, scal, 50, 0.01)
     assert torch.equal(g, g_ref) and torch.equal(count, count_ref)
-    assert set(cuda_build.LAUNCHES) == {"warp", "cost_volume", "gftt", "lk_gn", "extract_windows"}
+    coeffs_s = torch.stack([coeffs, coeffs + 0.25, coeffs - 0.25], dim=1)
+    blur = warp.warp_blur_frames(frames, coeffs_s, torch.zeros(3), 8, 8, "bicubic")
+    assert torch.equal(blur, warp.warp_blur_plain(frames, coeffs_s, torch.zeros(3), 8, 8, "bicubic"))
+    with pytest.raises(ValueError, match="bilinear or bicubic"):
+        warp.warp_blur_frames(frames, coeffs_s, torch.zeros(3), 8, 8, "nearest")
+    assert set(cuda_build.LAUNCHES) == {"warp", "warp_blur", "cost_volume", "gftt", "lk_gn",
+                                        "extract_windows"}
     assert all(v == 0 for v in cuda_build.LAUNCHES.values()), cuda_build.LAUNCHES
