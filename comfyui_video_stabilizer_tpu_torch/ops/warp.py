@@ -18,11 +18,13 @@ half to even.
 hand-written kernel K1 (``csrc/warp.cu``), a CPU tensor takes
 ``warp_plain``, the plain PyTorch version with the same op order.
 ``warp_blur_frames`` does the same for K3, the shutter-blur warp (the
-mean of S sample warps, ``warp_blur_plain`` on the CPU).  The padding
-mask (1 - nearest coverage), its per-frame ratios and the blur's soft
-mask (1 - mean coverage over the samples) stay plain PyTorch, as they
-are XLA in the JAX package.  Streaming clips through time chunks is not
-ported: the engines raise past the device budget (``check_fits_device``).
+mean of S sample warps) with its soft mask (1 - mean nearest coverage
+over the samples, small values zeroed) in the same launch;
+``warp_blur_mask_plain`` is its plain version.  The padding mask of the
+plain warp (1 - nearest coverage) and its per-frame ratios stay plain
+PyTorch, as they are XLA in the JAX package.  Streaming clips through
+time chunks is not ported: the engines raise past the device budget
+(``check_fits_device``).
 """
 
 from __future__ import annotations
@@ -246,18 +248,37 @@ def warp_frames(frames: torch.Tensor, coeffs: torch.Tensor, border: torch.Tensor
     return out
 
 
-def warp_blur_frames(frames: torch.Tensor, coeffs_s: torch.Tensor, border: torch.Tensor,
-                     out_h: int, out_w: int, interp: Interp = "bilinear") -> torch.Tensor:
-    """Mean of S sample warps of (N,H,W,C) float32 frames by (N,S,8)
-    sample-minor inverse coeffs.
+def warp_blur_mask_plain(frames: torch.Tensor, coeffs_s: torch.Tensor, border: torch.Tensor,
+                         out_h: int, out_w: int, interp: Interp) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of K3 with its soft mask: ``warp_blur_plain``'s
+    frames and ``zero_small(1 - mean nearest coverage)`` over the samples,
+    the coverage tested against the frames' own size."""
+    in_h, in_w = int(frames.shape[1]), int(frames.shape[2])
+    cover = _coverage_mean(coeffs_s, out_h, out_w, in_h, in_w)
+    return warp_blur_plain(frames, coeffs_s, border, out_h, out_w, interp), zero_small(1.0 - cover)
 
-    CUDA tensors launch K3 (raising if it cannot build or launch); CPU
-    tensors take :func:`warp_blur_plain`.  Nearest has no blur and raises.
+
+def warp_blur_frames(frames: torch.Tensor, coeffs_s: torch.Tensor, border: torch.Tensor,
+                     out_h: int, out_w: int, interp: Interp = "bilinear", with_mask: bool = False,
+                     *, stats: torch.Tensor | None = None,
+                     ) -> Tuple[torch.Tensor, torch.Tensor | None]:
+    """Mean of S sample warps of (N,H,W,C) float32 frames by (N,S,8)
+    sample-minor inverse coeffs, and with ``with_mask`` the soft mask
+    (N,out_h,out_w); ``(frames, mask or None)``.
+
+    CUDA tensors launch K3 once (raising if it cannot build or launch);
+    CPU tensors take :func:`warp_blur_mask_plain` (``warp_blur_plain``
+    without the mask).  Nearest has no blur and raises.  ``stats``, a
+    zeroed (3,) int64 tensor on the frames' device, receives K3's count
+    of tiles, of tiles that staged nothing and of pixel-samples whose
+    taps were read from device memory.
     """
     if interp not in ("bilinear", "bicubic"):
         raise ValueError(f"Unsupported interpolation {interp!r}; the blur warp takes bilinear or bicubic.")
     if frames.device.type == "cpu":
-        return warp_blur_plain(frames, coeffs_s, border, out_h, out_w, interp)
+        if with_mask:
+            return warp_blur_mask_plain(frames, coeffs_s, border, out_h, out_w, interp)
+        return warp_blur_plain(frames, coeffs_s, border, out_h, out_w, interp), None
     n, h, w, c = frames.shape
     cuda_build.require_cuda_tensor("frames", frames, torch.float32, 4)
     cuda_build.require_cuda_tensor("coeffs_s", coeffs_s, torch.float32, 3)
@@ -271,16 +292,22 @@ def warp_blur_frames(frames: torch.Tensor, coeffs_s: torch.Tensor, border: torch
                          f"got {c}, {n} and {s}")
     if coeffs_s.device != frames.device or border.device != frames.device:
         raise ValueError("frames, coeffs_s and border must be on one device")
+    if stats is not None:
+        cuda_build.require_cuda_tensor("stats", stats, torch.int64, 1)
+        if stats.shape != (3,) or stats.device != frames.device:
+            raise ValueError(f"stats must be a (3,) int64 tensor on {frames.device}")
     out = torch.empty((n, out_h, out_w, c), dtype=torch.float32, device=frames.device)
+    mask = torch.empty((n, out_h, out_w), dtype=torch.float32, device=frames.device) if with_mask else None
     with torch.cuda.device(frames.device):
         err = cuda_build.library().cvst_warp_blur(
             frames.data_ptr(), coeffs_s.data_ptr(), border.data_ptr(), out.data_ptr(),
+            None if mask is None else mask.data_ptr(), None if stats is None else stats.data_ptr(),
             n, h, w, c, out_h, out_w, INTERP_CODES[interp], s,
             cuda_build.current_stream(frames.device),
         )
     cuda_build.check_launch(err, "warp_blur")
     cuda_build.LAUNCHES["warp_blur"] += 1
-    return out
+    return out, mask
 
 
 # ---------------------------------------------------------------------------
@@ -407,10 +434,11 @@ def warp_clip_blur(
 ) -> Tuple[torch.Tensor, torch.Tensor | None]:
     """Shutter-sampled motion blur: the mean of S warps per frame.
 
-    ``sample_matrices`` has shape (N, S, 3, 3).  The warp goes through
-    :func:`warp_blur_frames` (K3 on a CUDA tensor) and reads the frames
-    once, never replicated S-fold; the soft mask is 1 - mean coverage,
-    small values zeroed.  Both lie on the frames' device.
+    ``sample_matrices`` has shape (N, S, 3, 3).  The warp and the soft
+    mask (1 - mean coverage, small values zeroed) go through
+    :func:`warp_blur_frames`: one K3 launch on a CUDA tensor, which reads
+    the frames once, never replicated S-fold.  Both lie on the frames'
+    device.
     """
     n, s = sample_matrices.shape[:2]
     out_w, out_h = int(out_size[0]), int(out_size[1])
@@ -420,18 +448,13 @@ def warp_clip_blur(
         empty = torch.zeros((0, out_h, out_w, c), dtype=torch.float32, device=dev)
         mask = torch.zeros((0, out_h, out_w), dtype=torch.float32, device=dev) if with_mask else None
         return empty, mask
-    in_w, in_h = int(frames.shape[2]), int(frames.shape[1])
     # one (N*S)-coefficient host pass feeds both the warp and the mask
     sample_coeffs = prepare_inverse_coeffs(
         np.asarray(sample_matrices, np.float64).reshape(n * s, 3, 3)
     ).reshape(n, s, 8)
     coeffs_s = torch.as_tensor(sample_coeffs.astype(np.float32), device=dev)
     border_arr = np.broadcast_to(np.asarray(border, np.float32), (c,))
-    acc = warp_blur_frames(
+    return warp_blur_frames(
         frames.to(torch.float32).contiguous(), coeffs_s,
-        torch.as_tensor(border_arr.copy(), device=dev), out_h, out_w, interp,
+        torch.as_tensor(border_arr.copy(), device=dev), out_h, out_w, interp, with_mask,
     )
-    if not with_mask:
-        return acc, None
-    cover = _coverage_mean(coeffs_s, out_h, out_w, in_h, in_w)
-    return acc, zero_small(1.0 - cover)

@@ -67,28 +67,47 @@ def test_warp_kernel_bitwise(cuda, interp, channels, case):
     assert torch.equal(out, ref)
 
 
-@pytest.mark.parametrize("samples", [5, 33])
+@pytest.mark.parametrize("samples", [3, 5, 33])
 @pytest.mark.parametrize("interp", ["bilinear", "bicubic"])
 @pytest.mark.parametrize("channels", [1, 3, 4])
-@pytest.mark.parametrize("case", ["similarity", "past_edge"])
+@pytest.mark.parametrize("case", ["similarity", "past_edge", "expand", "zoom_out"])
 def test_warp_blur_kernel_bitwise(cuda, interp, channels, samples, case):
+    """Frames and soft mask.  past_edge: tiles straddle the frame's edge;
+    expand: a canvas larger than the frame; zoom_out: each 32x8 tile's
+    source footprint exceeds the staging budget, so its taps are read
+    from device memory."""
     n, h, w = 3, 97, 161
+    out_h, out_w = (h + 40, w + 56) if case == "expand" else (h + 5, w - 7)
     frames = torch.rand((n, h, w, channels), generator=torch.Generator().manual_seed(2)).to(cuda)
     mats = np.concatenate([_mats(n, 3, persp=1e-4, shift=(150.0, 60.0) if case == "past_edge" else (0.0, 0.0)),
                            _mats(1, 4)])
+    if case == "expand":
+        mats = np.array([[1.0, 0.0, 28.0], [0.0, 1.0, 20.0], [0.0, 0.0, 1.0]]) @ mats
+    elif case == "zoom_out":
+        mats = np.diag([0.15, 0.15, 1.0]) @ mats
     ts = np.linspace(0.0, 0.6, samples)  # shutter samples toward the next matrix
     sample_mats = mats[:n, None] + (mats[1:] - mats[:-1])[:, None] * ts[None, :, None, None]
     coeffs = torch.as_tensor(W.prepare_inverse_coeffs(sample_mats.reshape(-1, 3, 3))
                              .astype(np.float32).reshape(n, samples, 8), device=cuda)
     border = torch.linspace(0.1, 0.9, channels, device=cuda)
-    out = W.warp_blur_frames(frames, coeffs, border, h + 5, w - 7, interp)
-    ref = W.warp_blur_plain(frames, coeffs, border, h + 5, w - 7, interp)
+    stats = torch.zeros(3, dtype=torch.int64, device=cuda)
+    out, mask = W.warp_blur_frames(frames, coeffs, border, out_h, out_w, interp, True, stats=stats)
+    ref, ref_mask = W.warp_blur_mask_plain(frames, coeffs, border, out_h, out_w, interp)
+    frames_only, no_mask = W.warp_blur_frames(frames, coeffs, border, out_h, out_w, interp)
     torch.cuda.synchronize()
-    assert torch.equal(out, ref)
+    assert torch.equal(out, ref) and torch.equal(mask, ref_mask)
+    assert torch.equal(frames_only, ref) and no_mask is None
+    assert ((mask > 0) & (mask < 1)).any()
+    tiles, unstaged, _ = stats.tolist()
+    assert tiles == n * -(-out_h // 8) * -(-out_w // 32)  # 32x8 tiles
+    if case == "zoom_out":
+        assert unstaged > 0
+    elif case != "past_edge":  # past_edge's shutter spans ~180 px, past the budget too
+        assert unstaged == 0
 
 
 @pytest.mark.parametrize("radius", [2, 3])
-@pytest.mark.parametrize("shape", [(3, 18, 24), (2, 37, 53), (4, 135, 240)])
+@pytest.mark.parametrize("shape", [(3, 18, 24), (2, 37, 53), (1, 16, 30), (4, 135, 240)])
 def test_cost_volume_kernel_bitwise(cuda, radius, shape):
     gen = torch.Generator().manual_seed(5)
     I = (torch.rand(shape, generator=gen) * 255).floor()
@@ -170,6 +189,9 @@ def test_wrappers_validate_arguments(cuda):
                            "nearest")
     with pytest.raises(ValueError, match="K3"):
         W.warp_blur_frames(frames, torch.zeros((1, 2, 8), device=cuda), torch.zeros(3, device=cuda), 8, 8)
+    with pytest.raises(ValueError, match="stats"):
+        W.warp_blur_frames(frames, torch.zeros((1, 5, 8), device=cuda), torch.zeros(3, device=cuda), 8, 8,
+                           stats=torch.zeros(2, dtype=torch.int64, device=cuda))
     with pytest.raises(ValueError, match="K5"):
         LKC.lk_gn_iterate(torch.zeros((1, 48, 48), device=cuda), *(torch.zeros((1, 31, 31), device=cuda),) * 3,
                           torch.zeros((1, 9), device=cuda), 50, 0.01)

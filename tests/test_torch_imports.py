@@ -190,8 +190,9 @@ def test_cpu_tensor_takes_plain_versions_without_launching():
     g_ref, count_ref = lk_cuda.lk_gn_plain(jw, T, gx, gy, scal, 50, 0.01)
     assert torch.equal(g, g_ref) and torch.equal(count, count_ref)
     coeffs_s = torch.stack([coeffs, coeffs + 0.25, coeffs - 0.25], dim=1)
-    blur = warp.warp_blur_frames(frames, coeffs_s, torch.zeros(3), 8, 8, "bicubic")
-    assert torch.equal(blur, warp.warp_blur_plain(frames, coeffs_s, torch.zeros(3), 8, 8, "bicubic"))
+    blur, mask = warp.warp_blur_frames(frames, coeffs_s, torch.zeros(3), 8, 8, "bicubic", True)
+    ref, ref_mask = warp.warp_blur_mask_plain(frames, coeffs_s, torch.zeros(3), 8, 8, "bicubic")
+    assert torch.equal(blur, ref) and torch.equal(mask, ref_mask)
     with pytest.raises(ValueError, match="bilinear or bicubic"):
         warp.warp_blur_frames(frames, coeffs_s, torch.zeros(3), 8, 8, "nearest")
     assert set(cuda_build.LAUNCHES) == {"warp", "warp_blur", "cost_volume", "gftt", "lk_gn",

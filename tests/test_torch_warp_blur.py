@@ -10,9 +10,12 @@ backend contracts multiply-adds into FMAs, a few ulps of each sample);
 <= 5e-6 against the Pallas kernel in interpret mode (it also multiplies
 by 1/S where the port divides by S, and samples by shift-FMAs), as
 tests/test_warp_pallas.py holds it; the soft mask exactly equal (a sum
-of 0/1 coverages times 1/S in float32 on both sides).  ``motion_blur``
-0 through the engine is bitwise equal to the plain warp.  The kernel
-itself is compared with the plain version on the card
+of 0/1 coverages times 1/S in float32 on both sides).  The same holds
+for ``warp_blur_mask_plain``, the plain version of K3 with its fused
+mask, on an expand-like canvas larger than the frame and on a x1.3
+crop-like zoom, at S = 3, 5 and 33.  ``motion_blur`` 0 through the
+engine is bitwise equal to the plain warp.  The kernel itself is
+compared with the plain version on the card
 (tests/test_torch_cuda_kernels.py; ``chip_smoke.py`` at 1080p).
 """
 
@@ -71,6 +74,42 @@ def test_blur_matches_pallas_interpret(interp, s):
     assert np.abs(ours.numpy() - np.asarray(ref)).max() <= 5e-6
 
 
+def _framed(samples, canvas):
+    """Expand-like: the frame 12 px right, 8 px down on a (W+24, H+16)
+    canvas; crop-like: a x1.3 zoom about the centre."""
+    if canvas == "expand":
+        pre, size = np.array([[1.0, 0.0, 12.0], [0.0, 1.0, 8.0], [0.0, 0.0, 1.0]]), (W + 24, H + 16)
+    else:
+        cx, cy = (W - 1) / 2, (H - 1) / 2
+        pre, size = np.array([[1.3, 0.0, -0.3 * cx], [0.0, 1.3, -0.3 * cy], [0.0, 0.0, 1.0]]), (W, H)
+    return np.einsum("ij,nsjk->nsik", pre, samples), size
+
+
+FUSED_CASES = [(canvas, interp, s) for canvas in ("expand", "zoom") for interp in ("bilinear", "bicubic")
+               for s in (3, 5, 33)]
+
+
+@pytest.mark.parametrize("canvas,interp,s", FUSED_CASES)
+def test_blur_mask_plain_matches_jax(canvas, interp, s):
+    frames = _frames(8)
+    samples, (out_w, out_h) = _framed(_samples(s, seed=9), canvas)
+    ref, ref_mask = JW.warp_clip_blur(frames, samples, (out_w, out_h), interp, BORDER)
+    coeffs = torch.from_numpy(TW.prepare_inverse_coeffs(samples.reshape(-1, 3, 3))
+                              .astype(np.float32).reshape(N, s, 8))
+    ours, mask = TW.warp_blur_mask_plain(torch.from_numpy(frames), coeffs, torch.tensor(BORDER),
+                                         out_h, out_w, interp)
+    assert tuple(ours.shape) == (N, out_h, out_w, 3) and tuple(mask.shape) == (N, out_h, out_w)
+    assert np.abs(ours.numpy() - np.asarray(ref)).max() <= 2e-6
+    np.testing.assert_array_equal(mask.numpy(), np.asarray(ref_mask))
+    if canvas == "expand":
+        soft = mask.numpy()
+        assert ((soft > 0) & (soft < 1)).any() and (soft == 1).any()
+    # the wrapper takes the fused plain version for a CPU tensor
+    wrapped = TW.warp_blur_frames(torch.from_numpy(frames), coeffs, torch.tensor(BORDER), out_h, out_w,
+                                  interp, with_mask=True)
+    assert torch.equal(wrapped[0], ours) and torch.equal(wrapped[1], mask)
+
+
 def test_blur_plain_is_the_sample_mean_of_warp_plain():
     """warp_blur_plain sums warp_plain's samples in order, then divides."""
     frames = torch.from_numpy(_frames(4))
@@ -82,8 +121,8 @@ def test_blur_plain_is_the_sample_mean_of_warp_plain():
     for k in range(5):
         w = TW.warp_plain(frames, coeffs[:, k], border, H, W, "bicubic")
         acc = w if acc is None else acc + w
-    out = TW.warp_blur_frames(frames, coeffs, border, H, W, "bicubic")
-    assert torch.equal(out, acc / 5.0)
+    out, mask = TW.warp_blur_frames(frames, coeffs, border, H, W, "bicubic")
+    assert torch.equal(out, acc / 5.0) and mask is None
 
 
 def test_blur_without_mask_and_empty_clip():
