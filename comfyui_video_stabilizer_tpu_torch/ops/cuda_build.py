@@ -133,8 +133,8 @@ def library() -> ctypes.CDLL:
     lib.cvst_warp_blur.restype = i32
     lib.cvst_cost_volume.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr]
     lib.cvst_cost_volume.restype = i32
-    lib.cvst_gftt.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, ptr]
-    lib.cvst_gftt.restype = i32
+    lib.cvst_gftt_gray.argtypes = [ptr, ptr, i32, i32, i32, ptr]
+    lib.cvst_gftt_gray.restype = i32
     lib.cvst_lk_gn.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, ctypes.c_float, ptr]
     lib.cvst_lk_gn.restype = i32
     lib.cvst_extract_windows.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr]

@@ -1,13 +1,17 @@
-"""GFTT corner scores from the Sobel products (PyTorch + K4).
+"""GFTT corner scores from the gray (PyTorch + K4).
 
 Counterpart of ``comfyui_video_stabilizer_tpu/ops/gftt_pallas.py::
-gftt_scores``.  For the gradient products pa = dx*dx, pb = dx*dy and
-pc = dy*dy of a (B, H, W) stack:
+gftt_scores`` together with the Sobel gradients and products that the
+JAX package forms before it (``ops/lk.py::_topk_packed``).  For a
+(B, H, W) float32 gray stack:
 
-  box        21x21 sums over a reflect-101 pad of 10, rows then columns,
-             each axis in the doubling order of the Pallas ``_rollsum``:
-             ((S16[i] + S4[i+16]) + x[i+20]), S2 = x[i] + x[i+1],
-             S4 = S2[i] + S2[i+2], S8 = S4[i] + S4[i+4], S16 = S8[i] + S8[i+8]
+  dx, dy     ``_conv2(g, _SOBEL_X)``, ``_conv2(g, _SOBEL_Y)`` (reflect-101)
+  pa, pb, pc dx*dx, dx*dy, dy*dy
+  box        21x21 sums over a reflect-101 pad of 10 of each product,
+             rows then columns, each axis in the doubling order of the
+             Pallas ``_rollsum``: ((S16[i] + S4[i+16]) + x[i+20]),
+             S2 = x[i] + x[i+1], S4 = S2[i] + S2[i+2], S8 = S4[i] + S4[i+4],
+             S16 = S8[i] + S8[i+8]
   eig        0.5 * ((a + c) - sqrt((a - c)^2 + (4 b) b))
   scores     eig where it is the maximum of its 3x3 neighbourhood (-inf
              outside the image), else -inf
@@ -15,9 +19,10 @@ pc = dy*dy of a (B, H, W) stack:
 The quality threshold (0.01 of each frame's maximum) and the top-k stay
 with the caller (``ops/lk.py::_topk_packed``), as in the JAX package.
 
-``gftt_scores`` is the kernel wrapper: a CUDA tensor launches K4
-(``csrc/gftt.cu``), a CPU tensor takes ``gftt_plain``, which sums in
-the same order.
+``gftt_scores_gray`` is the kernel wrapper: a CUDA tensor launches K4
+(``csrc/gftt.cu``), a CPU tensor takes ``gftt_gray_plain``, which
+computes in the same order.  ``gftt_plain`` is the part after the
+products, the function the Pallas kernel computes.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from . import cuda_build
+from .conv import _SOBEL_X, _SOBEL_Y, _conv2
 from .pad import reflect_pad
 
 RADIUS = 10  # (BLOCK_SIZE - 1) // 2 for the 21x21 aggregation
@@ -52,7 +58,7 @@ def _box21(p: torch.Tensor) -> torch.Tensor:
 
 
 def gftt_plain(pa: torch.Tensor, pb: torch.Tensor, pc: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version of K4: (B, H, W) NMS'd min-eig scores, -inf elsewhere."""
+    """(B, H, W) NMS'd min-eig scores from the Sobel products, -inf elsewhere."""
     a, b, c = _box21(pa), _box21(pb), _box21(pc)
     d = a - c
     eig = 0.5 * ((a + c) - torch.sqrt(d * d + (4.0 * b) * b))
@@ -60,31 +66,30 @@ def gftt_plain(pa: torch.Tensor, pb: torch.Tensor, pc: torch.Tensor) -> torch.Te
     return torch.where(eig >= pooled, eig, float("-inf"))
 
 
-def gftt_scores(pa: torch.Tensor, pb: torch.Tensor, pc: torch.Tensor) -> torch.Tensor:
-    """NMS'd min-eigenvalue scores from the Sobel products.
+def gftt_gray_plain(g: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of K4: the Sobel gradients, their products,
+    then ``gftt_plain``."""
+    dx, dy = _conv2(g, _SOBEL_X), _conv2(g, _SOBEL_Y)
+    return gftt_plain(dx * dx, dx * dy, dy * dy)
 
-    pa, pb, pc: (B, H, W) float32 = dx*dx, dx*dy, dy*dy.  Returns (B, H,
-    W) float32 with -inf where a pixel fails the 3x3 NMS.  CUDA tensors
-    launch K4 (raising if it cannot build or launch); CPU tensors take
-    the plain version.
+
+def gftt_scores_gray(g: torch.Tensor) -> torch.Tensor:
+    """NMS'd min-eigenvalue scores of a gray stack.
+
+    g: (B, H, W) float32.  Returns (B, H, W) float32 with -inf where a
+    pixel fails the 3x3 NMS.  CUDA tensors launch K4 (raising if it
+    cannot build or launch); CPU tensors take the plain version.
     """
-    if pa.device.type == "cpu":
-        return gftt_plain(pa, pb, pc)
-    for name, t in (("pa", pa), ("pb", pb), ("pc", pc)):
-        cuda_build.require_cuda_tensor(name, t, torch.float32, 3)
-    if not (pa.shape == pb.shape == pc.shape) or not (pa.device == pb.device == pc.device):
-        raise ValueError(
-            f"pa {tuple(pa.shape)}, pb {tuple(pb.shape)} and pc {tuple(pc.shape)} "
-            "must match in shape and device"
-        )
-    B, H, W = pa.shape
+    if g.device.type == "cpu":
+        return gftt_gray_plain(g)
+    cuda_build.require_cuda_tensor("g", g, torch.float32, 3)
+    B, H, W = g.shape
     if not 1 <= B <= 65535 or H < 1 or W < 1:
-        raise ValueError(f"K4 takes 1..65535 frames of at least 1x1, got {tuple(pa.shape)}")
-    out = torch.empty_like(pa)
-    with torch.cuda.device(pa.device):
-        err = cuda_build.library().cvst_gftt(
-            pa.data_ptr(), pb.data_ptr(), pc.data_ptr(), out.data_ptr(),
-            B, H, W, cuda_build.current_stream(pa.device),
+        raise ValueError(f"K4 takes 1..65535 frames of at least 1x1, got {tuple(g.shape)}")
+    out = torch.empty_like(g)
+    with torch.cuda.device(g.device):
+        err = cuda_build.library().cvst_gftt_gray(
+            g.data_ptr(), out.data_ptr(), B, H, W, cuda_build.current_stream(g.device),
         )
     cuda_build.check_launch(err, "gftt")
     cuda_build.LAUNCHES["gftt"] += 1

@@ -3,8 +3,9 @@
 Counterpart of ``comfyui_video_stabilizer_tpu/ops/lk.py`` along its TPU
 product path:
 
-* ``gftt_batch``: Sobel gradients (``_conv2``), the fused score map
-  (K4, ops/gftt_cuda.py), the quality threshold and the top 2048
+* ``gftt_batch``: the score map straight from the gray (K4,
+  ops/gftt_cuda.py, which forms the Sobel gradients of ``_conv2`` and
+  their products itself), the quality threshold and the top 2048
   candidates on the device; the score-descending min-distance-7 greedy
   runs on the host in the port's native C++ helper
   (``native/rectangle.py``, a copy of the JAX package's), the sequential oracle the JAX package
@@ -32,6 +33,7 @@ from ..native import rectangle as _native
 from . import extract_cuda as EX
 from . import gftt_cuda as GF
 from . import lk_cuda as LKC
+from .conv import _SOBEL_X, _SOBEL_Y, _conv2  # noqa: F401  (re-exported)
 from .pad import reflect_pad
 
 MAX_CORNERS = 400
@@ -46,41 +48,9 @@ TRAVEL = 8                      # max displacement from the level's init
 WEXT = WIN + 2 * TRAVEL + 2     # extracted search window side
 TOP_K = 2048                    # candidates handed to the greedy
 
-_SOBEL_X = np.array([[-1, 0, 1], [-2, 0, 2], [-1, 0, 1]], np.float32)
-_SOBEL_Y = _SOBEL_X.T
 _SCHARR_LK_X = np.outer([3, 10, 3], [-1, 0, 1]).astype(np.float32)  # cv2 LK deriv kernel
 _SCHARR_LK_Y = _SCHARR_LK_X.T
 _PYR_TAPS = np.array([1, 4, 6, 4, 1], np.float32)
-
-
-def _conv2(stack: torch.Tensor, kernel: np.ndarray, same: bool = True) -> torch.Tensor:
-    """(..., H, W) (x) (kh, kw) 'SAME' with reflect-101 edges, as static
-    shift-adds of the rank-1 factors: rows then columns, pivoting on the
-    kernel's first nonzero so integer kernels keep exact weights, zero
-    taps skipped.  Every kernel of this module factors.  ``same=False``
-    skips the pad and returns the (H - kh + 1, W - kw + 1) interior, with
-    the same values there."""
-    kernel = np.asarray(kernel, np.float64)
-    kh, kw = kernel.shape
-    r0, c0 = np.argwhere(kernel != 0.0)[0]
-    ky64 = kernel[:, c0]
-    kx64 = kernel[r0, :] / kernel[r0, c0]
-    if not np.array_equal(np.outer(ky64, kx64), kernel):
-        raise ValueError("_conv2 takes rank-1 kernels only")
-    ky, kx = ky64.astype(np.float32), kx64.astype(np.float32)
-    padded = reflect_pad(stack, kh // 2, kw // 2) if same else stack
-    H, W = padded.shape[-2] - kh + 1, padded.shape[-1] - kw + 1
-    v = None
-    for i in range(kh):
-        if ky[i] != 0.0:
-            t = padded[..., i:i + H, :] * float(ky[i])
-            v = t if v is None else v + t
-    out = None
-    for j in range(kw):
-        if kx[j] != 0.0:
-            t = v[..., j:j + W] * float(kx[j])
-            out = t if out is None else out + t
-    return out
 
 
 def _topk_packed(grays: torch.Tensor, k: int) -> torch.Tensor:
@@ -88,10 +58,12 @@ def _topk_packed(grays: torch.Tensor, k: int) -> torch.Tensor:
     finite positive: K4 scores, the quality threshold 0.01 x max, then a
     stable descending sort (equal scores in ascending index order, as
     jax.lax.top_k returns them)."""
-    g = grays.to(torch.float32)
-    dx = _conv2(g, _SOBEL_X)
-    dy = _conv2(g, _SOBEL_Y)
-    raw = GF.gftt_scores(dx * dx, dx * dy, dy * dy)
+    return _top_candidates(GF.gftt_scores_gray(grays.to(torch.float32).contiguous()), k)
+
+
+def _top_candidates(raw: torch.Tensor, k: int) -> torch.Tensor:
+    """``_topk_packed`` after K4: the threshold and the stable sort of the
+    (B, H, W) scores."""
     quality = raw.flatten(1).amax(1) * QUALITY_LEVEL
     scores = torch.where(raw > quality[:, None, None], raw, float("-inf")).flatten(1)
     top_vals, top_idx = torch.sort(scores, dim=1, descending=True, stable=True)

@@ -126,14 +126,21 @@ def _textured(shape, seed):
     return (torch.nn.functional.avg_pool2d(base, 5, 1)[:, 0] * 255).floor()
 
 
-@pytest.mark.parametrize("shape", [(2, 10, 12), (3, 67, 93), (2, 135, 240)])
-def test_gftt_kernel_bitwise(cuda, shape):
-    g = _textured(shape, 7).to(cuda)
-    dx, dy = LK._conv2(g, LK._SOBEL_X), LK._conv2(g, LK._SOBEL_Y)
-    prods = [(dx * dx).contiguous(), (dx * dy).contiguous(), (dy * dy).contiguous()]
-    out = GF.gftt_scores(*prods)
-    ref = GF.gftt_plain(*prods)
+@pytest.mark.parametrize("integer", [True, False])
+@pytest.mark.parametrize("shape", [(2, 10, 12), (3, 67, 93), (2, 135, 240), (1, 540, 960),
+                                   (2, 1, 17), (1, 11, 5), (1, 13, 64)])
+def test_gftt_kernel_bitwise(cuda, shape, integer):
+    """K4 from the gray.  (2, 1, 17), (1, 11, 5), (1, 13, 64) and
+    (2, 10, 12): an axis of one, or smaller than the composed Sobel and
+    box pads, so the reflection wraps again."""
+    g = _textured(shape, 7)
+    if not integer:
+        g = g + torch.rand(shape, generator=torch.Generator().manual_seed(8))
+    g = g.to(cuda)
+    out = GF.gftt_scores_gray(g)
+    ref = GF.gftt_gray_plain(g)
     torch.cuda.synchronize()
+    assert torch.isfinite(ref).any()
     assert torch.equal(out, ref)
 
 
@@ -180,8 +187,14 @@ def test_wrappers_validate_arguments(cuda):
                                 torch.zeros((1, 8, 8), device=cuda, dtype=torch.float64), 2, 8)
     with pytest.raises(ValueError, match="radius"):
         CV.cost_volume_subpixel(torch.zeros((1, 8, 8), device=cuda), torch.zeros((1, 8, 8), device=cuda), 4, 8)
-    with pytest.raises(ValueError, match="match"):
-        GF.gftt_scores(*(torch.zeros((1, 8, s), device=cuda) for s in (8, 8, 9)))
+    with pytest.raises(TypeError, match="float32"):
+        GF.gftt_scores_gray(torch.zeros((1, 8, 8), device=cuda, dtype=torch.float64))
+    with pytest.raises(ValueError, match="3 dims"):
+        GF.gftt_scores_gray(torch.zeros((8, 8), device=cuda))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        GF.gftt_scores_gray(torch.zeros((1, 8, 8), device="meta"))
+    with pytest.raises(ValueError, match="contiguous"):
+        GF.gftt_scores_gray(torch.zeros((1, 8, 8), device=cuda).transpose(1, 2))
     with pytest.raises(TypeError, match="int32"):
         EX.extract_windows(torch.zeros((1, 8, 8), device=cuda), torch.zeros((1, 2, 2), device=cuda), 5)
     with pytest.raises(ValueError, match="bilinear or bicubic"):

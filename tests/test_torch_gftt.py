@@ -7,7 +7,9 @@ _min_eig_map(.))`` that the JAX package runs on the CPU.  Tolerances:
 
 * NMS masks equal.  Scores within 1e-6 of the frame's maximum score of
   the interpret-mode kernel (measured 6e-8: the box sums follow its
-  doubling tree exactly; XLA contracts an FMA in the eigenvalue) and
+  doubling tree exactly; XLA contracts an FMA in the eigenvalue), also
+  for ``gftt_gray_plain`` (K4's plain version, from the gray) against
+  the JAX package's whole Pallas route (Sobel, products, kernel), and
   within 1e-5 of the XLA scorer (measured 5.4e-7: it sums the boxes as
   prefix-sum differences).
 * ``_conv2`` and ``_pyr_down`` within 1e-5 relative (XLA contracts the
@@ -50,7 +52,7 @@ def _products(g):
 
 
 def _port_scores(prods):
-    return TGF.gftt_scores(*(torch.from_numpy(p) for p in prods)).numpy()
+    return TGF.gftt_plain(*(torch.from_numpy(p) for p in prods)).numpy()
 
 
 @pytest.mark.parametrize("shape", [(2, 67, 93), (1, 10, 12)])
@@ -58,6 +60,26 @@ def test_k4_plain_matches_pallas_interpret(shape):
     prods = _products(_grays(*shape))
     ref = np.asarray(JGP.gftt_scores(*(jnp.asarray(p) for p in prods), interpret=True))
     ours = _port_scores(prods)
+    keep = np.isfinite(ref)
+    assert np.array_equal(keep, np.isfinite(ours))
+    for f in range(shape[0]):
+        k = keep[f]
+        assert np.abs(ours[f][k] - ref[f][k]).max() <= 1e-6 * ref[f][k].max()
+
+
+@pytest.mark.parametrize("integer", [True, False])
+@pytest.mark.parametrize("shape", [(2, 67, 93), (3, 33, 140), (1, 10, 12)])
+def test_k4_gray_plain_matches_pallas_route(shape, integer):
+    """K4's plain version from the gray against the JAX package's Pallas
+    route: its ``_conv2`` Sobel, the products, then the interpret-mode
+    kernel.  The non-integer gray tests the Sobel's op order past exact
+    integers; (1, 10, 12) is smaller than the composed pads, so the
+    reflection wraps."""
+    g = np.random.default_rng(5).random(shape).astype(np.float32) * 255.0
+    if integer:
+        g = np.floor(g)
+    ref = np.asarray(JGP.gftt_scores(*(jnp.asarray(p) for p in _products(g)), interpret=True))
+    ours = TGF.gftt_gray_plain(torch.from_numpy(g)).numpy()
     keep = np.isfinite(ref)
     assert np.array_equal(keep, np.isfinite(ours))
     for f in range(shape[0]):

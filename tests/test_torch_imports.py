@@ -177,8 +177,7 @@ def test_cpu_tensor_takes_plain_versions_without_launching():
     grays = torch.rand((2, 12, 12)) * 255
     fx, fy, cmin = cv_cuda.cost_volume_subpixel(grays, grays, 2, 8)
     assert torch.equal(cmin, cv_cuda.cost_volume_plain(grays, grays, 2, 8)[2])
-    prods = [torch.rand((2, 12, 12)) for _ in range(3)]
-    assert torch.equal(gftt_cuda.gftt_scores(*prods), gftt_cuda.gftt_plain(*prods))
+    assert torch.equal(gftt_cuda.gftt_scores_gray(grays), gftt_cuda.gftt_gray_plain(grays))
     corners = torch.tensor([[[0, 0], [5, -3]], [[11, 11], [-20, 4]]], dtype=torch.int32)
     assert torch.equal(extract_cuda.extract_windows(grays, corners, 7),
                        extract_cuda.extract_plain(grays, corners, 7))
