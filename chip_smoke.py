@@ -45,9 +45,29 @@ Phases (any failure raises and the script exits non-zero):
  15. Motion Apply, CUDA path against CPU path on a small clip, with and
      without blur; the Motion Apply, Inverse and both Shake Generator
      nodes on CPU tensors of 16 frames at 1080p
- 16. a JSON line per kernel (its time, its plain version's, its bound
+ 16. crop framing (keep_fov 0.6) of Flow and Classic on the 1080p x 80
+     clip: status, scale, crop and no padding after a successful refine;
+     the CUDA path against the CPU path on a small clip, crop and
+     perspective, statuses, notes and scale equal
+ 17. BASELINE config 3: Flow, 1280x720 x 128, crop_and_pad, perspective,
+     camera_lock, 24 fps: per-pair modes, K1 / K2 launches, the warm
+     frames/s (median of 3); Classic perspective once on the 1080p clip
+ 18. forced streaming: Flow, Classic and config 4 on the 1080p clip held
+     on the host, the chunk budget lowered to 20 frames, frames and masks
+     bitwise equal to the unstreamed calls
+ 19. Motion Apply on 65,536 frames of 64x64 RGB: K1 splits its launch at
+     65,535 frames; the result against the CPU path
+ 20. BASELINE config 5: Flow, 3840x2160 x 300, expand, the clip held on
+     the host (cut to what the host's free memory holds, and said so):
+     whether it streamed, the chunk, the stage split, the host<->device
+     copies, wall frames/s, the peak device memory, K1 at the 4K canvas
+ 21. a JSON line per kernel (its time, its plain version's, its bound
      and the time of a PyTorch call that computes the same function,
      where one exists), the card line, then {"ok": true, ...} last
+
+Phases 16-17 run after phase 11, and 18-20 after phase 15 (config 5
+last, alone on the card).  Each phase's wall time is printed on a line
+of its own ("[time]").
 
 Every kernel's bound is the larger of its bytes over 3.35 TB/s and its
 float32 operations over 67 TFLOP/s (the H100 SXM data sheet), counted
@@ -72,13 +92,12 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CLIP_FRAMES = 80
 HEIGHT, WIDTH = 1080, 1920
-K1_TOL = 1e-6          # expected bitwise: -fmad=false, same op order
 SMALL_MAT_TOL = 1e-3    # CUDA path vs CPU path on the small clip
 SMALL_FRAME_P99 = 1e-3
-K5_STATUS_EQUAL = 0.999  # expected bitwise: the same op and reduction order
-K5_TRACK_TOL = 1e-3     # px, live tracks
 BASELINE1 = (64, 480, 854)  # BASELINE.json config 1: Classic 480p / 64 frames
 BASELINE2 = (80, 720, 1280)  # BASELINE.json config 2: shake -> Motion Apply 720p, bilinear
+BASELINE3 = (128, 720, 1280)  # BASELINE.json config 3: Flow 720p / 128, perspective + camera_lock
+BASELINE5 = (300, 2160, 3840)  # BASELINE.json config 5: Flow 4K / 300, expand, streams past the budget
 K3_TOL = 0.0            # expected bitwise: K1's per-sample arithmetic, the same sum and division
 APPLY_FRAME_P99 = 1e-6  # Motion Apply, CUDA path vs CPU path: the same matrices, no reductions
 APPLY_MASK_UNEQUAL = 1e-3  # a coverage tie may flip on a one-ulp coordinate
@@ -192,8 +211,9 @@ def shake_matrices(n: int, seed: int, rot: float, trans: float):
     return mats
 
 
-def synth_clip(n: int, h: int, w: int, seed: int, device):
-    """Shaken clip of multi-octave value noise, warped on the device."""
+def synth_clip(n: int, h: int, w: int, seed: int, device, on_host: bool = False):
+    """Shaken clip of multi-octave value noise, warped on the device; with
+    ``on_host`` it is warped 16 frames at a time into a host tensor."""
     import torch
     import torch.nn.functional as F
 
@@ -212,8 +232,15 @@ def synth_clip(n: int, h: int, w: int, seed: int, device):
     crop = np.eye(3)
     crop[0, 2] = crop[1, 2] = -margin
     view = np.stack([crop @ np.linalg.inv(m) for m in shake_matrices(n, seed, 0.003, 3.0)])
-    src = rgb[None].expand(n, *rgb.shape).contiguous()
-    return W.warp_clip(src, view, (w, h), "bilinear", (0.5, 0.5, 0.5))
+    if not on_host:
+        src = rgb[None].expand(n, *rgb.shape).contiguous()
+        return W.warp_clip(src, view, (w, h), "bilinear", (0.5, 0.5, 0.5))
+    out = torch.empty((n, h, w, 3), dtype=torch.float32)
+    for s in range(0, n, 16):
+        e = min(n, s + 16)
+        src = rgb[None].expand(e - s, *rgb.shape).contiguous()
+        out[s:e].copy_(W.warp_clip(src, view[s:e], (w, h), "bilinear", (0.5, 0.5, 0.5)))
+    return out
 
 
 def interior_motion(frames, margin: int) -> float:
@@ -312,9 +339,10 @@ def phase_k1(device):
             ref = W.warp_plain(frames, coeffs, border, HEIGHT, WIDTH, interp)
             torch.cuda.synchronize()
             err = float((out - ref).abs().max())
-            log(f"[K1] {name:11s} {interp:8s} max|kernel - plain| = {err:.3e}")
+            equal = bool(torch.equal(out, ref))
+            log(f"[K1] {name:11s} {interp:8s} bitwise equal {equal}; max|kernel - plain| = {err:.3e}")
             check(bool(torch.isfinite(out).all()), f"K1 {name} {interp}: non-finite output")
-            check(err <= K1_TOL, f"K1 {name} {interp}: {err} > {K1_TOL}")
+            check(equal, f"K1 {name} {interp}: the frames differ from the plain version (max {err})")
             max_err = max(max_err, err)
     del frames
 
@@ -325,7 +353,7 @@ def phase_k1(device):
     out = W.warp_frames(big, coeffs, border, HEIGHT, WIDTH, "bilinear")
     ref = W.warp_plain(big, coeffs, border, HEIGHT, WIDTH, "bilinear")
     err = float((out - ref).abs().max())
-    check(err <= K1_TOL, f"K1 at the slice shape: {err} > {K1_TOL}")
+    check(bool(torch.equal(out, ref)), f"K1 at the slice shape: the frames differ from the plain version ({err})")
     max_err = max(max_err, err)
     del out, ref
     # plain, kernel, kernel, plain
@@ -631,16 +659,17 @@ def phase_k5(grays):
     torch.cuda.synchronize()
     t_out, s_out = LK._lk_post(out.reshape(B, F, 2), g, valid, runnable, LK.WIN, H, W, True)
     t_ref, s_ref = LK._lk_post(ref.reshape(B, F, 2), g, valid, runnable, LK.WIN, H, W, True)
-    eq = float((s_out == s_ref).float().mean())
+    tracks_eq, status_eq, iters_eq = (bool(torch.equal(a, b)) for a, b in
+                                      ((t_out, t_ref), (s_out, s_ref), (iters, iters_ref)))
     live = s_out & s_ref
     err = float((t_out - t_ref).abs()[live].max()) if bool(live.any()) else 0.0
     hist = torch.bincount(iters[runnable.reshape(-1)].long(), minlength=LK.MAX_ITERS + 1).tolist()
     log(f"[K5] level 0, {B} pairs x {F} features ({int(valid.sum())} valid, {int(runnable.sum())} runnable): "
-        f"status equal {eq:.6f}, live tracks {int(live.sum())}, max|kernel - plain| {err:.3e} px, "
-        f"iterations equal {bool(torch.equal(iters, iters_ref))}, bitwise {bool(torch.equal(out, ref))}")
+        f"bitwise equal: raw solutions {bool(torch.equal(out, ref))}, tracks {tracks_eq}, status {status_eq}, "
+        f"iterations {iters_eq}; live tracks {int(live.sum())}, max|kernel - plain| {err:.3e} px")
     log(f"[K5] iteration histogram of runnable features (index = iterations): {hist}")
-    check(eq >= K5_STATUS_EQUAL, f"K5: status equal on {eq} < {K5_STATUS_EQUAL}")
-    check(err <= K5_TRACK_TOL, f"K5: live tracks differ by {err} px > {K5_TRACK_TOL}")
+    check(bool(torch.equal(out, ref)) and tracks_eq and status_eq and iters_eq,
+          "K5: the tracks, status or iteration counts differ from the plain version")
     ms, plain_ms, tk, tp = timed_pair(lambda: LKC.lk_gn_iterate(*args, LK.MAX_ITERS, LK.EPS),
                                       lambda: LKC.lk_gn_plain(*args, LK.MAX_ITERS, LK.EPS), 10, 1)
     # data-dependent: this run's iterations x the operations of one (31 rows
@@ -700,7 +729,7 @@ def classic_stage_split(frames, device):
         if lvl > 0:
             g = g * 2.0
         valid = valid & status
-    stage("fits + host fetch", lambda: CL._fused_classic_fits(pts, g, valid, 0, RS.DEFAULT_HYPOTHESES))
+    stage("fits + host fetch", lambda: CL._fused_classic_fits(pts, g, valid, 0, False, RS.DEFAULT_HYPOTHESES))
     mats = np.tile(np.eye(3, dtype=np.float32), (frames.shape[0], 1, 1))
     stage("padding mask", lambda: W.padding_mask_stats(mats, (WIDTH, HEIGHT), (WIDTH, HEIGHT), device)[1].cpu())
     stage("warp (K1)", lambda: W.warp_clip(frames, mats, (WIDTH, HEIGHT), "bilinear", (0.5, 0.5, 0.5)))
@@ -1145,6 +1174,377 @@ def phase_motion_nodes(frames_cpu):
         "of the pixels)")
 
 
+def run_stabilizer(kind, ctx, device, framing="crop_and_pad", transform="similarity", lock=False,
+                   fps=30.0):
+    """stabilize_flow or stabilize_classic at strength 0.8, smooth 0.6,
+    keep_fov 0.6, padding (127, 127, 127)."""
+    from comfyui_video_stabilizer_tpu_torch.models.classic import stabilize_classic
+    from comfyui_video_stabilizer_tpu_torch.models.flow import stabilize_flow
+
+    fn = stabilize_flow if kind == "flow" else stabilize_classic
+    return fn(ctx, framing, transform, lock, 0.8, 0.6, 0.6, (127, 127, 127), fps, device=device)
+
+
+def mode_counts(meta) -> dict:
+    counts: dict = {}
+    for t in meta["estimated_motion"]["per_transition"]:
+        counts[t["mode"]] = counts.get(t["mode"], 0) + 1
+    return counts
+
+
+def flow_stage_split(clip, device, transform, mats, out_size):
+    """One Flow call's device work stage by stage, a synchronize after each
+    (ms): the gray ingest (16-frame chunks, uploads when the clip is on
+    the host), DIS, the fits with their host fetch, and the warp with its
+    masks for ``mats`` (streamed past the budget).  The host trajectory
+    and meta between the fits and the warp are left out."""
+    import torch
+
+    from comfyui_video_stabilizer_tpu_torch.models import flow as FL
+    from comfyui_video_stabilizer_tpu_torch.models.stabilize import estimation_plan
+    from comfyui_video_stabilizer_tpu_torch.ops import flow_dis as FD
+    from comfyui_video_stabilizer_tpu_torch.ops import ransac as RS
+    from comfyui_video_stabilizer_tpu_torch.ops import resize as R
+    from comfyui_video_stabilizer_tpu_torch.ops import warp as W
+
+    ms = {}
+
+    def stage(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ms[name] = round(1e3 * (time.perf_counter() - t0), 2)
+        return out
+
+    _, h, w, _ = clip.shape
+    working, dec = estimation_plan(w, h, FL.flow_estimator)
+    grays = stage("gray ingest", lambda: R.gray_for_estimation(clip, working, decimation=dec, device=device))
+    persp = transform == "perspective"
+    samples = stage("DIS", lambda: FD.dis_flow_fit(grays, FL.SAMPLE_STEP // dec,
+                                                  finest_scale=0 if dec > 1 else FD.FINEST_SCALE,
+                                                  model="homography" if persp else "similarity"))
+    pts = FL._grid_points(grays.shape[1] * dec, grays.shape[2] * dec, FL.SAMPLE_STEP, device)
+    stage("fits + host fetch", lambda: FL._fused_fits_sampled(samples * float(dec), pts, 0, persp,
+                                                              RS.DEFAULT_HYPOTHESES))
+    del grays, samples
+    stage("warp + mask", lambda: W.warp_clip_with_mask(clip, mats, out_size, "bilinear", (0.5, 0.5, 0.5),
+                                                       device=device))
+    return ms
+
+
+def phase_crop(device, frames):
+    """Crop framing (keep_fov 0.6) of Flow and Classic on the 1080p x 80
+    clip, then the CUDA path against the CPU path on a small clip, crop
+    and perspective, Flow and Classic."""
+    import torch
+
+    from comfyui_video_stabilizer_tpu_torch.ops import cuda_build
+
+    ctx = make_context(frames)
+    for kind in ("flow", "classic"):
+        torch.cuda.synchronize()
+        cuda_build.reset_launches()
+        t0 = time.perf_counter()
+        res = run_stabilizer(kind, ctx, device, framing="crop")
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        fr, meta = res.meta["framing"], res.meta
+        check(tuple(res.frames.shape) == (CLIP_FRAMES, HEIGHT, WIDTH, 3), f"crop {kind}: frames {tuple(res.frames.shape)}")
+        check(res.frames.device.type == "cuda" and bool(torch.isfinite(res.frames).all()), f"crop {kind}: frames")
+        refined = fr["keep_fov_effective"] == 1.0
+        log(f"[crop] {kind} 1080p x {CLIP_FRAMES}, keep_fov 0.6: status {fr['keep_fov_status']}, scale "
+            f"{fr['stabilization_scale']}, crop origin {fr['crop_origin']} size {fr['crop_size']}, refine "
+            f"{'succeeded' if refined else 'bailed'}, note {fr.get('keep_fov_note')!r}; padding max "
+            f"{meta['padding_fraction_max']}, strength_effective {meta['strength_effective']}; one call "
+            f"{1e3 * secs:.1f} ms; launches {dict(cuda_build.LAUNCHES)}")
+        check(fr["keep_fov_status"] in ("met", "clamped", "failed", "disabled"), f"crop {kind}: status")
+        if refined:
+            check(meta["padding_fraction_max"] == 0.0 and float(res.masks.max()) == 0.0,
+                  f"crop {kind}: padding remains after a successful refine")
+        del res
+
+    small = synth_clip(8, 144, 192, seed=9, device="cpu")
+    for kind in ("flow", "classic"):
+        for framing, transform in (("crop", "similarity"), ("crop_and_pad", "perspective")):
+            cpu = run_stabilizer(kind, make_context(small), "cpu", framing, transform)
+            gpu = run_stabilizer(kind, make_context(small.to(device)), device, framing, transform)
+            pc = [t["mode"] for t in cpu.meta["estimated_motion"]["per_transition"]]
+            pg = [t["mode"] for t in gpu.meta["estimated_motion"]["per_transition"]]
+            mc = np.array([t["matrix"] for t in cpu.meta["estimated_motion"]["per_transition"]])
+            mg = np.array([t["matrix"] for t in gpu.meta["estimated_motion"]["per_transition"]])
+            fc, fg = cpu.meta["framing"], gpu.meta["framing"]
+            d = (cpu.frames - gpu.frames.cpu()).abs().flatten()
+            p99 = float(torch.quantile(d[:: max(1, d.numel() // 1_000_000)], 0.99))
+            mat_err = float(np.abs(mc - mg).max())
+            log(f"[crop reference] {kind} {framing} {transform} 8x144x192, CUDA vs CPU path: modes {pg} "
+                f"(equal {pc == pg}), matrices max|d| {mat_err:.3e}, frames p99 {p99:.3e}; status "
+                f"{fg.get('keep_fov_status')} / {fc.get('keep_fov_status')}, scale {fg.get('stabilization_scale')} "
+                f"/ {fc.get('stabilization_scale')}")
+            check(pc == pg, f"{kind} {framing} {transform}: per-pair modes differ")
+            check(mat_err <= SMALL_MAT_TOL and p99 <= SMALL_FRAME_P99, f"{kind} {framing} {transform}: outputs differ")
+            for key in ("keep_fov_status", "keep_fov_note", "stabilization_scale"):
+                check(fc.get(key) == fg.get(key), f"{kind} {framing}: {key} differs: {fg.get(key)!r} vs {fc.get(key)!r}")
+
+
+def phase_config3(device, frames):
+    """BASELINE config 3: Flow, 1280x720 x 128, crop_and_pad, perspective,
+    camera_lock, 24 fps; then Classic perspective once on the 1080p clip."""
+    import torch
+
+    from comfyui_video_stabilizer_tpu_torch.ops import cuda_build
+
+    n, h, w = BASELINE3
+    clip = synth_clip(n, h, w, seed=3, device=device)
+    ctx = make_context(clip)
+    torch.cuda.synchronize()
+    cuda_build.reset_launches()
+    res = run_stabilizer("flow", ctx, device, "crop_and_pad", "perspective", lock=True, fps=24.0)
+    torch.cuda.synchronize()
+    launches = dict(cuda_build.LAUNCHES)
+    modes = mode_counts(res.meta)
+    check(tuple(res.frames.shape) == (n, h, w, 3) and bool(torch.isfinite(res.frames).all()), "config 3: frames")
+    check(res.meta["camera_lock"] is True and launches["warp"] >= 1 and launches["cost_volume"] >= 4,
+          f"config 3: launches {launches}")
+    check(modes.get("perspective", 0) > 0, f"config 3: no pair kept the perspective fit: {modes}")
+    res_mats = res.meta["stabilization_warp"]["per_frame"]
+    del res
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run_stabilizer("flow", ctx, device, "crop_and_pad", "perspective", lock=True, fps=24.0)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    fps = [n / t for t in times]
+    log(f"[config3] Flow {w}x{h} x {n}, perspective + camera_lock, 24 fps: per-pair modes {modes}; "
+        f"launches K1 {launches['warp']}, K2 {launches['cost_volume']}; warm {', '.join(f'{f:.1f}' for f in fps)} "
+        f"f/s, median {float(np.median(fps)):.1f}")
+    sim = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run_stabilizer("flow", ctx, device, "crop_and_pad", "similarity", lock=True, fps=24.0)
+        torch.cuda.synchronize()
+        sim.append(n / (time.perf_counter() - t0))
+    mats = np.array([e["applied_matrix"] for e in res_mats])
+    split = {t: flow_stage_split(clip, device, t, mats, (w, h)) for t in ("perspective", "similarity")}
+    log(f"[config3] the same call with similarity: warm {', '.join(f'{f:.1f}' for f in sim)} f/s, median "
+        f"{float(np.median(sim)):.1f}; stage split (ms, synchronize after each) perspective {split['perspective']}, "
+        f"similarity {split['similarity']}")
+    del ctx, clip
+
+    ctx = make_context(frames)
+    torch.cuda.synchronize()
+    cuda_build.reset_launches()
+    t0 = time.perf_counter()
+    res = run_stabilizer("classic", ctx, device, "crop_and_pad", "perspective")
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    check(bool(torch.isfinite(res.frames).all()), "Classic perspective: non-finite frames")
+    log(f"[config3] Classic perspective 1080p x {CLIP_FRAMES}: per-pair modes {mode_counts(res.meta)}, "
+        f"applied {res.meta['transform_mode_applied']}; one call {1e3 * secs:.1f} ms "
+        f"(cold for the perspective fits); launches {dict(cuda_build.LAUNCHES)}")
+    return launches
+
+
+def host_available_bytes() -> int:
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024
+    raise SmokeFailure("no MemAvailable in /proc/meminfo")
+
+
+def phase_config5(device):
+    """BASELINE config 5: Flow, 3840x2160 x 300, expand, similarity, 24 fps,
+    the clip held on the host (it streams past the device budget)."""
+    import torch
+
+    from comfyui_video_stabilizer_tpu_torch.ops import cuda_build
+    from comfyui_video_stabilizer_tpu_torch.ops import warp as W
+
+    n, h, w = BASELINE5
+    # host: the clip, the streamed output on a canvas ~5 % larger per
+    # side, its masks, and 12 GiB for everything else
+    per_frame = 4 * h * w * 3 + int(1.1 * 4 * h * w * 4)
+    avail = host_available_bytes()
+    fit = (avail - (12 << 30)) // per_frame
+    if fit < n:
+        log(f"[config5] host memory available {avail / 2**30:.1f} GiB holds {fit} frames, not {n}: "
+            f"the clip is cut to {fit} frames")
+        n = int(fit)
+    check(n >= 64, f"config 5: host memory holds only {n} frames")
+    t0 = time.perf_counter()
+    clip = synth_clip(n, h, w, seed=5, device=device, on_host=True)
+    log(f"[config5] made the {w}x{h} x {n} clip on the host ({clip.numel() * 4 / 1e9:.1f} GB) in "
+        f"{time.perf_counter() - t0:.1f} s; host memory available {avail / 2**30:.1f} GiB before")
+    ctx = make_context(clip)
+    streams = W.will_stream(n, h, w, h, w)
+    walls, peaks = [], []
+    for rep in range(2):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        cuda_build.reset_launches()
+        t0 = time.perf_counter()
+        res = run_stabilizer("flow", ctx, device, "expand", "similarity", fps=24.0)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        peaks.append(torch.cuda.max_memory_allocated() / 2**30)
+        launches = dict(cuda_build.LAUNCHES)
+        if rep == 0:
+            ow, oh = res.meta["framing"]["expanded_size"]
+            chunk = W._chunk_frames(n, h, w, oh, ow)
+            check(tuple(res.frames.shape) == (n, oh, ow, 3) and tuple(res.masks.shape) == (n, oh, ow),
+                  f"config 5: frames {tuple(res.frames.shape)}")
+            check((res.frames.device.type == "cpu") == W.will_stream(n, h, w, oh, ow),
+                  "config 5: a streamed result must lie on the host, an unstreamed one on the card")
+            check(bool(torch.isfinite(res.frames[::17]).all()), "config 5: non-finite frames")
+            mats = np.array([e["applied_matrix"] for e in res.meta["stabilization_warp"]["per_frame"]])
+            stream_out = W.will_stream(n, h, w, oh, ow)
+            log(f"[config5] expand canvas {ow}x{oh}; streamed {stream_out} (the input alone "
+                f"{'streams' if streams else 'fits'}), chunk {chunk} frames; launches {launches}; "
+                f"padding mean {res.meta['padding_fraction_mean']:.5f}")
+        del res
+    log(f"[config5] Flow {w}x{h} x {n} expand: wall {', '.join(f'{t:.2f}' for t in walls)} s, "
+        f"{', '.join(f'{n / t:.1f}' for t in walls)} f/s; peak device memory "
+        f"{', '.join(f'{g:.2f}' for g in peaks)} GiB")
+    split = flow_stage_split(clip, device, "similarity", mats, (ow, oh))
+    log(f"[config5] stage split (ms, synchronize after each): {split}")
+
+    # the host<->device copies a streamed call makes, measured apart: the
+    # clip up (once for the grays, once for the warp), and the frames and
+    # masks down, into new host memory (as the engine's output) and again
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for s0 in range(0, n, chunk):
+        clip[s0:s0 + chunk].to(device)
+    torch.cuda.synchronize()
+    up = time.perf_counter() - t0
+    host_out = torch.empty((chunk, oh, ow, 4))
+    dev_out = torch.empty((chunk, oh, ow, 4), device=device)
+    down = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for s0 in range(0, n, chunk):
+            e = min(n, s0 + chunk)
+            host_out[: e - s0].copy_(dev_out[: e - s0])
+        torch.cuda.synchronize()
+        down.append(time.perf_counter() - t0)
+    del host_out, dev_out
+    log(f"[config5] host<->device copies (pageable memory): the clip up {up:.2f} s "
+        f"({clip.numel() * 4 / up / 1e9:.1f} GB/s; a streamed call uploads it twice), frames and masks "
+        f"down {down[0]:.2f} s into new host memory ({n * oh * ow * 16 / down[0] / 1e9:.1f} GB/s), "
+        f"{down[1]:.2f} s again ({n * oh * ow * 16 / down[1] / 1e9:.1f} GB/s)")
+
+    # K1 at the 4K expand canvas, 16 frames, against its plain version
+    border = torch.full((3,), 127 / 255.0, device=device)
+    src = clip[:16].to(device)
+    coeffs = torch.as_tensor(W.prepare_inverse_coeffs(mats[:16]).astype(np.float32), device=device)
+    out = W.warp_frames(src, coeffs, border, oh, ow, "bilinear")
+    ref = W.warp_plain(src, coeffs, border, oh, ow, "bilinear")
+    torch.cuda.synchronize()
+    check(bool(torch.equal(out, ref)), "K1 at the 4K expand canvas: differs from the plain version")
+    del out, ref
+    ms, plain_ms, tk, tp = timed_pair(lambda: W.warp_frames(src, coeffs, border, oh, ow, "bilinear"),
+                                      lambda: W.warp_plain(src, coeffs, border, oh, ow, "bilinear"), 10, 2)
+    lib = grid_sample_ms(src.permute(0, 3, 1, 2).contiguous(), coeffs, oh, ow, 10)
+    b = warp_bound(16, h, w, 3, oh, ow, "bilinear")
+    log(f"[config5] K1 (16, {h}, {w}, 3) -> {ow}x{oh} bilinear: bitwise equal; kernel {ms:.3f} ms, plain "
+        f"{plain_ms:.3f} ms (runs {tk}, {tp}); grid_sample {lib:.3f} ms; bound {b['bound_ms']:.3f} ms "
+        f"({b['bound_by']})")
+    return launches
+
+
+def phase_forced_streaming(device, frames, meta4):
+    """Flow, Classic and Motion Apply config 4 on the 1080p x 80 clip held
+    on the host, with the chunk budget lowered to 20 frames, against the
+    same calls unstreamed: frames and masks bitwise."""
+    import torch
+
+    from comfyui_video_stabilizer_tpu_torch.ops import cuda_build
+    from comfyui_video_stabilizer_tpu_torch.ops import warp as W
+
+    host = frames.cpu()
+    runs = {
+        "Flow": lambda: run_stabilizer("flow", make_context(host), device),
+        "Classic": lambda: run_stabilizer("classic", make_context(host), device),
+        "Motion Apply config 4": lambda: run_apply(make_context(host), meta4, device),
+    }
+    budget = W.CHUNK_BUDGET_BYTES
+    for name, run in runs.items():
+        ref = run()
+        ref_frames, ref_masks = ref.frames.cpu(), ref.masks.cpu()
+        del ref
+        W.CHUNK_BUDGET_BYTES = 20 * W.clip_device_bytes(1, HEIGHT, WIDTH, HEIGHT, WIDTH)
+        try:
+            torch.cuda.synchronize()
+            cuda_build.reset_launches()
+            t0 = time.perf_counter()
+            res = run()
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        finally:
+            W.CHUNK_BUDGET_BYTES = budget
+        check(res.frames.device.type == "cpu" and res.masks.device.type == "cpu", f"{name}: streamed result on the card")
+        equal = (bool(torch.equal(res.frames, ref_frames)), bool(torch.equal(res.masks, ref_masks)))
+        log(f"[streaming] {name}, 1080p x {CLIP_FRAMES} in 20-frame chunks: frames and masks bitwise equal to "
+            f"the unstreamed call {equal}; {1e3 * secs:.1f} ms; launches {dict(cuda_build.LAUNCHES)}")
+        check(all(equal), f"{name}: the streamed result differs from the unstreamed one")
+        del res, ref_frames, ref_masks
+
+
+def phase_65536(device):
+    """Motion Apply on 65,536 frames of 64x64 RGB (bilinear, no blur): K1
+    splits its launches at 65,535 frames; the result against the CPU path
+    (run in 4,096-frame chunks to bound host memory)."""
+    import torch
+
+    from comfyui_video_stabilizer_tpu_torch.ops import cuda_build
+    from comfyui_video_stabilizer_tpu_torch.ops import warp as W
+
+    n, h, w = 65536, 64, 64
+    gen = torch.Generator().manual_seed(11)
+    frames = torch.nn.functional.avg_pool2d(torch.rand((n, 3, h + 4, w + 4), generator=gen), 5, 1)
+    frames = frames.permute(0, 2, 3, 1).contiguous()
+    meta = shake_meta("handheld", 11, n, h, w)
+    kw = dict(interp="bilinear", blur=0.0)
+    torch.cuda.synchronize()
+    cuda_build.reset_launches()
+    t0 = time.perf_counter()
+    gpu = run_apply(make_context(frames.to(device)), meta, device, **kw)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = dict(cuda_build.LAUNCHES)
+    check(launches["warp"] == 2, f"65,536 frames: K1 launched {launches['warp']} times, not 2")
+    budget = W.CHUNK_BUDGET_BYTES
+    W.CHUNK_BUDGET_BYTES = 4096 * W.clip_device_bytes(1, h, w, h, w)
+    try:
+        t1 = time.perf_counter()
+        cpu = run_apply(make_context(frames), meta, "cpu", **kw)
+        cpu_secs = time.perf_counter() - t1
+    finally:
+        W.CHUNK_BUDGET_BYTES = budget
+    d = (cpu.frames - gpu.frames.cpu()).abs().flatten()
+    p99 = float(torch.quantile(d[:: max(1, d.numel() // 1_000_000)], 0.99))
+    unequal = float((cpu.masks != gpu.masks.cpu()).float().mean())
+    log(f"[65536] Motion Apply {n} x {w}x{h} RGB ({W.clip_device_bytes(1, h, w, h, w)} B a frame), bilinear: "
+        f"launches {launches}; CUDA {1e3 * secs:.1f} ms, CPU path {cpu_secs:.1f} s; frames p99 {p99:.3e}, "
+        f"max {float(d.max()):.3e}, bitwise {bool(torch.equal(cpu.frames, gpu.frames.cpu()))}; masks unequal on "
+        f"{unequal:.2e} of pixels")
+    check(tuple(gpu.frames.shape) == (n, h, w, 3), f"65,536 frames: {tuple(gpu.frames.shape)}")
+    check(p99 <= APPLY_FRAME_P99 and unequal <= APPLY_MASK_UNEQUAL, "65,536 frames: CUDA and CPU paths differ")
+
+
+def timed_phase(name, fn, *args):
+    """Run one phase and print its wall time on a line of its own."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    log(f"[time] {name}: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -1162,34 +1562,43 @@ def main() -> int:
         print(f"chip_smoke: the port does not import from {ROOT} ({exc})", file=sys.stderr)
         return 1
     device = torch.device("cuda", 0)
-    smi = phase_setup()
-    phase_build()
-    k1 = phase_k1(device)
+    smi = timed_phase("setup", phase_setup)
+    timed_phase("build", phase_build)
+    k1 = timed_phase("K1", phase_k1, device)
     frames = synth_clip(CLIP_FRAMES, HEIGHT, WIDTH, seed=0, device=device)
     torch.cuda.synchronize()
-    k2 = phase_k2(device, frames)
-    launches, _fps = phase_slice(device, frames)
-    phase_small_reference(device)
-    phase_node(frames[:16].cpu())
+    k2 = timed_phase("K2", phase_k2, device, frames)
+    launches, _fps = timed_phase("Flow slice", phase_slice, device, frames)
+    timed_phase("Flow reference", phase_small_reference, device)
+    timed_phase("Flow node", phase_node, frames[:16].cpu())
 
     grays = classic_grays(frames)
     torch.cuda.synchronize()
-    k4 = phase_k4(grays)
-    k6 = phase_k6(grays)
-    k5 = phase_k5(grays)
+    k4 = timed_phase("K4", phase_k4, grays)
+    k6 = timed_phase("K6", phase_k6, grays)
+    k5 = timed_phase("K5", phase_k5, grays)
     del grays
-    classic_launches, _ = phase_classic(device, frames)
-    phase_small_reference(device, run_classic, "classic reference")
-    phase_node(frames[:16].cpu(), "VideoStabilizerClassic")
+    classic_launches, _ = timed_phase("Classic slice", phase_classic, device, frames)
+    timed_phase("Classic reference", phase_small_reference, device, run_classic, "classic reference")
+    timed_phase("Classic node", phase_node, frames[:16].cpu(), "VideoStabilizerClassic")
+    timed_phase("crop", phase_crop, device, frames)
+    config3_launches = timed_phase("config 3", phase_config3, device, frames)
 
     meta4 = shake_meta("action", 3, CLIP_FRAMES, HEIGHT, WIDTH)
     # config 4 first: once K3's plain version has run at 80 frames,
     # torch.profiler records no device events for the rest of the process
-    apply_launches, _ = phase_motion_apply(device, frames, meta4)
-    k3 = phase_k3(device, frames, meta4)
-    phase_config2(device)
-    phase_apply_reference(device)
-    phase_motion_nodes(frames[:16].cpu())
+    apply_launches, _ = timed_phase("config 4", phase_motion_apply, device, frames, meta4)
+    k3 = timed_phase("K3", phase_k3, device, frames, meta4)
+    timed_phase("config 2", phase_config2, device)
+    timed_phase("Motion Apply reference", phase_apply_reference, device)
+    timed_phase("Motion Apply nodes", phase_motion_nodes, frames[:16].cpu())
+    timed_phase("forced streaming", phase_forced_streaming, device, frames, meta4)
+    del frames
+    torch.cuda.empty_cache()
+    timed_phase("65,536 frames", phase_65536, device)
+    config5_launches = timed_phase("config 5", phase_config5, device)
+    log(f"[launches] K1 / K2 a call: config 3 {config3_launches['warp']} / {config3_launches['cost_volume']}, "
+        f"config 5 {config5_launches['warp']} / {config5_launches['cost_volume']}")
     check("jax" not in sys.modules, "jax was imported")
     jax_pkg = [m for m in sys.modules if m.split(".")[0] == "comfyui_video_stabilizer_tpu"]
     check(not jax_pkg, f"modules of the JAX package were imported: {sorted(jax_pkg)}")

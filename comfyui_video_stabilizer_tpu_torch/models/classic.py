@@ -8,13 +8,12 @@ sticky mode degradation is the shared engine's host scan.
 
 Acceptance contract (the reference's thresholds):
   <12 detected features or <8 surviving tracks -> degenerate pair
+  perspective: >=4 points, RANSAC inlier ratio >= 0.15
   similarity:  >=3 points, RANSAC inlier ratio >= 0.1
   translation: always accepted; confidence = survivors / detected
 
-Perspective needs the homography fits and raises
-``NotImplementedError``; crop framing raises in the engine.  The JAX
-package's zero-sync fast path (``_classic_fast_path``,
-``models/fastpath.py``) is not ported (ROADMAP.md, slice 2 item 10).
+The JAX package's zero-sync fast path (``_classic_fast_path``,
+``models/fastpath.py``) is not ported; its host engine is.
 """
 
 from __future__ import annotations
@@ -29,26 +28,34 @@ from ..ops import prng
 from ..ops import ransac as RS
 from ..utils.video_io import VideoContext
 from . import geometry as G
-from .flow import PERSPECTIVE_NOT_PORTED
 from .stabilize import PairFits, StabilizationResult, estimation_chunk_spans, stabilize_clip
 
 MIN_FEATURES = 12
 MIN_TRACKS = 8
+PERSP_MIN_RATIO = 0.15
 SIM_MIN_RATIO = 0.1
 
 
-def _fused_classic_fits(pts, tracked, status, seed: int, n_hyp: int) -> Dict[str, np.ndarray]:
-    """Survivor counts, the similarity RANSAC (key salt 1) and the median
+def _fused_classic_fits(pts, tracked, status, seed: int, want_persp: bool, n_hyp: int) -> Dict[str, np.ndarray]:
+    """Survivor counts, the perspective RANSAC (key salt 0, with
+    ``want_persp``), the similarity RANSAC (salt 1) and the median
     translation of every pair; one fetch brings them to the host."""
     b = pts.shape[0]
     dev = pts.device
-    keys = prng.fold_in(prng.PRNGKey(seed + 1, device=dev), torch.arange(b, device=dev))
-    S, n_in, n_valid = RS.ransac_similarity(keys, pts, tracked, status, n_hyp, RS.SIM_THRESH)
+
+    def keys(salt):
+        return prng.fold_in(prng.PRNGKey(seed + salt, device=dev), torch.arange(b, device=dev))
+
+    out = {"surv": status.sum(1)}
+    if want_persp:
+        H, n_in, n_valid = RS.ransac_fit(keys(0), pts, tracked, status, "perspective", n_hyp, RS.PERSP_THRESH)
+        out.update(H=H, nH=n_in, vH=n_valid)
+    S, n_in, n_valid = RS.ransac_fit(keys(1), pts, tracked, status, "similarity", n_hyp, RS.SIM_THRESH)
     med = RS.masked_median_shift(pts, tracked, status)
     T = torch.eye(3, dtype=torch.float32, device=dev).repeat(b, 1, 1)
     T[:, 0, 2] = med[:, 0]
     T[:, 1, 2] = med[:, 1]
-    out = {"surv": status.sum(1), "S": S, "n_in": n_in, "n_valid": n_valid, "T": T}
+    out.update(S=S, nS=n_in, vS=n_valid, T=T)
     return {k: v.cpu().numpy() for k, v in out.items()}
 
 
@@ -84,29 +91,34 @@ def classic_estimator(grays: torch.Tensor, requested_mode: str, *, seed: int = 0
     Classic estimates at the working size itself: ``decimation`` is
     accepted from the engine and must be 1.
     """
-    if requested_mode == "perspective":
-        raise NotImplementedError(PERSPECTIVE_NOT_PORTED)
     if decimation != 1:
         raise ValueError(f"the Classic estimator takes no gray decimation, got {decimation}")
     b = grays.shape[0] - 1
     pts, det_counts, tracked, status = _lk_tracks_chunked(grays, tick_pairs)
-    fused = _fused_classic_fits(pts, tracked, status, seed, RS.DEFAULT_HYPOTHESES)
+    fused = _fused_classic_fits(pts, tracked, status, seed, requested_mode == "perspective",
+                                RS.DEFAULT_HYPOTHESES)
     det_counts = det_counts.cpu().numpy()
     surv = fused["surv"]
-    S, n_in, n_valid = fused["S"], fused["n_in"], fused["n_valid"]
-    conf = np.where(n_valid > 0, n_in / np.maximum(n_valid, 1), 0.0)
-    finite = np.isfinite(S).all(axis=(1, 2))
+    matrices: Dict[str, np.ndarray] = {}
+    confidences: Dict[str, np.ndarray] = {}
+    accepted: Dict[str, np.ndarray] = {}
+    for mode, key, min_points, min_ratio in (("perspective", "H", 4, PERSP_MIN_RATIO),
+                                             ("similarity", "S", 3, SIM_MIN_RATIO)):
+        if key not in fused:
+            continue
+        M, n_in, n_valid = fused[key], fused["n" + key], fused["v" + key]
+        conf = np.where(n_valid > 0, n_in / np.maximum(n_valid, 1), 0.0)
+        matrices[mode] = M
+        confidences[mode] = conf
+        accepted[mode] = np.isfinite(M).all(axis=(1, 2)) & (surv >= min_points) & (conf >= min_ratio)
+    matrices["translation"] = fused["T"]
+    confidences["translation"] = np.where(det_counts > 0, surv / np.maximum(det_counts, 1), 0.0)
+    accepted["translation"] = np.ones(b, bool)
     return PairFits(
         degenerate=(det_counts < MIN_FEATURES) | (surv < MIN_TRACKS),
-        matrices={"similarity": S, "translation": fused["T"]},
-        confidences={
-            "similarity": conf,
-            "translation": np.where(det_counts > 0, surv / np.maximum(det_counts, 1), 0.0),
-        },
-        accepted={
-            "similarity": finite & (surv >= 3) & (conf >= SIM_MIN_RATIO),
-            "translation": np.ones(b, bool),
-        },
+        matrices=matrices,
+        confidences=confidences,
+        accepted=accepted,
         residuals=None,
     )
 
@@ -126,8 +138,6 @@ def stabilize_classic(
     device: str | torch.device = "cuda",
 ) -> StabilizationResult:
     """Classic stabilizer on ``device`` ('cuda' by default; 'cpu' runs the plain versions)."""
-    if transform_mode == "perspective":
-        raise NotImplementedError(PERSPECTIVE_NOT_PORTED)
     return stabilize_clip(
         context,
         estimator=classic_estimator,

@@ -3,13 +3,14 @@
 Counterpart of ``comfyui_video_stabilizer_tpu/models/flow.py``: DIS
 flow (ops/flow_dis.py) sampled on the 8-px working-res grid, then the
 robust fits for the whole fallback chain in one batched pass
-(similarity RANSAC, median translation, residual diagnostics).
+(perspective RANSAC when asked for, similarity RANSAC, median
+translation, residual diagnostics).  Perspective drives the
+coarse-to-fine pre-warp with the IRLS homography fit.
 
 Only the DIS tier is ported.  The reference degrades DIS -> TV-L1 ->
 phase correlation on any exception; here a DIS failure (a kernel that
 does not build or launch included) raises, so a broken CUDA path can
-never pass as a quietly degraded run.  Perspective mode needs the
-homography fits and raises ``NotImplementedError``.
+never pass as a quietly degraded run.
 """
 
 from __future__ import annotations
@@ -29,13 +30,8 @@ from .stabilize import PairFits, StabilizationResult, estimation_chunk_spans, st
 
 SAMPLE_STEP = 8
 MIN_VALID = 12
+PERSP_MIN_RATIO = 0.15
 SIM_MIN_RATIO = 0.1
-
-PERSPECTIVE_NOT_PORTED = (
-    "transform_mode='perspective' is not ported to the PyTorch package yet: it "
-    "needs the homography fits (ROADMAP.md, slice 1: perspective, the 4-point "
-    "homography RANSAC and _fit_homography_dense)"
-)
 
 
 def _grid_points(h: int, w: int, step: int, device: torch.device | str) -> torch.Tensor:
@@ -46,27 +42,32 @@ def _grid_points(h: int, w: int, step: int, device: torch.device | str) -> torch
     return torch.stack([gx.reshape(-1), gy.reshape(-1)], dim=1)
 
 
-def _fused_fits_sampled(samples: torch.Tensor, pts: torch.Tensor, seed: int,
+def _fused_fits_sampled(samples: torch.Tensor, pts: torch.Tensor, seed: int, want_persp: bool,
                         n_hyp: int) -> Dict[str, np.ndarray]:
-    """Similarity RANSAC + median translation + residuals, all pairs at
+    """Perspective RANSAC (key salt 0, with ``want_persp``), similarity
+    RANSAC (salt 1), median translation and residuals, all pairs at
     once; the results come back to the host as numpy arrays."""
     b = samples.shape[0]
     dev = samples.device
     prev_pts = pts[None].expand(samples.shape)
     curr_pts = prev_pts + samples
     valid = torch.isfinite(curr_pts).all(dim=2)
-    keys = prng.fold_in(prng.PRNGKey(seed + 1, device=dev), torch.arange(b, device=dev))
-    S, n_in, n_valid = RS.ransac_similarity(keys, prev_pts, curr_pts, valid, n_hyp, RS.SIM_THRESH)
+
+    def keys(salt):
+        return prng.fold_in(prng.PRNGKey(seed + salt, device=dev), torch.arange(b, device=dev))
+
+    out = {"valid_counts": valid.sum(1)}
+    if want_persp:
+        H, n_in, n_valid = RS.ransac_fit(keys(0), prev_pts, curr_pts, valid, "perspective", n_hyp,
+                                         RS.PERSP_THRESH)
+        out.update(H=H, nH=n_in, vH=n_valid, rH=RS.residuals(H, prev_pts, curr_pts, valid))
+    S, n_in, n_valid = RS.ransac_fit(keys(1), prev_pts, curr_pts, valid, "similarity", n_hyp, RS.SIM_THRESH)
     med = RS.masked_median_shift(prev_pts, curr_pts, valid)
     T = torch.eye(3, dtype=torch.float32, device=dev).repeat(b, 1, 1)
     T[:, 0, 2] = med[:, 0]
     T[:, 1, 2] = med[:, 1]
-    out = {
-        "valid_counts": valid.sum(1),
-        "S": S, "n_in": n_in, "n_valid": n_valid,
-        "rS": RS.residuals(S, prev_pts, curr_pts, valid),
-        "T": T, "rT": RS.residuals(T, prev_pts, curr_pts, valid),
-    }
+    out.update(S=S, nS=n_in, vS=n_valid, rS=RS.residuals(S, prev_pts, curr_pts, valid),
+               T=T, rT=RS.residuals(T, prev_pts, curr_pts, valid))
     return {k: v.cpu().numpy() for k, v in out.items()}
 
 
@@ -102,41 +103,52 @@ def flow_estimator(
     tick_pairs=None,
 ) -> PairFits:
     """Per-pair fits from DIS flow; grays (N, h, w) on the working device."""
-    if requested_mode == "perspective":
-        raise NotImplementedError(PERSPECTIVE_NOT_PORTED)
     n, h, w = grays.shape
     b = n - 1
     h_work, w_work = h * decimation, w * decimation
+    want_persp = requested_mode == "perspective"
 
     samples = _dis_samples_chunked(
         grays,
         SAMPLE_STEP // decimation,
         0 if decimation > 1 else FD.FINEST_SCALE,
-        "similarity",
+        "homography" if want_persp else "similarity",
         tick_pairs,
     )
     if decimation > 1:
         samples = samples * float(decimation)  # back to working px units
     pts = _grid_points(h_work, w_work, SAMPLE_STEP, grays.device)
-    fused = _fused_fits_sampled(samples, pts, seed, RS.DEFAULT_HYPOTHESES)
+    fused = _fused_fits_sampled(samples, pts, seed, want_persp, RS.DEFAULT_HYPOTHESES)
 
     valid_counts = fused["valid_counts"]
     total_pts = (
         ((h_work + SAMPLE_STEP - 1) // SAMPLE_STEP)
         * ((w_work + SAMPLE_STEP - 1) // SAMPLE_STEP)
     )
-    S, n_in, n_valid = fused["S"], fused["n_in"], fused["n_valid"]
-    conf = np.where(n_valid > 0, n_in / np.maximum(n_valid, 1), 0.0)
-    finite = np.isfinite(S).all(axis=(1, 2))
+    matrices: Dict[str, np.ndarray] = {}
+    confidences: Dict[str, np.ndarray] = {}
+    accepted: Dict[str, np.ndarray] = {}
+    residuals: Dict[str, np.ndarray] = {}
+    for mode, key, min_points, min_ratio in (("perspective", "H", 4, PERSP_MIN_RATIO),
+                                             ("similarity", "S", 3, SIM_MIN_RATIO)):
+        if key not in fused:
+            continue
+        M, n_in, n_valid = fused[key], fused["n" + key], fused["v" + key]
+        conf = np.where(n_valid > 0, n_in / np.maximum(n_valid, 1), 0.0)
+        matrices[mode] = M
+        confidences[mode] = conf
+        accepted[mode] = np.isfinite(M).all(axis=(1, 2)) & (valid_counts >= min_points) & (conf >= min_ratio)
+        residuals[mode] = fused["r" + key]
+    matrices["translation"] = fused["T"]
+    confidences["translation"] = valid_counts / max(total_pts, 1)
+    accepted["translation"] = np.ones(b, bool)
+    residuals["translation"] = fused["rT"]
     return PairFits(
         degenerate=valid_counts < MIN_VALID,
-        matrices={"similarity": S, "translation": fused["T"]},
-        confidences={"similarity": conf, "translation": valid_counts / max(total_pts, 1)},
-        accepted={
-            "similarity": finite & (valid_counts >= 3) & (conf >= SIM_MIN_RATIO),
-            "translation": np.ones(b, bool),
-        },
-        residuals={"similarity": fused["rS"], "translation": fused["rT"]},
+        matrices=matrices,
+        confidences=confidences,
+        accepted=accepted,
+        residuals=residuals,
         extra_meta={"flow_backend": "DIS", "flow_fallback_reason": None},
     )
 
@@ -160,8 +172,6 @@ def stabilize_flow(
     device: str | torch.device = "cuda",
 ) -> StabilizationResult:
     """Flow stabilizer on ``device`` ('cuda' by default; 'cpu' runs the plain versions)."""
-    if transform_mode == "perspective":
-        raise NotImplementedError(PERSPECTIVE_NOT_PORTED)
     return stabilize_clip(
         context,
         estimator=flow_estimator,

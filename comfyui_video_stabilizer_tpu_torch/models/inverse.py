@@ -12,7 +12,8 @@ deprecated Inverse NODE routes through Motion Apply instead
 (``nodes/inverse_node.py``), as in the JAX package, because the
 contract pins that node bit-identical to Motion Apply on legacy meta.
 The work runs on ``device`` (default ``"cuda"``, raising without a
-card); frames and masks are returned on it.
+card); frames and masks are returned on it, or on the host when the
+warp streams through time chunks (``ops/warp.py``).
 """
 
 from __future__ import annotations
@@ -30,7 +31,7 @@ from ..utils.video_io import VideoContext
 
 @dataclass
 class InverseStabilizationResult:
-    frames: torch.Tensor  # on the device
+    frames: torch.Tensor  # on the device (the host when streamed)
     masks: torch.Tensor
     meta: Dict[str, Any]
 
@@ -117,11 +118,8 @@ def apply_inverse_stabilization(
         if context.channels == 1
         else padding
     )
-    frames = context.frames.to(dev)
-    n, h, w, c = frames.shape
-    W.check_fits_device(n, h, w, int(source_size[1]), int(source_size[0]), c)
-    restored = W.warp_clip(frames, inverses, source_size, "bilinear", border)
-    masks, _ = W.padding_mask_stats(inverses, (context.width, context.height), source_size, dev)
+    restored, masks, _ = W.warp_clip_with_mask(context.frames, inverses, source_size, "bilinear", border,
+                                               device=dev)
 
     result_meta = dict(meta)
     result_meta["inverse_stabilization"] = {

@@ -21,7 +21,11 @@ soft mask = 1 - mean coverage.  ``motion_blur == 0`` takes the plain
 warp (K1), bit-identical to it.
 
 The work runs on ``device`` (default ``"cuda"``, raising without a
-card); frames and masks are returned on it.
+card); frames and masks are returned on it, unless the clip's warp
+live set exceeds ``ops/warp.py``'s ``CHUNK_BUDGET_BYTES``: then the
+clip is never uploaded whole, the warp streams through time chunks and
+frames and masks are returned as host (CPU) tensors, as the JAX
+package returns host arrays when it streams.
 """
 
 from __future__ import annotations
@@ -50,8 +54,8 @@ ProgressCallback = Callable[[], None]
 
 @dataclass
 class MotionApplyResult:
-    frames: torch.Tensor  # (N, H, W, 3) float32, on the device
-    masks: torch.Tensor   # (N, H, W) float32, on the device
+    frames: torch.Tensor  # (N, H, W, 3) float32, on the device (the host when streamed)
+    masks: torch.Tensor   # (N, H, W) float32, beside the frames
     meta: Dict[str, Any]
 
 
@@ -128,20 +132,14 @@ def blurred_sample_matrices(matrices: np.ndarray, motion_blur: float, sample_cou
     return mats[:, None] + delta[:, None] * ts[None, :, None, None]
 
 
-def _fits(frames: torch.Tensor, output_size: Tuple[int, int]) -> None:
-    n, h, w, c = frames.shape
-    W.check_fits_device(n, h, w, int(output_size[1]), int(output_size[0]), c)
-
-
-def _warp_plain(frames, context, matrices, output_size, interp, padding_rgb, masks_zero, progress):
-    _fits(frames, output_size)
+def _warp_plain(frames, context, matrices, output_size, interp, padding_rgb, masks_zero, progress, dev):
     border = _border_rgb(context, padding_rgb)
-    out = W.warp_clip(frames, matrices, output_size, interp, border)
     out_w, out_h = output_size
     if masks_zero:
-        masks = torch.zeros((out.shape[0], out_h, out_w), dtype=torch.float32, device=frames.device)
+        out = W.warp_clip(frames, matrices, output_size, interp, border, device=dev)
+        masks = torch.zeros((out.shape[0], out_h, out_w), dtype=torch.float32, device=out.device)
     else:  # 1 - nearest coverage: binary, so zero_small is the identity on it
-        masks, _ = W.padding_mask_stats(matrices, (context.width, context.height), output_size, frames.device)
+        out, masks, _ = W.warp_clip_with_mask(frames, matrices, output_size, interp, border, device=dev)
     if progress is not None:
         for _ in range(out.shape[0]):
             progress()
@@ -149,19 +147,18 @@ def _warp_plain(frames, context, matrices, output_size, interp, padding_rgb, mas
 
 
 def _warp_blur(frames, context, matrices, output_size, interp, padding_rgb,
-               motion_blur, motion_blur_samples, masks_zero, progress):
+               motion_blur, motion_blur_samples, masks_zero, progress, dev):
     if motion_blur <= 0.0 or motion_blur_samples <= 1:
-        return _warp_plain(frames, context, matrices, output_size, interp, padding_rgb, masks_zero, progress)
-    _fits(frames, output_size)
+        return _warp_plain(frames, context, matrices, output_size, interp, padding_rgb, masks_zero, progress, dev)
     sample_count = int(np.clip(motion_blur_samples, 3, 33))
     samples = blurred_sample_matrices(matrices, motion_blur, sample_count)
     border = _border_rgb(context, padding_rgb)
     out, mask = W.warp_clip_blur(
-        frames, samples, output_size, interp, border, with_mask=not masks_zero
+        frames, samples, output_size, interp, border, with_mask=not masks_zero, device=dev
     )
     out_w, out_h = output_size
     if masks_zero or mask is None:
-        mask = torch.zeros((out.shape[0], out_h, out_w), dtype=torch.float32, device=frames.device)
+        mask = torch.zeros((out.shape[0], out_h, out_w), dtype=torch.float32, device=out.device)
     if progress is not None:
         for _ in range(out.shape[0] * sample_count):
             progress()
@@ -175,16 +172,11 @@ def common_valid_mask(
     device: torch.device | str,
     progress_callback: ProgressCallback | None = None,
 ) -> np.ndarray:
-    """AND of all per-frame coverage masks: one min over the coverage
-    stack on the device, then one fetch of the (H, W) result."""
-    cover = W.coverage_mask(matrices, input_size, output_size, device)
-    common = (
-        (cover.amin(dim=0) > 0.5).cpu().numpy()
-        if cover.shape[0]
-        else np.ones((output_size[1], output_size[0]), bool)
-    )
+    """AND of all per-frame coverage masks: a min on the device, then one
+    fetch of the (H, W) result."""
+    common = (W.common_coverage(matrices, input_size, output_size, device) > 0.5).cpu().numpy()
     if progress_callback is not None:
-        for _ in range(cover.shape[0]):
+        for _ in range(len(matrices)):
             progress_callback()
     return common
 
@@ -291,13 +283,16 @@ def apply_motion(
     effective_framing = requested_framing
     motion_blur = float(np.clip(motion_blur, 0.0, 1.0))
     motion_blur_samples = int(np.clip(motion_blur_samples, 3, 33))
-    frames = context.frames.to(dev)
 
     def run(mats, out_size, masks_zero=False):
+        # the clip is uploaded whole unless its warp streams through time chunks
+        n, h, w, c = context.frames.shape
+        streams = W.will_stream(n, h, w, int(out_size[1]), int(out_size[0]), c)
+        frames = context.frames if streams else context.frames.to(dev)
         with timer.stage("warp"):
             return _warp_blur(
                 frames, context, mats, out_size, interp, padding_rgb,
-                motion_blur, motion_blur_samples, masks_zero, progress_callback,
+                motion_blur, motion_blur_samples, masks_zero, progress_callback, dev,
             )
 
     if requested_framing == "crop_and_pad":

@@ -10,13 +10,21 @@ Counterpart of the host engine of
      between chunks when anyone observes them
   4. sticky mode selection (host scan over per-pair acceptance flags)
   5. path integration, 6. target path (camera_lock or fps smoothing)
-  7. framing: crop_and_pad (recenter) or expand (union canvas)
+  7. framing: crop (keep_fov solver + no-padding refine, models/
+     framing.py), crop_and_pad (recenter) or expand (union canvas)
   8. one batched warp (K1) + closed-form padding masks, on the device
   9. meta assembly + motion_meta v2 attach
 
 Geometry and motion_meta are the port's copies of the JAX package's
 host modules (numpy, the same code), so the meta contract is
-identical.  Crop framing is not ported yet and raises.
+identical.  The port has no fast path: it is the JAX package's host
+engine.
+
+A clip whose warp-stage live set exceeds ``ops/warp.py``'s
+``CHUNK_BUDGET_BYTES`` is never uploaded whole: its grays are made 16
+frames at a time and its warp and masks stream through time chunks, as
+the JAX package's engine does; the result's frames and masks are then
+host (CPU) tensors, where an unstreamed result's stay on the device.
 """
 
 from __future__ import annotations
@@ -37,6 +45,7 @@ from ..ops import warp as W
 from ..utils.device import resolve_device, strict_fp32
 from ..utils.profiling import StageTimer
 from ..utils.video_io import VideoContext
+from . import framing as F
 from . import geometry as G
 
 logger = logging.getLogger(__name__)
@@ -53,12 +62,6 @@ MODE_PRIORITY: Dict[str, List[str]] = {
 # Estimation dispatch granularity: pairs per chunk, with a progress
 # tick + interrupt poll between chunks.
 ESTIMATION_CHUNK_PAIRS = 32
-
-CROP_NOT_PORTED = (
-    "framing_mode='crop' is not ported to the PyTorch package yet: it needs "
-    "models/framing.py and ops/morphology.py (ROADMAP.md, slice 2 item 11: "
-    "crop and expand framing)"
-)
 
 
 def estimation_chunk_spans(n_frames: int, chunk: int = ESTIMATION_CHUNK_PAIRS):
@@ -187,13 +190,14 @@ def stabilize_clip(
     interrupt_check: InterruptCheck | None = None,
     device: str | torch.device = "cuda",
 ) -> StabilizationResult:
-    if framing_mode == "crop":
-        raise NotImplementedError(CROP_NOT_PORTED)
     dev = resolve_device(device)
     strict_fp32()
-    frames = context.frames.to(dev)
     total_frames = context.frame_count
     width, height = context.width, context.height
+    channels = int(context.frames.shape[-1])
+    # a clip that streams stays where it is; the warp uploads it chunk by chunk
+    streams_in = W.will_stream(total_frames, height, width, height, width, channels)
+    frames = context.frames if streams_in else context.frames.to(dev)
     fps_effective, fps_requested = _resolve_fps_pair(frame_rate, context.fps)
     extra_meta = dict(extra_meta or {})
 
@@ -267,8 +271,6 @@ def stabilize_clip(
         _tick(progress_total, progress_total)
         return StabilizationResult(frames.clone(), zero_mask, _attach_motion_meta(meta))
 
-    W.check_fits_device(total_frames, height, width, height, width, int(frames.shape[-1]))
-
     # ---- estimation at working resolution (batched, on the device) ----
     timer = StageTimer()
     working_size, decimation = estimation_plan(width, height, estimator)
@@ -281,7 +283,7 @@ def stabilize_clip(
     tick_pairs_cb = _tick_pairs if (progress is not None or interrupt_check is not None) else None
 
     with timer.stage("grayscale_downscale"):
-        grays = R.gray_for_estimation(frames, working_size, decimation=decimation)
+        grays = R.gray_for_estimation(frames, working_size, decimation=decimation, device=dev)
     with timer.stage("estimation"):
         fits = estimator(grays, transform_mode, decimation=decimation, tick_pairs=tick_pairs_cb)
     matrices, modes_used, confidences, residuals = sticky_select(transform_mode, fits)
@@ -305,8 +307,74 @@ def stabilize_clip(
         target_path = path + strength * (smoothed - path)
 
     delta_params_full = target_path - path
+    keep_fov_clamped = float(np.clip(keep_fov, 0.0, 1.0))
+    keep_fov_applied = framing_mode == "crop" and keep_fov_clamped > 1e-6
+    stabilization_scale = 1.0
     output_size = (width, height)
-    apply_matrices = G.params_to_matrices(delta_params_full, base_mode)
+
+    if framing_mode == "crop":
+        if keep_fov_clamped >= 0.9999:
+            meta = {
+                "frames": total_frames,
+                "note": "keep_fov~=1.0 in crop mode; returning original frames.",
+                "transform_mode_requested": transform_mode,
+                "transform_mode_applied": "identity",
+                "camera_lock": camera_lock,
+                "strength": strength,
+                "strength_effective": 0.0,
+                "smooth": smooth,
+                "fps_requested": fps_requested,
+                "fps_effective": fps_effective,
+                "framing": {
+                    "mode": framing_mode,
+                    "input_size": [width, height],
+                    "keep_fov_requested": keep_fov_clamped,
+                    "keep_fov_effective": 1.0,
+                    "min_content_ratio": 1.0,
+                    "padding_color_rgb": [int(c) for c in padding_rgb],
+                    "stabilization_scale": 0.0,
+                },
+                "keep_fov_applied": False,
+                **extra_meta,
+                "stabilization_warp": build_stabilization_warp_meta(
+                    source_size=(width, height),
+                    output_size=(width, height),
+                    framing_mode=framing_mode,
+                    applied_matrices=[np.eye(3, dtype=np.float32)] * total_frames,
+                ),
+                "estimated_motion": {
+                    "per_transition": [],
+                    "path": path.tolist(),
+                    "target_path": target_path.tolist(),
+                    "target_path_effective": path.tolist(),
+                },
+                "padding_fraction_mean": 0.0,
+                "padding_fraction_max": 0.0,
+            }
+            _tick(progress_total, progress_total)
+            zero_masks = torch.zeros((total_frames, height, width), dtype=torch.float32, device=frames.device)
+            return StabilizationResult(frames.clone(), zero_masks, _attach_motion_meta(meta))
+
+        with timer.stage("framing"):
+            safety_margin_px = max(0.5, 0.02 * max(width, height))
+            (
+                final_matrices,
+                apply_matrices,
+                keep_fov_effective_value,
+                keep_fov_status,
+                keep_fov_note,
+                stabilization_scale,
+                crop_origin,
+                crop_size,
+            ) = F.compute_crop_with_keep_fov_parametric(
+                base_mode, delta_params_full, width, height, keep_fov_clamped, safety_margin_px, dev,
+                interrupt_check=interrupt_check,
+            )
+            final_matrices, crop_origin, crop_size, keep_fov_effective_value = F.refine_no_padding_crop(
+                final_matrices, width, height, dev, safety_shrink_px=1, interrupt_check=interrupt_check,
+            )
+    else:
+        apply_matrices = G.params_to_matrices(delta_params_full, base_mode)
     mins, maxs = G.compute_bounding_boxes(apply_matrices, width, height)
 
     framing_meta: Dict[str, Any] = {
@@ -315,7 +383,22 @@ def stabilize_clip(
         "padding_color_rgb": [int(c) for c in padding_rgb],
         "min_content_ratio": G.min_content_ratio(mins, maxs, width, height),
     }
-    if framing_mode == "crop_and_pad":
+    if framing_mode == "crop":
+        framing_meta.update(
+            {
+                "keep_fov_status": keep_fov_status,
+                "keep_fov_effective": keep_fov_effective_value,
+                "crop_origin": list(crop_origin),
+                "crop_size": list(crop_size),
+                "actual_content_ratio": keep_fov_effective_value,
+                "stabilization_scale": float(stabilization_scale),
+            }
+        )
+        if keep_fov_applied:
+            framing_meta["keep_fov_requested"] = keep_fov_clamped
+        if keep_fov_note:
+            framing_meta["keep_fov_note"] = keep_fov_note
+    elif framing_mode == "crop_and_pad":
         x0, y0, x1, y1 = G.intersection_box(mins, maxs)
         intersection_w = max(1.0, x1 - x0)
         intersection_h = max(1.0, y1 - y0)
@@ -342,20 +425,25 @@ def stabilize_clip(
     else:
         raise ValueError(f"Unknown framing_mode {framing_mode!r}.")
 
-    effective_target_path = path + delta_params_full
+    effective_diffs = (
+        G.matrices_to_params(apply_matrices, base_mode) if framing_mode == "crop" else delta_params_full
+    )
+    stabilization_scale = float(np.clip(stabilization_scale, 0.0, 1.0))
+    strength_effective = strength * stabilization_scale
+    effective_target_path = path + effective_diffs
 
     # ---- warp pass: one batched kernel + closed-form masks ----
     border = np.asarray(padding_rgb, np.float32) / 255.0
-    out_w_i, out_h_i = int(output_size[0]), int(output_size[1])
-    W.check_fits_device(total_frames, height, width, out_h_i, out_w_i, int(frames.shape[-1]))
+    if W.will_stream(total_frames, height, width, int(output_size[1]), int(output_size[0]), channels):
+        frames = context.frames  # drop the engine's own upload, if any: the warp streams
     with timer.stage("warp"):
-        # the ratio fetch waits for the mask pass only; the frame warp is
-        # queued after it and runs while the host assembles the meta
-        padding_masks, ratios_dev = W.padding_mask_stats(
-            final_matrices, (width, height), output_size, dev
+        # unstreamed, the ratio fetch waits for the mask pass only; the
+        # frame warp is queued after it and runs while the host assembles
+        # the meta
+        stabilized, padding_masks, ratios = W.warp_clip_with_mask(
+            frames, final_matrices, output_size, "bilinear", border, device=dev
         )
-        padded_ratios = ratios_dev.cpu().numpy()
-        stabilized = W.warp_clip(frames, final_matrices, output_size, "bilinear", border)
+        padded_ratios = ratios.cpu().numpy()
     framing_meta["padding_detected"] = bool((padded_ratios > 0).any())
     _tick(progress_total, progress_total)
 
@@ -377,12 +465,12 @@ def stabilize_clip(
         "transform_mode_applied": active_mode,
         "camera_lock": camera_lock,
         "strength": strength,
-        "strength_effective": strength,
+        "strength_effective": strength_effective,
         "smooth": smooth,
         "fps_requested": fps_requested,
         "fps_effective": fps_effective,
         "framing": framing_meta,
-        "keep_fov_applied": False,
+        "keep_fov_applied": keep_fov_applied,
         "padding_color_rgb": [int(c) for c in padding_rgb],
         **extra_meta,
         "stabilization_warp": build_stabilization_warp_meta(

@@ -2,10 +2,11 @@
 
 A copy of the greedy half of ``comfyui_video_stabilizer_tpu/native/
 rectangle.py``.  The shared library is built with ``g++`` at first use
-into the repository's git-ignored ``build/`` directory, beside the CUDA
-kernel library, named by a hash of the source and flags; it is never
-written next to its source.  A build with no compiler raises (there is
-no Python fallback).
+into ``ops/cuda_build.py::build_dir`` (a checkout's git-ignored
+``build/``, an installed package's user cache), beside the CUDA kernel
+library, named by a hash of the source and flags; it is never written
+next to its source.  A build with no compiler raises (there is no
+Python fallback).
 """
 
 from __future__ import annotations
@@ -19,14 +20,15 @@ import subprocess
 
 import numpy as np
 
+from ..ops.cuda_build import build_dir
+
 _SRC = pathlib.Path(__file__).resolve().parent / "rectangle.cpp"
-BUILD_DIR = _SRC.parents[2] / "build"
 GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 
 
 def library_path() -> pathlib.Path:
     digest = hashlib.sha256(_SRC.read_bytes() + " ".join(GXX_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"librectangle_{digest}.so"
+    return build_dir() / f"librectangle_{digest}.so"
 
 
 @functools.lru_cache(maxsize=None)
@@ -35,7 +37,7 @@ def _load() -> ctypes.CDLL:
     builders never load a half-written file) and load the library."""
     path = library_path()
     if not path.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        path.parent.mkdir(parents=True, exist_ok=True)
         tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
         try:
             subprocess.run(["g++", *GXX_FLAGS, str(_SRC), "-o", str(tmp)], check=True, capture_output=True)

@@ -4,9 +4,9 @@ The kernels in ``csrc/`` are compiled by ``nvcc`` for Hopper (sm_90a),
 one ``nvcc`` per source, all started together, then linked into ONE
 shared library with a plain C interface and loaded with ``ctypes``; no
 PyTorch headers are compiled, so a build takes seconds.
-The library lands in ``build/`` next to the package directory, named
-by a hash of the sources and flags, at first use; a later call with
-unchanged sources reuses it.  Nothing here runs at import time.
+The library lands in :func:`build_dir`, named by a hash of the sources
+and flags, at first use; a later call with unchanged sources reuses it.
+Nothing here runs at import time.
 
 ``-fmad=false`` keeps every multiply and add a separately rounded op,
 as in the plain PyTorch versions the kernels are checked against, so
@@ -15,6 +15,10 @@ kernel and plain version agree bitwise.
 ``LAUNCHES`` counts kernel launches per kernel.  Each wrapper adds one
 where it launches its kernel and nowhere else, so a caller can reset
 the counts, run the main path and see which kernels it went through.
+
+Every kernel puts the frame (or pair) index on a grid axis that holds at
+most 65,535 blocks; the wrappers split longer stacks into launches over
+:func:`frame_spans`, one count per launch.
 """
 
 from __future__ import annotations
@@ -31,7 +35,6 @@ import torch
 
 PACKAGE_DIR = pathlib.Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
-BUILD_DIR = PACKAGE_DIR.parent / "build"
 SOURCES = ("warp.cu", "cost_volume.cu", "gftt.cu", "lk.cu", "extract.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -40,12 +43,36 @@ NVCC_FLAGS = (
     "-Xptxas=-v",
 )
 
+# the largest grid y or z dimension a launch may have
+MAX_GRID_FRAMES = 65535
+
 LAUNCHES = {"warp": 0, "warp_blur": 0, "cost_volume": 0, "gftt": 0, "lk_gn": 0, "extract_windows": 0}
 
 
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def frame_spans(n: int) -> list[tuple[int, int]]:
+    """[(start, end)] covering frames 0..n-1 in order, each at most
+    ``MAX_GRID_FRAMES`` long."""
+    return [(s, min(n, s + MAX_GRID_FRAMES)) for s in range(0, n, MAX_GRID_FRAMES)]
+
+
+def build_dir(package_dir: pathlib.Path = PACKAGE_DIR) -> pathlib.Path:
+    """Where the native libraries are built, never inside an install tree.
+
+    In a source checkout (the package directory beside ``pyproject.toml``)
+    that is the checkout's git-ignored ``build/``; an installed package
+    builds into ``$XDG_CACHE_HOME`` (default ``~/.cache``) under
+    ``comfyui_video_stabilizer_tpu_torch/build``.
+    """
+    root = package_dir.parent
+    if (root / "pyproject.toml").is_file():
+        return root / "build"
+    cache = os.environ.get("XDG_CACHE_HOME") or os.path.join(os.path.expanduser("~"), ".cache")
+    return pathlib.Path(cache) / package_dir.name / "build"
 
 
 def find_nvcc() -> str:
@@ -75,7 +102,7 @@ def library_path() -> pathlib.Path:
         digest.update(name.encode())
         digest.update((CSRC_DIR / name).read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"libcvst_kernels_{digest.hexdigest()[:16]}.so"
+    return build_dir() / f"libcvst_kernels_{digest.hexdigest()[:16]}.so"
 
 
 def build() -> pathlib.Path:
@@ -92,7 +119,7 @@ def build() -> pathlib.Path:
     if path.exists():
         return path
     nvcc = find_nvcc()
-    objdir = BUILD_DIR / f"{path.stem}.{os.getpid()}.objs"
+    objdir = path.parent / f"{path.stem}.{os.getpid()}.objs"
     objdir.mkdir(parents=True, exist_ok=True)
     tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
     try:

@@ -116,16 +116,17 @@ def cost_volume_subpixel(I: torch.Tensor, Jw: torch.Tensor, radius: int, patch: 
     if radius not in (2, 3) or patch != 8:
         raise ValueError(f"K2 takes radius 2 or 3 and patch 8, got {radius} and {patch}")
     B, H, W = I.shape
-    if not 1 <= B <= 65535:
-        raise ValueError(f"K2 takes 1..65535 pairs, got {B}")
+    if B < 1:
+        raise ValueError(f"K2 takes at least one pair, got {B}")
     fx = torch.empty_like(I)
     fy = torch.empty_like(I)
     cmin = torch.empty_like(I)
     with torch.cuda.device(I.device):
-        err = cuda_build.library().cvst_cost_volume(
-            I.data_ptr(), Jw.data_ptr(), fx.data_ptr(), fy.data_ptr(), cmin.data_ptr(),
-            B, H, W, radius, patch, cuda_build.current_stream(I.device),
-        )
-    cuda_build.check_launch(err, "cost_volume")
-    cuda_build.LAUNCHES["cost_volume"] += 1
+        for s, e in cuda_build.frame_spans(B):
+            err = cuda_build.library().cvst_cost_volume(
+                I[s:e].data_ptr(), Jw[s:e].data_ptr(), fx[s:e].data_ptr(), fy[s:e].data_ptr(),
+                cmin[s:e].data_ptr(), e - s, H, W, radius, patch, cuda_build.current_stream(I.device),
+            )
+            cuda_build.check_launch(err, "cost_volume")
+            cuda_build.LAUNCHES["cost_volume"] += 1
     return fx, fy, cmin

@@ -56,15 +56,16 @@ def extract_windows(stack: torch.Tensor, corners: torch.Tensor, wext: int) -> to
             f"corners {tuple(corners.shape)} must be ({B}, F, 2) on {stack.device}"
         )
     F_ = corners.shape[1]
-    if not 1 <= B <= 65535 or F_ < 1 or not 1 <= wext <= 1024:
-        raise ValueError(f"K6 takes 1..65535 frames, F >= 1 and 1 <= wext <= 1024, got "
+    if B < 1 or F_ < 1 or not 1 <= wext <= 1024:
+        raise ValueError(f"K6 takes B >= 1 frames, F >= 1 and 1 <= wext <= 1024, got "
                          f"{B}, {F_}, {wext}")
     out = torch.empty((B, F_, wext, wext), dtype=torch.float32, device=stack.device)
     with torch.cuda.device(stack.device):
-        err = cuda_build.library().cvst_extract_windows(
-            stack.data_ptr(), corners.data_ptr(), out.data_ptr(),
-            B, H, W, F_, wext, cuda_build.current_stream(stack.device),
-        )
-    cuda_build.check_launch(err, "extract_windows")
-    cuda_build.LAUNCHES["extract_windows"] += 1
+        for s, e in cuda_build.frame_spans(B):
+            err = cuda_build.library().cvst_extract_windows(
+                stack[s:e].data_ptr(), corners[s:e].data_ptr(), out[s:e].data_ptr(),
+                e - s, H, W, F_, wext, cuda_build.current_stream(stack.device),
+            )
+            cuda_build.check_launch(err, "extract_windows")
+            cuda_build.LAUNCHES["extract_windows"] += 1
     return out

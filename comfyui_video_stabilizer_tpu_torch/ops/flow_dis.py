@@ -6,14 +6,17 @@ flow_dis.py`` (``dis_flow_fit`` -> ``_dis_flow_fit_fused`` ->
 global similarity pre-warp of J, the residual cost volume (K2, through
 ops/cv_cuda.py), a dense one-step Lucas-Kanade blended in where the
 residual is sub-pixel, confidence-weighted densification, and an IRLS
-similarity fit that seeds the next level.  The result is the finest
-level's flow sampled on the working-resolution fit grid.
+similarity (or, for perspective, homography) fit that seeds the next
+level.  The result is the finest level's flow sampled on the
+working-resolution fit grid.
 
 The arithmetic follows the reference op for op, including the
 separable masked-shift pre-warp (not exact bilinear) of
-``_warp_similarity_device``.  The dense ``dis_flow`` API, its half-res
-polish, the flow upsampling and the homography fit are not ported yet
-(ROADMAP.md, slices 1 and 5).
+``_warp_similarity_device``, which honours the projective row.  The
+homography fit's 8x8 normal equations are solved by
+``torch.linalg.solve`` (LAPACK on the CPU, cuSOLVER on the card).  The
+dense ``dis_flow`` API, its half-res polish and the flow upsampling
+belong to the TV-L1 / phase fallback chain, which is not ported.
 """
 
 from __future__ import annotations
@@ -201,6 +204,75 @@ def _fit_similarity_dense(flow: torch.Tensor, conf: torch.Tensor, stride: int) -
     return M
 
 
+def _fit_homography_dense(flow: torch.Tensor, conf: torch.Tensor, stride: int) -> torch.Tensor:
+    """Weighted IRLS homography fit: flow (B,H,W,2) -> (B,3,3).
+
+    DLT normal equations on coordinates centred at the frame middle and
+    scaled to ~[-1, 1], three solves with Cauchy reweighting between
+    them, as the similarity fit.
+    """
+    B, H, W = flow.shape[:3]
+    dev = flow.device
+    ys = torch.arange(0, H, stride, dtype=torch.float32, device=dev)
+    xs = torch.arange(0, W, stride, dtype=torch.float32, device=dev)
+    gy, gx = torch.meshgrid(ys, xs, indexing="ij")
+    p = torch.stack([gx.reshape(-1), gy.reshape(-1)], dim=-1)        # (P, 2)
+    f = flow[:, ::stride, ::stride].reshape(B, -1, 2)
+    w0 = conf[:, ::stride, ::stride].reshape(B, -1)
+    margin = float(min(8, min(H, W) // 8))
+    inside = (
+        (p[:, 0] >= margin) & (p[:, 0] <= W - 1 - margin)
+        & (p[:, 1] >= margin) & (p[:, 1] <= H - 1 - margin)
+    ).to(torch.float32)
+    w0 = w0 * inside[None]
+    q = p[None] + f                                                  # (B, P, 2)
+
+    cx, cy = (W - 1) * 0.5, (H - 1) * 0.5
+    s = 2.0 / float(max(H, W))
+    f32 = dict(dtype=torch.float32, device=dev)
+    T = torch.tensor([[s, 0.0, -s * cx], [0.0, s, -s * cy], [0.0, 0.0, 1.0]], **f32)
+    Tinv = torch.tensor([[1.0 / s, 0.0, cx], [0.0, 1.0 / s, cy], [0.0, 0.0, 1.0]], **f32)
+    centre = torch.tensor([cx, cy], **f32)
+    pn = (p - centre) * s                                            # (P, 2)
+    qn = (q - centre) * s                                            # (B, P, 2)
+    px, py = pn[None, :, 0].expand(B, -1), pn[None, :, 1].expand(B, -1)
+    ones, zeros = torch.ones_like(px), torch.zeros_like(px)
+    eye8 = torch.eye(8, **f32)
+
+    def solve(weight):
+        qx, qy = qn[..., 0], qn[..., 1]
+        # rows for x': [x, y, 1, 0, 0, 0, -x qx, -y qx] . p8 = qx
+        A1 = torch.stack([px, py, ones, zeros, zeros, zeros, -px * qx, -py * qx], dim=-1)
+        A2 = torch.stack([zeros, zeros, zeros, px, py, ones, -px * qy, -py * qy], dim=-1)
+        A = torch.cat([A1, A2], dim=1)                               # (B, 2P, 8)
+        rhs = torch.cat([qx, qy], dim=1)                             # (B, 2P)
+        ww = torch.cat([weight, weight], dim=1)
+        AtA = torch.einsum("bpi,bp,bpj->bij", A, ww, A) + 1e-6 * eye8
+        Atb = torch.einsum("bpi,bp,bp->bi", A, ww, rhs)
+        sol = torch.linalg.solve_ex(AtA, Atb[..., None], check_errors=False)[0][..., 0]
+        return torch.cat([sol, torch.ones((B, 1), **f32)], dim=1).reshape(B, 3, 3)
+
+    def col(i, j):
+        return Hn[:, i, j][:, None]
+
+    weight = w0
+    Hn = solve(weight)
+    for _ in range(2):
+        # residuals in normalized space -> pixel units via 1/s
+        den = col(2, 0) * px + col(2, 1) * py + col(2, 2)
+        den = torch.where(torch.abs(den) > 1e-9, den, 1.0)
+        prx = (col(0, 0) * px + col(0, 1) * py + col(0, 2)) / den
+        pry = (col(1, 0) * px + col(1, 1) * py + col(1, 2)) / den
+        res = torch.sqrt((prx - qn[..., 0]) ** 2 + (pry - qn[..., 1]) ** 2) * (1.0 / s)
+        med = _approx_median(res)
+        scale = torch.clamp(2.0 * med, min=0.5)
+        weight = w0 * (1.0 / (1.0 + (res / scale) ** 2))            # Cauchy
+        Hn = solve(weight)
+
+    M = Tinv @ Hn @ T
+    return M / M[:, 2:3, 2:3]
+
+
 # ---------------------------------------------------------------------------
 # Matrix warps of the level grays and flows
 # ---------------------------------------------------------------------------
@@ -302,18 +374,27 @@ def _scale_up_matrix(M: torch.Tensor) -> torch.Tensor:
 
 
 def _guarded_fit(flow_level, conf, M_prev, model):
-    """Fit, but keep the previous estimate where the fit is insane."""
-    if model != "similarity":
-        raise NotImplementedError(
-            "the homography pre-warp fit is not ported yet (ROADMAP.md, slice 1: perspective)"
-        )
+    """Fit, but keep the previous estimate where the fit is insane.
+
+    The homography fit must also keep its projective terms within
+    2 / level size: more bends the pre-warp than camera motion between
+    adjacent frames can.
+    """
     hl, wl = flow_level.shape[1], flow_level.shape[2]
-    Mn = _fit_similarity_dense(flow_level, conf, 4)
+    if model == "homography":
+        Mn = _fit_homography_dense(flow_level, conf, 4)
+        proj_ok = (torch.abs(Mn[:, 2, 0]) < 2.0 / wl) & (torch.abs(Mn[:, 2, 1]) < 2.0 / hl)
+    elif model == "similarity":
+        Mn = _fit_similarity_dense(flow_level, conf, 4)
+        proj_ok = torch.ones(Mn.shape[0], dtype=torch.bool, device=Mn.device)
+    else:
+        raise ValueError(f"Unknown pre-warp model {model!r}.")
     sc2 = Mn[:, 0, 0] ** 2 + Mn[:, 1, 0] ** 2
     ok = (
         torch.isfinite(Mn).all(dim=-1).all(dim=-1)
         & (sc2 > 0.25) & (sc2 < 4.0)
         & (torch.abs(Mn[:, 0, 2]) < wl) & (torch.abs(Mn[:, 1, 2]) < hl)
+        & proj_ok
     )
     return torch.where(ok[:, None, None], Mn, M_prev)
 

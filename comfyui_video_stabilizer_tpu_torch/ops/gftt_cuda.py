@@ -84,13 +84,14 @@ def gftt_scores_gray(g: torch.Tensor) -> torch.Tensor:
         return gftt_gray_plain(g)
     cuda_build.require_cuda_tensor("g", g, torch.float32, 3)
     B, H, W = g.shape
-    if not 1 <= B <= 65535 or H < 1 or W < 1:
-        raise ValueError(f"K4 takes 1..65535 frames of at least 1x1, got {tuple(g.shape)}")
+    if B < 1 or H < 1 or W < 1:
+        raise ValueError(f"K4 takes at least one frame of at least 1x1, got {tuple(g.shape)}")
     out = torch.empty_like(g)
     with torch.cuda.device(g.device):
-        err = cuda_build.library().cvst_gftt_gray(
-            g.data_ptr(), out.data_ptr(), B, H, W, cuda_build.current_stream(g.device),
-        )
-    cuda_build.check_launch(err, "gftt")
-    cuda_build.LAUNCHES["gftt"] += 1
+        for s, e in cuda_build.frame_spans(B):
+            err = cuda_build.library().cvst_gftt_gray(
+                g[s:e].data_ptr(), out[s:e].data_ptr(), e - s, H, W, cuda_build.current_stream(g.device),
+            )
+            cuda_build.check_launch(err, "gftt")
+            cuda_build.LAUNCHES["gftt"] += 1
     return out

@@ -1,16 +1,27 @@
-"""Batched RANSAC similarity fits, median shifts and residuals (PyTorch).
+"""Batched RANSAC fits, median shifts and residuals (PyTorch).
 
-Counterpart of the similarity branch of
-``comfyui_video_stabilizer_tpu/ops/ransac.py``: K parallel 2-point
-hypotheses per pair, drawn over the ranks of the valid points with the
-same threefry bits as ``jax.random`` (ops/prng.py), scored on the first
-2048 points in chunks of 64 hypotheses, then two least-squares refits
-on the winner's inliers.  The JAX package vmaps one pair at a time;
-here every tensor carries a leading pair axis and hypotheses form a
-second one.
+Counterpart of ``comfyui_video_stabilizer_tpu/ops/ransac.py``: K
+parallel minimal-set hypotheses per pair (2-point similarity or 4-point
+homography), drawn over the ranks of the valid points with the same
+threefry bits as ``jax.random`` (ops/prng.py), scored on the first 2048
+points in chunks of 64 hypotheses, then two least-squares refits on the
+winner's inliers (similarity in closed form, homography by the
+normalized DLT's smallest eigenvector).  The JAX package vmaps one pair
+at a time; here every tensor carries a leading pair axis and hypotheses
+form a second one.
 
-The 4-point homography and its DLT refit are not ported yet
-(ROADMAP.md, slice 1: perspective).
+Draws are with replacement, so a 4-point draw may repeat a point: its
+8x8 system is singular but for the 1e-12 ridge both packages add, and
+whether LAPACK's LU then meets an exactly zero pivot is a matter of
+rounding.  JAX turns such a pivot into NaN, which ``hyp_ok`` masks, on
+most repeated draws but not all (4-11 % of them come out finite, and
+score no inliers); the port rejects every repeated 4-point draw
+outright, so its CPU and CUDA paths agree on ``hyp_ok``.  The 4-point
+solve is ``torch.linalg.solve_ex`` without error checks, which neither
+raises on a singular system, as ``torch.linalg.solve`` would, nor syncs
+the card to check.  On the card the batched solve and ``eigh`` go
+through cuSOLVER, not LAPACK, so hypotheses and refits agree with the
+CPU to rounding, not bitwise.
 """
 
 from __future__ import annotations
@@ -20,6 +31,7 @@ import torch
 from . import prng
 
 SIM_THRESH = 2.0     # px reprojection, estimateAffinePartial2D default in reference
+PERSP_THRESH = 2.5   # px reprojection, findHomography call in reference
 DEFAULT_HYPOTHESES = 512
 _CHUNK = 64
 _N_SCORE = 2048
@@ -47,6 +59,22 @@ def _solve_similarity_2pt(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     return _similarity_matrices(a, b, tx, ty)
 
 
+def _solve_homography_4pt(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """p, q (..., 4, 2) -> (..., 3, 3) homography with h22 = 1 (8x8 solve)."""
+    x, y = p[..., 0], p[..., 1]
+    u, v = q[..., 0], q[..., 1]
+    zeros = torch.zeros_like(x)
+    ones = torch.ones_like(x)
+    rows_u = torch.stack([x, y, ones, zeros, zeros, zeros, -x * u, -y * u], dim=-1)
+    rows_v = torch.stack([zeros, zeros, zeros, x, y, ones, -x * v, -y * v], dim=-1)
+    A = torch.cat([rows_u, rows_v], dim=-2)                          # (..., 8, 8)
+    b = torch.cat([u, v], dim=-1)[..., None]                         # (..., 8, 1)
+    eye = torch.eye(8, dtype=A.dtype, device=A.device)
+    h, _ = torch.linalg.solve_ex(A + 1e-12 * eye, b, check_errors=False)
+    H = torch.cat([h[..., 0], torch.ones_like(h[..., :1, 0])], dim=-1)
+    return H.reshape(*H.shape[:-1], 3, 3)
+
+
 def _apply_homography(H: torch.Tensor, x: torch.Tensor, y: torch.Tensor):
     """H (..., 3, 3) against coordinates x, y broadcast to (..., P)."""
     h = [[H[..., i, j, None] for j in range(3)] for i in range(3)]
@@ -72,20 +100,70 @@ def _refit_similarity(p: torch.Tensor, q: torch.Tensor, weight: torch.Tensor) ->
     return _similarity_matrices(a, b, tx, ty)
 
 
+def _refit_homography(p: torch.Tensor, q: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """Weighted normalized DLT per pair via the smallest eigenvector of
+    A^T A: p, q (B, P, 2), weight (B, P) -> (B, 3, 3).
+
+    A pair whose normal matrix is not finite (a NaN sample: its zero
+    weight does not cancel it, as in the JAX package) gets NaN, which
+    the caller's finiteness guard rejects; ``eigh`` itself only sees
+    finite matrices, since it raises where LAPACK fails to converge.
+    """
+    B = p.shape[0]
+    wsum = torch.clamp(weight.sum(-1), min=1e-6)                     # (B,)
+    pm = (p * weight[..., None]).sum(1) / wsum[:, None]
+    qm = (q * weight[..., None]).sum(1) / wsum[:, None]
+    ps = torch.sqrt(torch.clamp((((p - pm[:, None]) ** 2).sum(-1) * weight).sum(-1) / wsum, min=1e-12))
+    qs = torch.sqrt(torch.clamp((((q - qm[:, None]) ** 2).sum(-1) * weight).sum(-1) / wsum, min=1e-12))
+    pn = (p - pm[:, None]) / ps[:, None, None]
+    qn = (q - qm[:, None]) / qs[:, None, None]
+    x, y = pn[..., 0], pn[..., 1]
+    u, v = qn[..., 0], qn[..., 1]
+    zeros = torch.zeros_like(x)
+    ones = torch.ones_like(x)
+    r1 = torch.stack([x, y, ones, zeros, zeros, zeros, -x * u, -y * u, -u], dim=-1)
+    r2 = torch.stack([zeros, zeros, zeros, x, y, ones, -x * v, -y * v, -v], dim=-1)
+    A = torch.cat([r1 * weight[..., None], r2 * weight[..., None]], dim=1)   # (B, 2P, 9)
+    ata = A.transpose(1, 2) @ A
+    bad = ~_all_finite(ata)
+    eye9 = torch.eye(9, dtype=ata.dtype, device=ata.device)
+    _, vecs = torch.linalg.eigh(torch.where(bad[:, None, None], eye9, ata))
+    Hn = vecs[..., 0].reshape(B, 3, 3)
+    zero, one = torch.zeros_like(ps), torch.ones_like(ps)
+    Tp = torch.stack([
+        torch.stack([1.0 / ps, zero, -pm[:, 0] / ps], -1),
+        torch.stack([zero, 1.0 / ps, -pm[:, 1] / ps], -1),
+        torch.stack([zero, zero, one], -1),
+    ], -2)
+    Tq_inv = torch.stack([
+        torch.stack([qs, zero, qm[:, 0]], -1),
+        torch.stack([zero, qs, qm[:, 1]], -1),
+        torch.stack([zero, zero, one], -1),
+    ], -2)
+    H = Tq_inv @ Hn @ Tp
+    h22 = H[:, 2, 2]
+    H = H / torch.where(torch.abs(h22) < 1e-12, 1e-12, h22)[:, None, None]
+    return torch.where(bad[:, None, None], float("nan"), H)
+
+
 def _all_finite(H: torch.Tensor) -> torch.Tensor:
     return torch.isfinite(H).all(dim=-1).all(dim=-1)
 
 
-def ransac_similarity(keys: torch.Tensor, p: torch.Tensor, q: torch.Tensor,
-                      valid: torch.Tensor, n_hyp: int = DEFAULT_HYPOTHESES,
-                      thresh: float = SIM_THRESH):
-    """RANSAC similarity for every pair.
+_MODELS = {
+    "similarity": (2, _solve_similarity_2pt, _refit_similarity),
+    "perspective": (4, _solve_homography_4pt, _refit_homography),
+}
 
-    keys (B, 2) threefry keys; p, q (B, P, 2) float32; valid (B, P) bool.
-    Returns (matrices (B, 3, 3) float32, inlier counts (B,), valid counts (B,)).
-    """
+
+def draw_hypotheses(keys: torch.Tensor, p: torch.Tensor, q: torch.Tensor, valid: torch.Tensor,
+                    model: str, n_hyp: int):
+    """The K minimal-set hypotheses of every pair: (hyps (B, K, 3, 3) with
+    the identity where rejected, hyp_ok (B, K)).  A hypothesis is kept
+    when all its draws are valid (and, for a homography, distinct), the
+    pair has at least m valid points and the solve is finite."""
     B, P = valid.shape
-    m = 2
+    m, solver, _ = _MODELS[model]
     dev = p.device
     vcount = valid.sum(1)                                          # (B,) int64
 
@@ -106,14 +184,23 @@ def ransac_similarity(keys: torch.Tensor, p: torch.Tensor, q: torch.Tensor,
     qs = torch.gather(q, 1, idx.reshape(B, -1, 1).expand(-1, -1, 2)).reshape(B, n_hyp, m, 2)
     draw_ok = torch.gather(valid, 1, idx.reshape(B, -1)).reshape(B, n_hyp, m).all(-1)
     draw_ok = draw_ok & (vcount >= m)[:, None]
+    if model == "perspective":  # a repeated point: singular but for the ridge
+        draw_ok = draw_ok & ((idx[..., :, None] == idx[..., None, :]).sum((-1, -2)) == m)
 
-    hyps = _solve_similarity_2pt(ps, qs)                            # (B, K, 3, 3)
+    hyps = solver(ps, qs)                                           # (B, K, 3, 3)
     hyp_ok = draw_ok & _all_finite(hyps)
     eye = torch.eye(3, dtype=torch.float32, device=dev)
-    hyps = torch.where(hyp_ok[..., None, None], hyps, eye)
+    return torch.where(hyp_ok[..., None, None], hyps, eye), hyp_ok
 
+
+def score_hypotheses(hyps: torch.Tensor, hyp_ok: torch.Tensor, p: torch.Tensor, q: torch.Tensor,
+                     valid: torch.Tensor, thresh: float) -> torch.Tensor:
+    """Inlier counts (B, K') of each pair's hypotheses on its first 2048
+    points, in chunks of 64 (K' = K rounded down to whole chunks);
+    rejected hypotheses count 0."""
+    n_hyp = hyps.shape[1]
     thresh_sq = thresh * thresh
-    n_score = min(P, _N_SCORE)
+    n_score = min(p.shape[1], _N_SCORE)
     xs, ys = p[:, None, :n_score, 0], p[:, None, :n_score, 1]
     qx, qy = q[:, None, :n_score, 0], q[:, None, :n_score, 1]
     score_valid = valid[:, None, :n_score].to(torch.float32)
@@ -123,16 +210,29 @@ def ransac_similarity(keys: torch.Tensor, p: torch.Tensor, q: torch.Tensor,
         u_, v_ = _apply_homography(hyps[:, c * _CHUNK:(c + 1) * _CHUNK], xs, ys)
         err = (u_ - qx) ** 2 + (v_ - qy) ** 2
         counts.append(((err < thresh_sq) * score_valid).sum(-1))
-    counts = torch.cat(counts, 1) * hyp_ok[:, : n_chunks * _CHUNK].to(torch.float32)
+    return torch.cat(counts, 1) * hyp_ok[:, : n_chunks * _CHUNK].to(torch.float32)
 
+
+def ransac_fit(keys: torch.Tensor, p: torch.Tensor, q: torch.Tensor, valid: torch.Tensor,
+               model: str, n_hyp: int = DEFAULT_HYPOTHESES, thresh: float = SIM_THRESH):
+    """RANSAC fit of ``model`` ('similarity' or 'perspective') for every pair.
+
+    keys (B, 2) threefry keys; p, q (B, P, 2) float32; valid (B, P) bool.
+    Returns (matrices (B, 3, 3) float32, inlier counts (B,), valid counts (B,)).
+    """
+    B = valid.shape[0]
+    m, _, refit = _MODELS[model]
+    hyps, hyp_ok = draw_hypotheses(keys, p, q, valid, model, n_hyp)
+    counts = score_hypotheses(hyps, hyp_ok, p, q, valid, thresh)
     best = torch.argmax(counts, dim=1)                              # first maximum
-    H_best = hyps[torch.arange(B, device=dev), best]
+    H_best = hyps[torch.arange(B, device=p.device), best]
+    thresh_sq = thresh * thresh
 
     def refine(H):
         u_, v_ = _apply_homography(H, p[..., 0], p[..., 1])
         err = (u_ - q[..., 0]) ** 2 + (v_ - q[..., 1]) ** 2
         inlier = (err < thresh_sq) & valid
-        H2 = _refit_similarity(p, q, inlier.to(torch.float32))
+        H2 = refit(p, q, inlier.to(torch.float32))
         H2 = torch.where(_all_finite(H2)[:, None, None], H2, H)
         return H2, inlier
 
@@ -140,7 +240,7 @@ def ransac_similarity(keys: torch.Tensor, p: torch.Tensor, q: torch.Tensor,
     H2, inliers = refine(H1)
     n_in = inliers.sum(1)
     H2 = torch.where((n_in >= m)[:, None, None], H2, H_best)
-    return H2, n_in, vcount
+    return H2, n_in, valid.sum(1)
 
 
 def masked_median_shift(prev_pts: torch.Tensor, curr_pts: torch.Tensor,

@@ -10,6 +10,12 @@ The luma dot is evaluated as the fused multiply-add chain that XLA's
 CPU backend emits for the JAX reference: products are exact in float64
 and each step is rounded once to float32.  With a different rounding
 one pixel in a few thousand lands one grey level off after the floor.
+
+``gray_for_estimation`` takes the clip in chunks of 16 frames: each is
+moved to the estimation device (an upload when the clip is held on the
+host because it streams), turned to gray and resized there; only the
+small grays stay on the device.  Every path computes the same 16-frame
+chunks, so a streamed clip gets the grays of an uploaded one bitwise.
 """
 
 from __future__ import annotations
@@ -21,8 +27,9 @@ import torch
 
 _LUMA = np.array([0.299, 0.587, 0.114], np.float32)
 
-# Frames per gray+pool chunk: bounds the float64 temporaries of the
-# luma chain (~1.3 GB for 80 frames of 1080p unchunked).
+# Frames per gray chunk: bounds the float64 temporaries of the luma
+# chain (~1.3 GB for 80 frames of 1080p unchunked) and the upload of a
+# clip held on the host.
 _GRAY_CHUNK_FRAMES = 16
 
 
@@ -69,17 +76,15 @@ def box_pool(stack: torch.Tensor, fy: int, fx: int) -> torch.Tensor:
     return stack.reshape(n, h // fy, fy, w // fx, fx).mean(dim=(2, 4))
 
 
-def gray_pool(frames: torch.Tensor, fy: int, fx: int, quantize: bool = True) -> torch.Tensor:
-    """Gray + integer-factor INTER_AREA, in frame chunks (no full-res gray clip)."""
-    parts = [
-        box_pool(make_gray(frames[s:s + _GRAY_CHUNK_FRAMES], quantize), fy, fx)
-        for s in range(0, frames.shape[0], _GRAY_CHUNK_FRAMES)
-    ]
-    return torch.cat(parts, dim=0)
+def _area_matrices(h: int, w: int, out_w: int, out_h: int, device: torch.device):
+    """The (out_h, h) row and (out_w, w) column INTER_AREA weights on ``device``."""
+    return (torch.as_tensor(area_weights(h, out_h), device=device),
+            torch.as_tensor(area_weights(w, out_w), device=device))
 
 
-def area_resize(stack: torch.Tensor, out_size: Tuple[int, int]) -> torch.Tensor:
-    """INTER_AREA downscale of an (N, H, W) stack to (w, h)."""
+def area_resize(stack: torch.Tensor, out_size: Tuple[int, int], weights=None) -> torch.Tensor:
+    """INTER_AREA downscale of an (N, H, W) stack to (w, h).  ``weights``
+    are :func:`_area_matrices`' for these sizes, made here when None."""
     out_w, out_h = int(out_size[0]), int(out_size[1])
     n, h, w = stack.shape
     stack = stack.to(torch.float32)
@@ -87,8 +92,7 @@ def area_resize(stack: torch.Tensor, out_size: Tuple[int, int]) -> torch.Tensor:
         return stack
     if h % out_h == 0 and w % out_w == 0:
         return box_pool(stack, h // out_h, w // out_w)
-    wr = torch.as_tensor(area_weights(h, out_h), device=stack.device)
-    wc = torch.as_tensor(area_weights(w, out_w), device=stack.device)
+    wr, wc = weights if weights is not None else _area_matrices(h, w, out_w, out_h, stack.device)
     return torch.matmul(torch.matmul(wr, stack), wc.T)
 
 
@@ -110,21 +114,36 @@ def gray_for_estimation(
     working_size: Tuple[int, int] | None,
     quantize: bool = True,
     decimation: int = 1,
+    device: torch.device | str | None = None,
 ) -> torch.Tensor:
-    """Gray at the working size (divided by ``decimation``), on the frames' device.
+    """Gray at the working size (divided by ``decimation``) on ``device``
+    (default: the frames' own), taken 16 frames at a time.
 
     The caller must have checked :func:`can_decimate` for
     ``decimation`` > 1.
     """
+    dev = frames.device if device is None else torch.device(device)
     h_in, w_in = int(frames.shape[1]), int(frames.shape[2])
     if decimation > 1:
         if not can_decimate(w_in, h_in, working_size, decimation):
             raise ValueError(f"decimation {decimation} does not divide the working size")
         tw, th = working_size if working_size is not None else (w_in, h_in)
         working_size = (tw // decimation, th // decimation)
-    if working_size is None:
-        return make_gray(frames, quantize)
-    out_w, out_h = int(working_size[0]), int(working_size[1])
-    if frames.ndim == 4 and frames.shape[-1] == 3 and h_in % out_h == 0 and w_in % out_w == 0:
-        return gray_pool(frames, h_in // out_h, w_in // out_w, quantize)
-    return area_resize(make_gray(frames, quantize), working_size)
+
+    weights = None
+    if working_size is not None:
+        out_w, out_h = int(working_size[0]), int(working_size[1])
+        if h_in % out_h or w_in % out_w:
+            # once a clip, not once a chunk: area_weights loops on the host
+            weights = _area_matrices(h_in, w_in, out_w, out_h, dev)
+
+    def one(chunk: torch.Tensor) -> torch.Tensor:
+        gray = make_gray(chunk, quantize)
+        if working_size is None:
+            return gray
+        if weights is None and chunk.ndim == 4 and chunk.shape[-1] == 3:
+            return box_pool(gray, h_in // out_h, w_in // out_w)
+        return area_resize(gray, working_size, weights)
+
+    parts = [one(frames[s:s + _GRAY_CHUNK_FRAMES].to(dev)) for s in range(0, frames.shape[0], _GRAY_CHUNK_FRAMES)]
+    return torch.cat(parts, dim=0)

@@ -22,9 +22,15 @@ mean of S sample warps) with its soft mask (1 - mean nearest coverage
 over the samples, small values zeroed) in the same launch;
 ``warp_blur_mask_plain`` is its plain version.  The padding mask of the
 plain warp (1 - nearest coverage) and its per-frame ratios stay plain
-PyTorch, as they are XLA in the JAX package.  Streaming clips through
-time chunks is not ported: the engines raise past the device budget
-(``check_fits_device``).
+PyTorch, as they are XLA in the JAX package.
+
+Clips whose live set on the device exceeds ``CHUNK_BUDGET_BYTES``
+stream through time chunks, as in the JAX package: ``warp_clip``,
+``warp_clip_with_mask`` and ``warp_clip_blur`` then upload each chunk
+of frames to ``device``, warp it there and copy the result into a host
+(CPU) tensor, so a streamed result lies on the host while an unstreamed
+one stays on the device.  Every frame is computed from its own inputs
+only, so a streamed frame is bitwise the unstreamed one.
 """
 
 from __future__ import annotations
@@ -41,15 +47,18 @@ INTERP_CODES = {"bilinear": 0, "bicubic": 1, "nearest": 2}
 
 _DISP_LIM = 1.0e6  # px; beyond this everything is out of frame anyway
 
-# Device-memory ceiling for one clip.  Streaming clips through time
-# chunks is not ported yet, so a whole clip lives on the device: input
-# and output frames (C float32 values a pixel each) plus the float32
-# padding mask, 58,060,800 bytes a frame for 1080p RGB.  With 72 GiB of
-# an 80 GB H100 given to that live set (the rest covers the estimation
-# pyramids, the mask's temporaries and the allocator's slack), a 1080p
-# RGB clip stops fitting at 1,332 frames; beyond the ceiling the engine
-# raises instead of streaming.
-DEVICE_CLIP_BUDGET_BYTES = 72 << 30
+# Device-memory budget of the warp stage.  Its live set per frame is
+# the input and output frames (C float32 values a pixel each) plus the
+# float32 padding mask: clip_device_bytes(1, ...), 58,060,800 bytes for
+# 1080p RGB.  An H100 has 80 GB (79.2 GiB usable); 64 GiB go to that
+# live set and the rest to what does not grow with the chunk -- the
+# estimation grays and pyramids (0.6 GB for 300 frames at 960x540), the
+# mask's coordinate temporaries (~1.6 GB, _MASK_CHUNK_PIXELS) and the
+# allocator's slack.  A clip whose live set exceeds the budget streams
+# in chunks of CHUNK_BUDGET_BYTES // clip_device_bytes(1, ...) frames:
+# a 1080p RGB clip beyond 1,183 frames, a 4K one beyond 295.  A module
+# constant, so a test can lower it.
+CHUNK_BUDGET_BYTES = 64 << 30
 
 # Padding masks are computed in frame chunks of at most this many
 # pixels, bounding the coordinate temporaries (~12 float32 fields).
@@ -57,21 +66,18 @@ _MASK_CHUNK_PIXELS = 1 << 25
 
 
 def clip_device_bytes(n: int, in_h: int, in_w: int, out_h: int, out_w: int, c: int = 3) -> int:
+    """Bytes of n frames' warp-stage live set: input, output and mask."""
     return 4 * n * (in_h * in_w * c + out_h * out_w * (c + 1))
 
 
-def check_fits_device(n: int, in_h: int, in_w: int, out_h: int, out_w: int, c: int = 3) -> None:
-    """Raise for clips whose frames, output and masks exceed the budget."""
-    need = clip_device_bytes(n, in_h, in_w, out_h, out_w, c)
-    if need > DEVICE_CLIP_BUDGET_BYTES:
-        per_frame = clip_device_bytes(1, in_h, in_w, out_h, out_w, c)
-        raise MemoryError(
-            f"clip of {n} frames needs {need} bytes of device memory "
-            f"(budget {DEVICE_CLIP_BUDGET_BYTES}, at most "
-            f"{DEVICE_CLIP_BUDGET_BYTES // per_frame} frames of this size); "
-            "streaming long clips through time chunks is not ported yet "
-            "(ROADMAP.md, slice 1: streaming)"
-        )
+def _chunk_frames(n: int, in_h: int, in_w: int, out_h: int, out_w: int, c: int = 3) -> int:
+    per_frame = clip_device_bytes(1, in_h, in_w, out_h, out_w, c)
+    return max(1, min(n, CHUNK_BUDGET_BYTES // max(per_frame, 1)))
+
+
+def will_stream(n: int, in_h: int, in_w: int, out_h: int, out_w: int, c: int = 3) -> bool:
+    """True when the warp of this clip streams through host time chunks."""
+    return _chunk_frames(n, in_h, in_w, out_h, out_w, c) < n
 
 
 # ---------------------------------------------------------------------------
@@ -232,19 +238,20 @@ def warp_frames(frames: torch.Tensor, coeffs: torch.Tensor, border: torch.Tensor
     if coeffs.shape != (n, 8) or border.shape != (c,):
         raise ValueError(f"coeffs {tuple(coeffs.shape)} / border {tuple(border.shape)} "
                          f"do not match {n} frames of {c} channels")
-    if not 1 <= c <= 4 or not 1 <= n <= 65535:
-        raise ValueError(f"K1 takes 1..4 channels and 1..65535 frames, got {c} and {n}")
+    if not 1 <= c <= 4 or n < 1:
+        raise ValueError(f"K1 takes 1..4 channels and at least one frame, got {c} and {n}")
     if coeffs.device != frames.device or border.device != frames.device:
         raise ValueError("frames, coeffs and border must be on one device")
     out = torch.empty((n, out_h, out_w, c), dtype=torch.float32, device=frames.device)
     with torch.cuda.device(frames.device):
-        err = cuda_build.library().cvst_warp(
-            frames.data_ptr(), coeffs.data_ptr(), border.data_ptr(), out.data_ptr(),
-            n, h, w, c, out_h, out_w, INTERP_CODES[interp],
-            cuda_build.current_stream(frames.device),
-        )
-    cuda_build.check_launch(err, "warp")
-    cuda_build.LAUNCHES["warp"] += 1
+        for s, e in cuda_build.frame_spans(n):
+            err = cuda_build.library().cvst_warp(
+                frames[s:e].data_ptr(), coeffs[s:e].data_ptr(), border.data_ptr(), out[s:e].data_ptr(),
+                e - s, h, w, c, out_h, out_w, INTERP_CODES[interp],
+                cuda_build.current_stream(frames.device),
+            )
+            cuda_build.check_launch(err, "warp")
+            cuda_build.LAUNCHES["warp"] += 1
     return out
 
 
@@ -287,8 +294,8 @@ def warp_blur_frames(frames: torch.Tensor, coeffs_s: torch.Tensor, border: torch
     if coeffs_s.shape != (n, s, 8) or border.shape != (c,):
         raise ValueError(f"coeffs_s {tuple(coeffs_s.shape)} / border {tuple(border.shape)} "
                          f"do not match {n} frames of {c} channels")
-    if not 1 <= c <= 4 or not 1 <= n <= 65535 or not 3 <= s <= 33:
-        raise ValueError(f"K3 takes 1..4 channels, 1..65535 frames and 3..33 samples, "
+    if not 1 <= c <= 4 or n < 1 or not 3 <= s <= 33:
+        raise ValueError(f"K3 takes 1..4 channels, at least one frame and 3..33 samples, "
                          f"got {c}, {n} and {s}")
     if coeffs_s.device != frames.device or border.device != frames.device:
         raise ValueError("frames, coeffs_s and border must be on one device")
@@ -299,14 +306,15 @@ def warp_blur_frames(frames: torch.Tensor, coeffs_s: torch.Tensor, border: torch
     out = torch.empty((n, out_h, out_w, c), dtype=torch.float32, device=frames.device)
     mask = torch.empty((n, out_h, out_w), dtype=torch.float32, device=frames.device) if with_mask else None
     with torch.cuda.device(frames.device):
-        err = cuda_build.library().cvst_warp_blur(
-            frames.data_ptr(), coeffs_s.data_ptr(), border.data_ptr(), out.data_ptr(),
-            None if mask is None else mask.data_ptr(), None if stats is None else stats.data_ptr(),
-            n, h, w, c, out_h, out_w, INTERP_CODES[interp], s,
-            cuda_build.current_stream(frames.device),
-        )
-    cuda_build.check_launch(err, "warp_blur")
-    cuda_build.LAUNCHES["warp_blur"] += 1
+        for a, e in cuda_build.frame_spans(n):
+            err = cuda_build.library().cvst_warp_blur(
+                frames[a:e].data_ptr(), coeffs_s[a:e].data_ptr(), border.data_ptr(), out[a:e].data_ptr(),
+                None if mask is None else mask[a:e].data_ptr(), None if stats is None else stats.data_ptr(),
+                e - a, h, w, c, out_h, out_w, INTERP_CODES[interp], s,
+                cuda_build.current_stream(frames.device),
+            )
+            cuda_build.check_launch(err, "warp_blur")
+            cuda_build.LAUNCHES["warp_blur"] += 1
     return out, mask
 
 
@@ -371,6 +379,29 @@ def coverage_mask(
     return cover
 
 
+def common_coverage(
+    matrices: np.ndarray,
+    in_size: Tuple[int, int],
+    out_size: Tuple[int, int],
+    device: torch.device | str,
+) -> torch.Tensor:
+    """AND of every frame's nearest coverage: float32 (out_h, out_w) on
+    ``device``, 1.0 where all frames cover the pixel (all ones for no
+    frames).  The minimum runs per mask chunk, so no (N, out_h, out_w)
+    stack is formed."""
+    in_w, in_h = int(in_size[0]), int(in_size[1])
+    out_w, out_h = int(out_size[0]), int(out_size[1])
+    coeffs = torch.as_tensor(
+        prepare_inverse_coeffs(matrices).astype(np.float32), device=device
+    )
+    common = torch.ones((out_h, out_w), dtype=torch.float32, device=device)
+    chunk = _mask_chunk(out_h, out_w)
+    for s in range(0, coeffs.shape[0], chunk):
+        inside = _inside(coeffs[s:s + chunk], out_h, out_w, in_h, in_w)
+        common = torch.minimum(common, inside.to(torch.float32).amin(dim=0))
+    return common
+
+
 def _coverage_mean(coeffs_s: torch.Tensor, out_h: int, out_w: int, in_h: int, in_w: int) -> torch.Tensor:
     """Mean nearest coverage over the shutter samples of (N, S, 8) coeffs.
 
@@ -398,30 +429,91 @@ def zero_small(mask: torch.Tensor) -> torch.Tensor:
 # Public API
 # ---------------------------------------------------------------------------
 
+def _border_tensor(border: Sequence[float] | float, c: int, device: torch.device) -> torch.Tensor:
+    return torch.as_tensor(np.broadcast_to(np.asarray(border, np.float32), (c,)).copy(), device=device)
+
+
+def _stream_chunks(frames: torch.Tensor, chunk: int, device: torch.device, run, shapes):
+    """Time-chunk streaming: for each chunk of ``chunk`` frames, upload it
+    to ``device``, call ``run(frames_chunk, start, end)`` for a tuple of
+    device tensors and copy each into a host tensor of (N, *shape)."""
+    n = frames.shape[0]
+    outs = [torch.empty((n, *shape), dtype=torch.float32) for shape in shapes]
+    for s in range(0, n, chunk):
+        e = min(n, s + chunk)
+        parts = run(frames[s:e].to(device, torch.float32).contiguous(), s, e)
+        for out, part in zip(outs, parts):
+            out[s:e].copy_(part)
+    return outs
+
+
 def warp_clip(
     frames: torch.Tensor,
     matrices: np.ndarray,
     out_size: Tuple[int, int],
     interp: Interp = "bilinear",
     border: Sequence[float] | float = (0.0, 0.0, 0.0),
+    device: torch.device | str | None = None,
 ) -> torch.Tensor:
     """Warp a whole clip: frames (N,H,W,C) by per-frame src->dst matrices.
 
-    ``out_size`` is (width, height), the cv2 convention.  The result
-    lies on the frames' device; matrices are host values.
+    ``out_size`` is (width, height), the cv2 convention; matrices are
+    host values.  The warp runs on ``device`` (default: the frames'
+    own), where the result stays -- unless the clip's live set exceeds
+    ``CHUNK_BUDGET_BYTES``: then it streams in time chunks and the
+    result is a host (CPU) tensor.
     """
     out_w, out_h = int(out_size[0]), int(out_size[1])
-    n, _, _, c = frames.shape
+    n, h, w, c = frames.shape
+    dev = frames.device if device is None else torch.device(device)
     if n == 0:
-        return torch.zeros((0, out_h, out_w, c), dtype=torch.float32, device=frames.device)
-    coeffs = torch.as_tensor(
-        prepare_inverse_coeffs(matrices).astype(np.float32), device=frames.device
-    )
-    border_arr = np.broadcast_to(np.asarray(border, np.float32), (c,))
-    return warp_frames(
-        frames.to(torch.float32).contiguous(), coeffs,
-        torch.as_tensor(border_arr.copy(), device=frames.device), out_h, out_w, interp,
-    )
+        return torch.zeros((0, out_h, out_w, c), dtype=torch.float32, device=dev)
+    coeffs = prepare_inverse_coeffs(matrices).astype(np.float32)
+    border_t = _border_tensor(border, c, dev)
+
+    def run(fr, s, e):
+        return (warp_frames(fr, torch.as_tensor(coeffs[s:e], device=dev), border_t, out_h, out_w, interp),)
+
+    chunk = _chunk_frames(n, h, w, out_h, out_w, c)
+    if chunk >= n:
+        return run(frames.to(dev, torch.float32).contiguous(), 0, n)[0]
+    return _stream_chunks(frames, chunk, dev, run, [(out_h, out_w, c)])[0]
+
+
+def warp_clip_with_mask(
+    frames: torch.Tensor,
+    matrices: np.ndarray,
+    out_size: Tuple[int, int],
+    interp: Interp = "bilinear",
+    border: Sequence[float] | float = (0.0, 0.0, 0.0),
+    device: torch.device | str | None = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`warp_clip` with the padding masks and their per-frame ratios
+    (:func:`padding_mask_stats`): ``(frames, masks, ratios)``.
+
+    Unstreamed, all three stay on ``device`` and the masks are queued
+    before the frame warp, so a caller that fetches the ratios waits for
+    the mask pass only.  Streamed, each time chunk's masks and ratios are
+    computed beside its frames and all three are host tensors.
+    """
+    out_w, out_h = int(out_size[0]), int(out_size[1])
+    n, h, w, c = frames.shape
+    dev = frames.device if device is None else torch.device(device)
+    coeffs = prepare_inverse_coeffs(matrices).astype(np.float32)
+    border_t = _border_tensor(border, c, dev)
+    mats = np.asarray(matrices, np.float64).reshape(n, 3, 3)
+
+    def run(fr, s, e):
+        masks, ratios = padding_mask_stats(mats[s:e], (w, h), (out_w, out_h), dev)
+        coeffs_t = torch.as_tensor(coeffs[s:e], device=dev)
+        return masks, ratios, warp_frames(fr, coeffs_t, border_t, out_h, out_w, interp)
+
+    chunk = _chunk_frames(n, h, w, out_h, out_w, c)
+    if chunk >= n:
+        masks, ratios, warped = run(frames.to(dev, torch.float32).contiguous(), 0, n)
+    else:
+        masks, ratios, warped = _stream_chunks(frames, chunk, dev, run, [(out_h, out_w), (), (out_h, out_w, c)])
+    return warped, masks, ratios
 
 
 def warp_clip_blur(
@@ -431,19 +523,22 @@ def warp_clip_blur(
     interp: Interp = "bilinear",
     border: Sequence[float] | float = (0.0, 0.0, 0.0),
     with_mask: bool = True,
+    device: torch.device | str | None = None,
 ) -> Tuple[torch.Tensor, torch.Tensor | None]:
     """Shutter-sampled motion blur: the mean of S warps per frame.
 
     ``sample_matrices`` has shape (N, S, 3, 3).  The warp and the soft
     mask (1 - mean coverage, small values zeroed) go through
     :func:`warp_blur_frames`: one K3 launch on a CUDA tensor, which reads
-    the frames once, never replicated S-fold.  Both lie on the frames'
-    device.
+    the frames once, never replicated S-fold.  Both run on ``device``
+    (default: the frames' own) and stay there, unless the clip streams
+    through time chunks as in :func:`warp_clip`; then both are host
+    tensors.
     """
     n, s = sample_matrices.shape[:2]
     out_w, out_h = int(out_size[0]), int(out_size[1])
-    c = frames.shape[-1]
-    dev = frames.device
+    _, h, w, c = frames.shape
+    dev = frames.device if device is None else torch.device(device)
     if n == 0:
         empty = torch.zeros((0, out_h, out_w, c), dtype=torch.float32, device=dev)
         mask = torch.zeros((0, out_h, out_w), dtype=torch.float32, device=dev) if with_mask else None
@@ -451,10 +546,18 @@ def warp_clip_blur(
     # one (N*S)-coefficient host pass feeds both the warp and the mask
     sample_coeffs = prepare_inverse_coeffs(
         np.asarray(sample_matrices, np.float64).reshape(n * s, 3, 3)
-    ).reshape(n, s, 8)
-    coeffs_s = torch.as_tensor(sample_coeffs.astype(np.float32), device=dev)
-    border_arr = np.broadcast_to(np.asarray(border, np.float32), (c,))
-    return warp_blur_frames(
-        frames.to(torch.float32).contiguous(), coeffs_s,
-        torch.as_tensor(border_arr.copy(), device=dev), out_h, out_w, interp, with_mask,
-    )
+    ).reshape(n, s, 8).astype(np.float32)
+    border_t = _border_tensor(border, c, dev)
+
+    def run(fr, a, e):
+        out, mask = warp_blur_frames(fr, torch.as_tensor(sample_coeffs[a:e], device=dev), border_t,
+                                     out_h, out_w, interp, with_mask)
+        return (out,) if mask is None else (out, mask)
+
+    chunk = _chunk_frames(n, h, w, out_h, out_w, c)
+    if chunk >= n:
+        parts = run(frames.to(dev, torch.float32).contiguous(), 0, n)
+    else:
+        shapes = [(out_h, out_w, c)] + ([(out_h, out_w)] if with_mask else [])
+        parts = _stream_chunks(frames, chunk, dev, run, shapes)
+    return parts[0], (parts[1] if with_mask else None)

@@ -8,7 +8,10 @@ frame, grayscale expanded to 3 channels, extra channels truncated,
 uint8 scaled by 1/255, float frames whose max exceeds 1.5 scaled per
 frame); a CUDA tensor stays on its card.  Frame sequences take the same
 heuristics frame by frame, with the reference's per-frame layout rules
-(a leading singleton dim squeezed, 2-D frames given one channel).
+(a leading singleton dim squeezed, 2-D frames given one channel).  A
+clip whose warp would stream through time chunks on the device
+(``ops/warp.py::will_stream``) is normalized where it lies, on the
+host, and the engines upload it chunk by chunk.
 
 At the node boundary the output is what the JAX package emits: a
 contiguous float32 BHWC CPU tensor (the dict template refilled) and
@@ -23,6 +26,7 @@ from typing import Any, Dict, List, Literal
 import numpy as np
 import torch
 
+from ..ops.warp import will_stream
 from .device import resolve_device
 
 _FRAME_KEYS = ("frames", "images", "video")
@@ -135,8 +139,15 @@ def _normalize_sequence(frames_seq: Any, dev: torch.device):
     return torch.stack(frames).contiguous(), adapter
 
 
+def _streams(n: int, first_frame: Any) -> bool:
+    """True when n frames shaped like ``first_frame`` stream on the device."""
+    hwc, _, _ = _frame_layout(_as_tensor(first_frame)[0])
+    return will_stream(n, int(hwc.shape[0]), int(hwc.shape[1]), int(hwc.shape[0]), int(hwc.shape[1]), 3)
+
+
 def normalize_video_input(value: Any, device: str | torch.device = "cuda") -> VideoContext:
-    """Normalize any accepted video payload into a VideoContext on ``device``."""
+    """Normalize any accepted video payload into a VideoContext on ``device``
+    (on the host instead for a clip that streams)."""
     dev = resolve_device(device)
     if isinstance(value, dict):
         frames_seq = next((value[k] for k in _FRAME_KEYS if k in value), None)
@@ -154,10 +165,14 @@ def normalize_video_input(value: Any, device: str | torch.device = "cuda") -> Vi
     if not isinstance(frames_seq, (list, tuple)):
         frames_seq, origin = _as_tensor(frames_seq)
     if isinstance(frames_seq, torch.Tensor) and frames_seq.ndim == 4:
+        if frames_seq.shape[0] and _streams(frames_seq.shape[0], frames_seq[0]):
+            dev = frames_seq.device
         batch, adapter = _normalize_batch(frames_seq.to(dev), origin)
     else:
         if isinstance(frames_seq, torch.Tensor) and frames_seq.ndim < 3:
             raise ValueError("Video input must have at least 3 dimensions (frames, height, width).")
+        if len(frames_seq) and _streams(len(frames_seq), frames_seq[0]):
+            dev = torch.device("cpu")
         batch, adapter = _normalize_sequence(frames_seq, dev)
 
     if batch.shape[0] == 0:

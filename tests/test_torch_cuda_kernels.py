@@ -288,3 +288,139 @@ def test_motion_apply_on_cuda_launches_kernels_and_matches_cpu(cuda, blur):
     d = (gpu.frames.cpu() - cpu.frames).abs()
     assert float(torch.quantile(d.flatten()[::7], 0.99)) <= 1e-6
     assert (gpu.masks.cpu() != cpu.masks).float().mean().item() <= 1e-3
+
+
+def test_wrappers_split_past_65535_frames(cuda):
+    """65,536 tiny frames: every frame-indexed wrapper splits its launch at
+    65,535 frames (two launches) and stays bitwise equal to its plain
+    version across the split."""
+    n = 65536
+    gen = torch.Generator().manual_seed(12)
+    frames = torch.rand((n, 8, 8, 3), generator=gen).to(cuda)
+    mats = np.tile(_mats(1, 13), (n, 1, 1))
+    mats[:, 0, 2] += np.linspace(-2.0, 2.0, n)
+    coeffs = torch.as_tensor(W.prepare_inverse_coeffs(mats).astype(np.float32), device=cuda)
+    coeffs_s = torch.stack([coeffs, coeffs * 1.001, coeffs * 0.999], 1).contiguous()
+    border = torch.tensor([0.1, 0.5, 0.9], device=cuda)
+    gray = (torch.rand((n, 16, 16), generator=gen) * 255).floor().to(cuda)
+    corners = torch.randint(-4, 16, (n, 2, 2), generator=gen).to(torch.int32).to(cuda)
+    cuda_build.reset_launches()
+    outs = {
+        "warp": (W.warp_frames(frames, coeffs, border, 8, 8), W.warp_plain(frames, coeffs, border, 8, 8, "bilinear")),
+        "warp_blur": (W.warp_blur_frames(frames, coeffs_s, border, 8, 8, "bilinear", True),
+                      W.warp_blur_mask_plain(frames, coeffs_s, border, 8, 8, "bilinear")),
+        "cost_volume": (CV.cost_volume_subpixel(gray, gray.roll(1, 2), 2, 8), CV.cost_volume_plain(gray, gray.roll(1, 2), 2, 8)),
+        "gftt": (GF.gftt_scores_gray(gray), GF.gftt_gray_plain(gray)),
+        "extract_windows": (EX.extract_windows(gray, corners, 5), EX.extract_plain(gray, corners, 5)),
+    }
+    torch.cuda.synchronize()
+    for name, (out, ref) in outs.items():
+        assert cuda_build.LAUNCHES[name] == 2, name
+        for a, b in zip(out if isinstance(out, tuple) else (out,), ref if isinstance(ref, tuple) else (ref,)):
+            assert torch.equal(a, b), name
+
+
+def _small_clip(seed, n=8, h=144, w=192):
+    gen = torch.Generator().manual_seed(seed)
+    base = torch.nn.functional.avg_pool2d(torch.rand((1, 1, h + 64, w + 80), generator=gen), 5, 1, 2)[0, 0]
+    base = torch.stack([base, base * 0.7 + 0.1, 1.0 - base], dim=-1)
+    shake = [np.eye(3)]
+    for d in _mats(n - 1, seed + 1) * np.array([[1, 1, 0.4], [1, 1, 0.4], [1, 1, 1]]):
+        shake.append(d @ shake[-1])
+    crop = np.eye(3)
+    crop[0, 2] = crop[1, 2] = -32
+    view = np.stack([crop @ np.linalg.inv(m) for m in shake])
+    return W.warp_clip(base[None].expand(n, *base.shape).contiguous(), view, (w, h), "bilinear", (0.5,) * 3)
+
+
+@pytest.mark.parametrize("estimator", ["flow", "classic"])
+@pytest.mark.parametrize("framing,transform", [("crop_and_pad", "perspective"), ("crop", "similarity"),
+                                               ("crop", "perspective")])
+def test_perspective_and_crop_on_cuda_match_cpu(cuda, estimator, framing, transform):
+    """Perspective fits (cuSOLVER on the card, LAPACK on the CPU) and crop
+    framing: per-pair modes, crop status, note and scale equal, matrices
+    <= 1e-3, frames p99 <= 1e-3."""
+    from comfyui_video_stabilizer_tpu_torch.models.classic import stabilize_classic
+    from comfyui_video_stabilizer_tpu_torch.models.flow import stabilize_flow
+    from comfyui_video_stabilizer_tpu_torch.utils.video_io import normalize_video_input
+
+    run = stabilize_flow if estimator == "flow" else stabilize_classic
+    frames = _small_clip(7)
+    args = (framing, transform, False, 0.8, 0.6, 0.6, (127, 127, 127), 24.0)
+    cpu = run(normalize_video_input(frames, device="cpu"), *args, device="cpu")
+    cuda_build.reset_launches()
+    gpu = run(normalize_video_input(frames, device=cuda), *args, device=cuda)
+    torch.cuda.synchronize()
+    assert cuda_build.LAUNCHES["warp"] == 1
+    tc, tg = cpu.meta["estimated_motion"]["per_transition"], gpu.meta["estimated_motion"]["per_transition"]
+    assert [t["mode"] for t in tg] == [t["mode"] for t in tc]
+    assert gpu.meta["transform_mode_applied"] == cpu.meta["transform_mode_applied"] == transform
+    assert np.abs(np.array([t["matrix"] for t in tg]) - np.array([t["matrix"] for t in tc])).max() <= 1e-3
+    for key in ("keep_fov_status", "keep_fov_note", "stabilization_scale"):
+        assert gpu.meta["framing"].get(key) == cpu.meta["framing"].get(key)
+    d = (gpu.frames.cpu() - cpu.frames).abs()
+    assert float(torch.quantile(d.flatten()[::7], 0.99)) <= 1e-3
+
+
+@pytest.mark.parametrize("path", ["flow", "classic", "apply_blur", "apply_plain"])
+def test_forced_streaming_on_cuda_equals_unstreamed(cuda, monkeypatch, path):
+    """The chunk budget lowered to 3 frames: the clip stays on the host,
+    streams through the card in chunks, and the result (on the host)
+    equals the unstreamed run's, frames and masks bitwise."""
+    from comfyui_video_stabilizer_tpu_torch.models.classic import stabilize_classic
+    from comfyui_video_stabilizer_tpu_torch.models.flow import stabilize_flow
+    from comfyui_video_stabilizer_tpu_torch.models.motion_apply import apply_motion
+    from comfyui_video_stabilizer_tpu_torch.models.shake import STYLES, generate_shake_motion_meta
+    from comfyui_video_stabilizer_tpu_torch.utils.video_io import normalize_video_input
+
+    frames = _small_clip(9, n=10)
+    n, h, w, _ = frames.shape
+    if path in ("flow", "classic"):
+        fn = stabilize_flow if path == "flow" else stabilize_classic
+        args = ("crop_and_pad", "similarity", False, 0.8, 0.6, 0.6, (127, 127, 127), 24.0)
+
+        def run(ctx):
+            return fn(ctx, *args, device=cuda)
+    else:
+        meta = {"motion_meta": generate_shake_motion_meta(
+            recipe=STYLES["action"], frame_count=n, width=w, height=h, fps=24.0, amount=1.5, speed=1.0, seed=3)}
+        kw = dict(interpolation="bicubic", motion_blur=0.5 if path == "apply_blur" else 0.0, motion_blur_samples=5)
+
+        def run(ctx):
+            return apply_motion(ctx, meta, (127, 127, 127), device=cuda, **kw)
+
+    ref = run(normalize_video_input(frames, device=cuda))
+    assert ref.frames.device.type == "cuda"
+    monkeypatch.setattr(W, "CHUNK_BUDGET_BYTES", 3 * W.clip_device_bytes(1, h, w, h, w) + 1)
+    ctx = normalize_video_input(frames, device=cuda)
+    assert ctx.frames.device.type == "cpu"       # a clip that streams stays on the host
+    cuda_build.reset_launches()
+    ours = run(ctx)
+    torch.cuda.synchronize()
+    assert ours.frames.device.type == "cpu" and ours.masks.device.type == "cpu"
+    assert cuda_build.LAUNCHES["warp_blur" if path == "apply_blur" else "warp"] == 4   # ceil(10 / 3) chunks
+    assert torch.equal(ours.frames, ref.frames.cpu()) and torch.equal(ours.masks, ref.masks.cpu())
+
+
+def test_motion_apply_65536_frames_on_cuda_matches_cpu(cuda):
+    """Motion Apply on 65,536 frames of 16x16 RGB: K1 launched twice, the
+    result against the CPU path within the Motion Apply tolerances."""
+    from comfyui_video_stabilizer_tpu_torch.models.motion_apply import apply_motion
+    from comfyui_video_stabilizer_tpu_torch.models.shake import STYLES, generate_shake_motion_meta
+    from comfyui_video_stabilizer_tpu_torch.utils.video_io import normalize_video_input
+
+    n = 65536
+    gen = torch.Generator().manual_seed(14)
+    frames = torch.nn.functional.avg_pool2d(torch.rand((n, 3, 20, 20), generator=gen), 5, 1)
+    frames = frames.permute(0, 2, 3, 1).contiguous()
+    meta = {"motion_meta": generate_shake_motion_meta(
+        recipe=STYLES["handheld"], frame_count=n, width=16, height=16, fps=24.0, amount=1.0, speed=1.0, seed=5)}
+    kw = dict(interpolation="bilinear", motion_blur=0.0)
+    cpu = apply_motion(normalize_video_input(frames, device="cpu"), meta, (127, 127, 127), device="cpu", **kw)
+    cuda_build.reset_launches()
+    gpu = apply_motion(normalize_video_input(frames, device=cuda), meta, (127, 127, 127), device=cuda, **kw)
+    torch.cuda.synchronize()
+    assert cuda_build.LAUNCHES["warp"] == 2
+    d = (gpu.frames.cpu() - cpu.frames).abs()
+    assert float(torch.quantile(d.flatten()[::61], 0.99)) <= 1e-6
+    assert (gpu.masks.cpu() != cpu.masks).float().mean().item() <= 1e-3

@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 import cv2  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -130,7 +131,16 @@ def test_approx_median_matches():
 
 
 def test_homography_prewarp_not_ported(level_inputs):
+    """The homography pre-warp fit, once unported, against JAX on a level's
+    residual flow: fit and guarded fit <= 1e-4 (float32 normal equations
+    summed in another order)."""
     I, J, M = level_inputs
-    flow = torch.zeros((I.shape[0], I.shape[1], I.shape[2], 2))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TFD._guarded_fit(flow, torch.ones(flow.shape[:3]), torch.from_numpy(M), "homography")
+    flow, conf = JFD._residual_flow(jnp.asarray(I), jnp.asarray(J), 2, 8)
+    flow, conf = np.array(flow), np.array(conf)
+    ref = np.asarray(JFD._fit_homography_dense(jnp.asarray(flow), jnp.asarray(conf), 4))
+    ours = TFD._fit_homography_dense(torch.from_numpy(flow), torch.from_numpy(conf), 4).numpy()
+    assert np.abs(ours - ref).max() <= 1e-4
+    ref_g = np.asarray(JFD._guarded_fit(jnp.asarray(flow), jnp.asarray(conf), jnp.asarray(M), "homography"))
+    our_g = TFD._guarded_fit(torch.from_numpy(flow), torch.from_numpy(conf), torch.from_numpy(M),
+                             "homography").numpy()
+    assert np.abs(our_g - ref_g).max() <= 1e-4

@@ -9,6 +9,8 @@ shake JSON bytes and the accepted corners must all be identical.
 
 import json
 
+import pathlib
+
 import numpy as np
 import pytest
 
@@ -225,5 +227,21 @@ def test_native_greedy_builds_into_build_dir():
     TNR.greedy_min_distance(np.zeros(1, np.int64), np.zeros(1, np.int64), 4, 4, 7.0, 1)
     path = TNR.library_path()
     assert path.exists() and path.parent.name == "build"
-    assert path.parent.parent == TNR.BUILD_DIR.parent
+    assert path.parent == TNR.build_dir() == pathlib.Path(TNR.__file__).resolve().parents[2] / "build"
     assert "comfyui_video_stabilizer_tpu" not in path.parent.parts
+
+
+@pytest.mark.parametrize("layout", ["checkout", "installed"])
+def test_build_dir_stays_out_of_install_trees(tmp_path, monkeypatch, layout):
+    """A checkout builds into its own build/; an installed package (no
+    pyproject.toml beside it) into the user cache, never next to site-packages."""
+    from comfyui_video_stabilizer_tpu_torch.ops import cuda_build
+
+    pkg = tmp_path / "site-packages" / "comfyui_video_stabilizer_tpu_torch"
+    pkg.mkdir(parents=True)
+    monkeypatch.setenv("XDG_CACHE_HOME", str(tmp_path / "cache"))
+    if layout == "checkout":
+        (pkg.parent / "pyproject.toml").write_text("")
+        assert cuda_build.build_dir(pkg) == pkg.parent / "build"
+    else:
+        assert cuda_build.build_dir(pkg) == tmp_path / "cache" / "comfyui_video_stabilizer_tpu_torch" / "build"

@@ -4,7 +4,8 @@ there is none.
 
 The import check runs in a subprocess: this test session imports JAX
 for every test (tests/conftest.py).  It imports every module of the
-port and runs all six nodes on the CPU before it looks.
+port and runs all six nodes on the CPU before it looks, both
+stabilizers also with crop framing and the perspective model.
 """
 
 import os
@@ -28,8 +29,8 @@ _CPU_SLICE = textwrap.dedent(
     import comfyui_video_stabilizer_tpu_torch
     from comfyui_video_stabilizer_tpu_torch import nodes
     from comfyui_video_stabilizer_tpu_torch.ops import cuda_build, cv_cuda, flow_dis, prng, ransac, resize, warp
-    from comfyui_video_stabilizer_tpu_torch.ops import extract_cuda, gftt_cuda, lk, lk_cuda, pad
-    from comfyui_video_stabilizer_tpu_torch.models import classic, flow, geometry, inverse, motion_apply
+    from comfyui_video_stabilizer_tpu_torch.ops import extract_cuda, gftt_cuda, lk, lk_cuda, morphology, pad
+    from comfyui_video_stabilizer_tpu_torch.models import classic, flow, framing, geometry, inverse, motion_apply
     from comfyui_video_stabilizer_tpu_torch.models import shake, stabilize
     from comfyui_video_stabilizer_tpu_torch.meta import motion_meta
     from comfyui_video_stabilizer_tpu_torch.native import rectangle
@@ -52,6 +53,11 @@ _CPU_SLICE = textwrap.dedent(
     assert tuple(out[0].shape) == (5, 64, 96, 3), out[0].shape
     assert len(out[2]["estimated_motion"]["per_transition"]) == 4
     stab_meta = out[2]
+    for node in (nodes.VideoStabilizerFlow, nodes.VideoStabilizerClassic):
+        out = node.execute(torch.from_numpy(frames), 16.0, "crop", "perspective", False,
+                           0.8, 0.6, 0.6, "#7F7F7F", device="cpu")
+        assert out[2]["transform_mode_requested"] == "perspective"
+        assert out[2]["framing"]["keep_fov_status"] in ("met", "clamped", "failed", "disabled")
     clip = torch.from_numpy(frames)
     shake_meta = nodes.VideoStabilizerShakeGenerator.execute(clip, 16.0, "handheld", 1.0, 1.0, 3)[0]
     manual = nodes.VideoStabilizerShakeGeneratorManual.execute(

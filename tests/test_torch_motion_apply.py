@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 from comfyui_video_stabilizer_tpu.meta import motion_meta as JMM  # noqa: E402
 from comfyui_video_stabilizer_tpu.models import inverse as JINV  # noqa: E402

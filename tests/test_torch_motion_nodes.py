@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 from comfyui_video_stabilizer_tpu import nodes as JN  # noqa: E402
 from comfyui_video_stabilizer_tpu.nodes import motion_apply_node as JMAN  # noqa: E402

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -44,20 +45,20 @@ def case():
         bad = rng.random(P) < 0.1 * i               # invalid samples
         samples[i, bad] = np.nan
     ref = [np.asarray(x) for x in JFL._fused_fits_sampled(jnp.asarray(samples), jnp.asarray(pts), 0, False, 512)]
-    ours = TFL._fused_fits_sampled(torch.from_numpy(samples), torch.from_numpy(pts), 0, 512)
+    ours = TFL._fused_fits_sampled(torch.from_numpy(samples), torch.from_numpy(pts), 0, False, 512)
     return samples, pts, ref, ours
 
 
 def test_valid_counts_exact(case):
     _, _, ref, ours = case
     np.testing.assert_array_equal(ours["valid_counts"], ref[0])
-    np.testing.assert_array_equal(ours["n_valid"], ref[3])
+    np.testing.assert_array_equal(ours["vS"], ref[3])
 
 
 def test_similarity_fits_match(case):
     _, _, ref, ours = case
     S, n_in, _, rS = ref[1:5]
-    assert np.abs(ours["n_in"].astype(np.int64) - n_in).max() <= 1
+    assert np.abs(ours["nS"].astype(np.int64) - n_in).max() <= 1
     assert np.abs(ours["S"] - S).max() <= 1e-4
     # an invalid (NaN) sample makes the residual NaN on both sides:
     # err * 0 keeps the NaN in the reference's masked mean
@@ -80,8 +81,8 @@ def test_ransac_core_matches_batched_vmap(case):
     keys = jax.vmap(lambda i: jax.random.fold_in(jax.random.PRNGKey(5), i))(jnp.arange(samples.shape[0]))
     H, n_in, vc = (np.asarray(x) for x in JRS._ransac_batched(
         keys, jnp.asarray(prev), jnp.asarray(curr), jnp.asarray(valid), "similarity", 128, 2.0))
-    oH, on_in, ovc = TRS.ransac_similarity(prng.keys_from_jax(np.asarray(keys)), torch.from_numpy(prev),
-                                           torch.from_numpy(curr), torch.from_numpy(valid), 128, 2.0)
+    oH, on_in, ovc = TRS.ransac_fit(prng.keys_from_jax(np.asarray(keys)), torch.from_numpy(prev),
+                                    torch.from_numpy(curr), torch.from_numpy(valid), "similarity", 128, 2.0)
     np.testing.assert_array_equal(ovc.numpy(), vc)
     assert np.abs(on_in.numpy() - n_in).max() <= 1
     assert np.abs(oH.numpy() - H).max() <= 1e-4

@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 from comfyui_video_stabilizer_tpu import nodes as JN  # noqa: E402
 from comfyui_video_stabilizer_tpu.models import classic as JCL  # noqa: E402
@@ -31,7 +32,7 @@ from comfyui_video_stabilizer_tpu_torch import nodes as TN  # noqa: E402
 from comfyui_video_stabilizer_tpu_torch.models import classic as TCL  # noqa: E402
 from comfyui_video_stabilizer_tpu_torch.utils import video_io as TIO  # noqa: E402
 from test_classic import _shaken_clip  # noqa: E402
-from test_torch_stabilize_flow import _non_float_items, _transitions  # noqa: E402
+from test_torch_stabilize_flow import _assert_node_parity, _non_float_items, _transitions  # noqa: E402
 
 GRAY = (127, 127, 127)
 COMBOS = [
@@ -153,6 +154,10 @@ def test_classic_node_schema_equals_jax():
 @pytest.mark.parametrize("framing,transform", [("crop", "similarity"), ("crop_and_pad", "perspective"),
                                                ("crop", "perspective")])
 def test_unported_modes_raise(clip, framing, transform):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TN.VideoStabilizerClassic.execute(torch.from_numpy(clip[:3].copy()), 16.0, framing, transform,
-                                          False, 0.9, 0.7, 0.6, "#7F7F7F", device="cpu")
+    """Crop framing and perspective, once unported, against the JAX node
+    (keep_fov 0.6): the tolerances of tests/test_torch_stabilize_flow.py's
+    case of the same name."""
+    args = (16.0, framing, transform, False, 0.9, 0.7, 0.6, "#7F7F7F")
+    ref = JN.VideoStabilizerClassic.execute(torch.from_numpy(clip.copy()), *args)
+    ours = TN.VideoStabilizerClassic.execute(torch.from_numpy(clip.copy()), *args, device="cpu")
+    _assert_node_parity(ref, ours, transform)

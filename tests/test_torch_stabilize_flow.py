@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 import cv2  # noqa: E402
 
@@ -191,6 +192,32 @@ def test_flow_node_schema_equals_jax():
 @pytest.mark.parametrize("framing,transform", [("crop", "similarity"), ("crop_and_pad", "perspective"),
                                                ("crop", "perspective")])
 def test_unported_modes_raise(clip, framing, transform):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TN.VideoStabilizerFlow.execute(torch.from_numpy(clip[:3].copy()), 16.0, framing, transform,
-                                       False, 0.9, 0.7, 0.6, "#7F7F7F", device="cpu")
+    """Crop framing and perspective, once unported, against the JAX node
+    (keep_fov 0.6, which the crop search meets): the per-pair modes, the
+    crop status and note and every other non-float meta value equal;
+    matrices and applied matrices <= 1e-3; crop scale, origin and size
+    within 1e-6 relative; frames p99 <= 1e-3."""
+    args = (16.0, framing, transform, False, 0.9, 0.7, 0.6, "#7F7F7F")
+    ref = JN.VideoStabilizerFlow.execute(torch.from_numpy(clip.copy()), *args)
+    ours = TN.VideoStabilizerFlow.execute(torch.from_numpy(clip.copy()), *args, device="cpu")
+    _assert_node_parity(ref, ours, transform)
+
+
+def _assert_node_parity(ref, ours, transform):
+    (jf, _, jm), (tf, _, tm) = ref, ours
+    assert [t["mode"] for t in _transitions(tm)] == [t["mode"] for t in _transitions(jm)]
+    assert tm["transform_mode_applied"] == jm["transform_mode_applied"] == transform
+    assert list(tm) == list(jm)
+    assert dict(_non_float_items(tm)) == dict(_non_float_items(jm))
+    for key in ("matrix",):
+        a = np.array([t[key] for t in _transitions(tm)])
+        b = np.array([t[key] for t in _transitions(jm)])
+        assert np.abs(a - b).max() <= 1e-3
+    tapp = np.array([e["applied_matrix"] for e in tm["stabilization_warp"]["per_frame"]])
+    japp = np.array([e["applied_matrix"] for e in jm["stabilization_warp"]["per_frame"]])
+    assert np.abs(tapp - japp).max() <= 1e-3
+    for key in ("stabilization_scale", "crop_origin", "crop_size", "keep_fov_effective"):
+        if key in jm["framing"]:
+            np.testing.assert_allclose(tm["framing"][key], jm["framing"][key], rtol=1e-6, atol=1e-6)
+    d = (tf - jf).abs().numpy()
+    assert np.quantile(d, 0.99) <= 1e-3

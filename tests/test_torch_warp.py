@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 from comfyui_video_stabilizer_tpu.ops import warp as JW  # noqa: E402
 from comfyui_video_stabilizer_tpu.ops import warp_pallas as JWP  # noqa: E402
@@ -118,8 +119,20 @@ def test_zero_small_exact():
     np.testing.assert_array_equal(TW.zero_small(torch.from_numpy(m)).numpy(), np.asarray(JW.zero_small(m)))
 
 
-def test_clip_budget_raises_beyond_device_memory():
-    """Streaming is not ported: a 1080p clip past the budget raises."""
-    TW.check_fits_device(1331, 1080, 1920, 1080, 1920)
-    with pytest.raises(MemoryError, match="streaming"):
-        TW.check_fits_device(1332, 1080, 1920, 1080, 1920)
+def test_clip_budget_raises_beyond_device_memory(monkeypatch):
+    """Past the budget, once a raise, a clip streams through time chunks:
+    with both packages' budgets lowered to a few frames, the streamed
+    warp and masks against the JAX package's streamed ones (the file's
+    tolerances), and the streamed result on the host."""
+    frames = _frames(n=7)
+    mats = np.concatenate([_mats("similarity"), _mats("perspective"), _mats("past_edge"), _mats("identity")])[:7]
+    per_frame = TW.clip_device_bytes(1, H, W, H, W)
+    monkeypatch.setattr(TW, "CHUNK_BUDGET_BYTES", 2 * per_frame)
+    monkeypatch.setattr(JW, "CHUNK_BUDGET_BYTES", 2 * (3 * H * W + 2 * H * W) * 3 * 4)
+    assert TW.will_stream(7, H, W, H, W) and JW.will_stream(7, H, W, H, W)
+    out, mask, ratio = TW.warp_clip_with_mask(torch.from_numpy(frames), mats, (W, H), "bilinear", BORDER)
+    ref, ref_mask = JW.warp_clip_with_mask(frames, mats, (W, H), "bilinear", BORDER)
+    assert isinstance(ref, np.ndarray) and out.device.type == "cpu"
+    assert np.abs(out.numpy() - ref).max() <= 2e-6
+    assert (mask.numpy() != np.asarray(ref_mask)).mean() <= 1e-4
+    np.testing.assert_array_equal(ratio.numpy(), mask.numpy().reshape(7, -1).mean(1))

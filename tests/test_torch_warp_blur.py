@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 from comfyui_video_stabilizer_tpu.models import motion_apply as JMA  # noqa: E402
 from comfyui_video_stabilizer_tpu.ops import warp as JW  # noqa: E402
