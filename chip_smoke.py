@@ -61,13 +61,30 @@ Phases (any failure raises and the script exits non-zero):
      the host (cut to what the host's free memory holds, and said so):
      whether it streamed, the chunk, the stage split, the host<->device
      copies, wall frames/s, the peak device memory, K1 at the 4K canvas
- 21. a JSON line per kernel (its time, its plain version's, its bound
+ 21. dense dis_flow on the 1080p clip's 960x540 grays: K2 at r = 3 at
+     (79, 135, 240) against its plain version, bitwise, and timed; K2's
+     launches in one dense call and the call's time; the CUDA path
+     against the CPU path on a small clip
+ 22. the 1080p x 80 Flow call with DIS forced to raise (TV-L1 tier), then
+     with TV-L1 too (phase correlation): backend, reason string, modes,
+     launches, ms a call, device events and busy share under
+     torch.profiler
+ 23. K2's launch refused (error 9): stabilize_flow raises KernelError and
+     no fallback tier runs
+ 24. the 1080p x 80 Flow call's time split: the device stages with a
+     synchronize after each, the host trajectory + meta between the
+     fits' fetch and K1's launch, the tail after the warp, and one call's
+     device events and busy share under torch.profiler
+ 25. a JSON line per kernel (its time, its plain version's, its bound
      and the time of a PyTorch call that computes the same function,
-     where one exists), the card line, then {"ok": true, ...} last
+     where one exists; K2 adds its r = 3 figures and the dense call's
+     launches), the card line, then {"ok": true, ...} last
 
-Phases 16-17 run after phase 11, and 18-20 after phase 15 (config 5
-last, alone on the card).  Each phase's wall time is printed on a line
-of its own ("[time]").
+Phases 16-17 run after phase 11, 21-24 after phase 12 and ahead of
+phase 13 (once K3's plain version has run, torch.profiler records no
+device event), and 18-20 after phase 15 (config 5 last, alone on the
+card).  Each phase's wall time is printed on a line of its own
+("[time]").
 
 Every kernel's bound is the larger of its bytes over 3.35 TB/s and its
 float32 operations over 67 TFLOP/s (the H100 SXM data sheet), counted
@@ -405,12 +422,7 @@ def phase_k2(device, frames):
             f"(runs {t_kern}, {t_plain})")
         if level is pyr[0]:
             result["ms"], result["plain_ms"] = min(t_kern), min(t_plain)
-            # per pixel, counted on the shift-add tree: 25 candidates x (the Jw
-            # scaling, the difference, the square, 3 + 3 tree adds, the 1/64
-            # scale), the two input scalings, ~20 for the argmin and the
-            # parabolas; I and Jw read, fx, fy and cmin written
-            px = I.numel()
-            result.update(bound(4 * 5 * px, px * (25 * 9 + 2 + 20)), library_ms=None)
+            result.update(k2_bound(I.numel(), 2), library_ms=None)
             log(f"[K2] {shape}: bound {result['bound_ms']:.4f} ms ({result['bound_by']}); "
                 "no single PyTorch call computes it")
     return result
@@ -427,11 +439,15 @@ def make_context(frames):
     )
 
 
-def run_slice(ctx, device):
+def run_slice(ctx, device, backend="DIS"):
+    """The Flow slice's call; fails unless ``backend`` ran it."""
     from comfyui_video_stabilizer_tpu_torch.models.flow import stabilize_flow
 
-    return stabilize_flow(ctx, "crop_and_pad", "similarity", False, 0.8, 0.6, 0.6,
-                          (127, 127, 127), 30.0, device=device)
+    res = stabilize_flow(ctx, "crop_and_pad", "similarity", False, 0.8, 0.6, 0.6,
+                         (127, 127, 127), 30.0, device=device)
+    check(res.meta["flow_backend"] == backend,
+          f"flow_backend {res.meta['flow_backend']!r} ({res.meta['flow_fallback_reason']}), not {backend!r}")
+    return res
 
 
 def run_classic(ctx, device):
@@ -524,6 +540,8 @@ def phase_node(frames_cpu, node_name="VideoStabilizerFlow"):
     check(tuple(video.shape) == (n, HEIGHT, WIDTH, 3), f"node frames {tuple(video.shape)}")
     check(tuple(mask.shape) == (n, HEIGHT, WIDTH) and mask.device.type == "cpu", f"node masks {tuple(mask.shape)}")
     check(meta["frames"] == n and "motion_meta" in meta, "node meta incomplete")
+    if node_name == "VideoStabilizerFlow":
+        check(meta["flow_backend"] == "DIS", f"node flow_backend {meta['flow_backend']!r}")
     check(bool(torch.isfinite(video).all()), "node frames not finite")
     log(f"[node] {node_name}.execute on a CPU tensor ({n}, {HEIGHT}, {WIDTH}, 3): "
         f"{secs:.3f} s, mode {meta['transform_mode_applied']}")
@@ -738,15 +756,24 @@ def classic_stage_split(frames, device):
 
 LAST_PROFILE_NAMES: list = []  # the distinct device event names of profile_call's last call
 
+# each hand kernel's __global__ function, as the profiler names its launches
+KERNEL_SYMBOLS = {"warp": "warp_kernel", "warp_blur": "warp_blur_kernel", "cost_volume": "cost_volume_kernel",
+                  "gftt": "gftt_gray_kernel", "lk_gn": "lk_gn_kernel", "extract_windows": "extract_kernel"}
+
 
 def profile_call(fn):
-    """torch.profiler over one call: (device events -- kernels and copies --,
-    device busy ms, wall ms); the distinct device event names are kept in
-    LAST_PROFILE_NAMES."""
+    """torch.profiler over one call: (device events -- kernels and copies
+    --, device busy ms, wall ms); the distinct device event names are kept
+    in LAST_PROFILE_NAMES.  Fails unless the profile holds one event for
+    each hand-kernel launch the call made, so a profiler that drops events
+    is caught where it drops a hand kernel's."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from comfyui_video_stabilizer_tpu_torch.ops import cuda_build
+
     torch.cuda.synchronize()
+    before = dict(cuda_build.LAUNCHES)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
@@ -755,6 +782,10 @@ def profile_call(fn):
     device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(e.time_range.elapsed_us() for e in device) / 1e3
     LAST_PROFILE_NAMES[:] = sorted({e.name[:48] for e in device})
+    for key, sym in KERNEL_SYMBOLS.items():
+        launched = cuda_build.LAUNCHES[key] - before[key]
+        seen = sum(1 for e in device if re.search(rf"(?:^|[\s:]){sym}[<(]", e.name))
+        check(seen == launched, f"torch.profiler recorded {seen} {sym} events for {launched} launches")
     return len(device), busy, wall
 
 
@@ -1182,7 +1213,11 @@ def run_stabilizer(kind, ctx, device, framing="crop_and_pad", transform="similar
     from comfyui_video_stabilizer_tpu_torch.models.flow import stabilize_flow
 
     fn = stabilize_flow if kind == "flow" else stabilize_classic
-    return fn(ctx, framing, transform, lock, 0.8, 0.6, 0.6, (127, 127, 127), fps, device=device)
+    res = fn(ctx, framing, transform, lock, 0.8, 0.6, 0.6, (127, 127, 127), fps, device=device)
+    if kind == "flow":
+        check(res.meta["flow_backend"] == "DIS",
+              f"flow_backend {res.meta['flow_backend']!r} ({res.meta['flow_fallback_reason']})")
+    return res
 
 
 def mode_counts(meta) -> dict:
@@ -1346,6 +1381,249 @@ def phase_config3(device, frames):
         f"applied {res.meta['transform_mode_applied']}; one call {1e3 * secs:.1f} ms "
         f"(cold for the perspective fits); launches {dict(cuda_build.LAUNCHES)}")
     return launches
+
+
+def k2_bound(px: int, radius: int) -> dict:
+    """K2's least time on ``px`` pixels: I and Jw read, fx, fy and cmin
+    written; per pixel, counted on the shift-add tree, (2r+1)^2 candidates
+    x (the difference, the square, 3 + 3 tree adds, the 1/64 scale), the
+    two input scalings (a Jw pixel's does not depend on the shift), ~20
+    for the argmin and the parabolas."""
+    return bound(4 * 5 * px, px * ((2 * radius + 1) ** 2 * 8 + 2 + 20))
+
+
+def phase_dense_dis(device, frames):
+    """Dense dis_flow on the 1080p clip's 960x540 grays: K2 at r = 3 at the
+    finest level's shape against its plain version (bitwise) and timed,
+    K2's launches in one dense call and the call's time, the output
+    checks, and the CUDA path against the CPU path on a small clip."""
+    import torch
+
+    from comfyui_video_stabilizer_tpu_torch.ops import cuda_build
+    from comfyui_video_stabilizer_tpu_torch.ops import cv_cuda as CV
+    from comfyui_video_stabilizer_tpu_torch.ops import flow_dis as FD
+    from comfyui_video_stabilizer_tpu_torch.ops import resize as R
+
+    grays = R.gray_for_estimation(frames, (WIDTH // 2, HEIGHT // 2), decimation=1)
+    n, gh, gw = grays.shape
+    coarsest = FD.num_levels(gh, gw)
+    finest = min(FD.FINEST_SCALE, coarsest)
+    level = FD.build_pyramid(grays, coarsest)[finest]
+    I, J = level[:-1].contiguous(), level[1:].contiguous()
+    shape = tuple(I.shape)
+    out = CV.cost_volume_subpixel(I, J, 3, 8)
+    ref = CV.cost_volume_plain(I, J, 3, 8)
+    torch.cuda.synchronize()
+    equal = [bool(torch.equal(a, b)) for a, b in zip(out, ref)]
+    err = max(float((a - b).abs().max()) for a, b in zip(out, ref))
+    log(f"[dense] K2 r=3 {shape}: fx, fy, cmin bitwise equal {equal}; max|kernel - plain| {err:.3e}")
+    check(all(equal), f"K2 r=3 {shape}: outputs differ from the plain version (equal: {equal})")
+    del out, ref
+    t_plain = [cuda_ms(lambda: CV.cost_volume_plain(I, J, 3, 8), 5)]
+    t_kern = [cuda_ms(lambda: CV.cost_volume_subpixel(I, J, 3, 8), 20) for _ in range(2)]
+    t_plain.append(cuda_ms(lambda: CV.cost_volume_plain(I, J, 3, 8), 5))
+    r3 = {"max_abs_err": err, "ms": min(t_kern), "plain_ms": min(t_plain), **k2_bound(I.numel(), 3)}
+    log(f"[dense] K2 r=3 {shape}: kernel {r3['ms']:.4f} ms, plain {r3['plain_ms']:.4f} ms "
+        f"(runs {t_kern}, {t_plain}); bound {r3['bound_ms']:.4f} ms ({r3['bound_by']})")
+
+    torch.cuda.synchronize()
+    cuda_build.reset_launches()
+    flow, conf = FD.dis_flow(grays)
+    torch.cuda.synchronize()
+    launches = cuda_build.LAUNCHES["cost_volume"]
+    check(launches >= 1, "the dense call launched no K2")
+    check(tuple(flow.shape) == (n - 1, gh, gw, 2) and bool(torch.isfinite(flow).all()),
+          f"dense flow {tuple(flow.shape)} not finite or of the wrong shape")
+    check(bool(torch.isfinite(conf).all()), "dense confidence not finite")
+    # the synthetic shake moves the frame centre by up to ~10 px a frame (half
+    # that at 960x540); the dense flow at the centre must follow it
+    centre = flow[:, gh // 2 - 8: gh // 2 + 8, gw // 2 - 8: gw // 2 + 8].abs().amax().item()
+    check(0.0 < centre < 20.0, f"dense flow at the centre {centre} px")
+    del flow, conf
+    t_call = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        FD.dis_flow(grays)
+        torch.cuda.synchronize()
+        t_call.append(1e3 * (time.perf_counter() - t0))
+    log(f"[dense] dis_flow ({n}, {gh}, {gw}): K2 launches {launches} a call; a warm call "
+        f"{', '.join(f'{t:.1f}' for t in t_call)} ms, median {float(np.median(t_call)):.1f}")
+
+    # the CUDA path against the CPU path, as the cuda-marked test
+    small = synth_clip(6, 150, 198, seed=13, device="cpu").mean(dim=-1) * 255.0
+    cpu_flow, cpu_conf = FD.dis_flow(small)
+    gpu_flow, gpu_conf = FD.dis_flow(small.to(device))
+    d = (gpu_flow.cpu() - cpu_flow).abs()
+    med, p99 = float(d.median()), float(torch.quantile(d.flatten(), 0.99))
+    log(f"[dense] (6, 150, 198) CUDA vs CPU path: flow median {med:.3e}, p99 {p99:.3e}, max {float(d.max()):.3e} px; "
+        f"conf median {float((gpu_conf.cpu() - cpu_conf).abs().median()):.3e}")
+    check(med <= 1e-4 and p99 <= 1e-2, "dense flow: CUDA and CPU paths differ")
+    return launches, r3, float(np.median(t_call))
+
+
+def forced_outage(*_a, **_k):
+    raise RuntimeError("synthetic backend outage")
+
+
+def timed_calls(fn, reps: int):
+    """Host ms of ``reps`` warm calls, a synchronize around each."""
+    import torch
+
+    out = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append(1e3 * (time.perf_counter() - t0))
+    return out
+
+
+def phase_fallback_tiers(device, frames):
+    """The 1080p x 80 Flow call with each fallback tier forced (DIS raising,
+    then TV-L1 too): backend, reason, modes, launches, ms a call and the
+    device busy share under torch.profiler; the output checks."""
+    import torch
+
+    from comfyui_video_stabilizer_tpu_torch.ops import cuda_build
+    from comfyui_video_stabilizer_tpu_torch.ops import flow_dis as FD
+    from comfyui_video_stabilizer_tpu_torch.ops import tvl1 as TV
+
+    ctx = make_context(frames)
+    orig = interior_motion(frames, 100)
+    reasons = {
+        "TVL1": "DIS unavailable (synthetic backend outage); using TV-L1.",
+        "phase_correlate": "DIS unavailable (synthetic backend outage; TV-L1 failed (synthetic backend "
+                           "outage)); using phase correlation.",
+    }
+    real_dis, real_tvl1 = FD.dis_flow_fit, TV.tvl1_flow
+    result = {}
+    try:
+        FD.dis_flow_fit = forced_outage
+        for tier in ("TVL1", "phase_correlate"):
+            if tier == "phase_correlate":
+                TV.tvl1_flow = forced_outage
+            torch.cuda.synchronize()
+            cuda_build.reset_launches()
+            res = run_slice(ctx, device, backend=tier)
+            torch.cuda.synchronize()
+            launches = dict(cuda_build.LAUNCHES)
+            meta = res.meta
+            modes = mode_counts(meta)
+            check(meta["flow_backend"] == tier, f"{tier}: flow_backend {meta['flow_backend']!r}")
+            check(meta["flow_fallback_reason"] == reasons[tier],
+                  f"{tier}: reason {meta['flow_fallback_reason']!r}")
+            check(launches["warp"] == 1 and launches["cost_volume"] == 0, f"{tier}: launches {launches}")
+            if tier == "phase_correlate":
+                check(set(modes) == {"translation"}, f"phase tier modes {modes}")
+            check(tuple(res.frames.shape) == (CLIP_FRAMES, HEIGHT, WIDTH, 3)
+                  and bool(torch.isfinite(res.frames).all()), f"{tier}: frames")
+            stab = interior_motion(res.frames, 100)
+            # translation only on the last tier: the shake's rotation stays
+            check(stab < (0.8 if tier == "TVL1" else 1.0) * orig,
+                  f"{tier}: stabilization did not lower the inter-frame difference")
+            del res
+            ms = timed_calls(lambda: run_slice(ctx, device, backend=tier), 3)
+            n_events, busy, wall = profile_call(lambda: run_slice(ctx, device, backend=tier))
+            log(f"[{tier}] 1080p x {CLIP_FRAMES} Flow call, DIS{' and TV-L1' if tier != 'TVL1' else ''} "
+                f"forced to raise: modes {modes}; hand-kernel launches {launches}; interior difference "
+                f"{orig:.5f} -> {stab:.5f}; warm {', '.join(f'{t:.1f}' for t in ms)} ms, median "
+                f"{float(np.median(ms)):.1f} ms ({CLIP_FRAMES / (float(np.median(ms)) / 1e3):.1f} f/s); "
+                f"torch.profiler: {n_events} device events, busy {busy:.1f} ms of {wall:.1f} ms wall "
+                f"(busy share {busy / wall:.2f} under the profiler)")
+            result[tier] = float(np.median(ms))
+    finally:
+        FD.dis_flow_fit, TV.tvl1_flow = real_dis, real_tvl1
+    return result
+
+
+def phase_kernel_error(device, frames):
+    """K2's launch refused (the library entry stubbed to return error 9,
+    cudaErrorInvalidConfiguration): stabilize_flow must raise KernelError
+    before any fallback tier runs."""
+    from comfyui_video_stabilizer_tpu_torch.ops import cuda_build
+    from comfyui_video_stabilizer_tpu_torch.ops import tvl1 as TV
+
+    lib = cuda_build.library()
+    real_k2, real_tvl1 = lib.cvst_cost_volume, TV.tvl1_flow
+    tiers = []
+    lib.cvst_cost_volume = lambda *_a: 9
+    TV.tvl1_flow = lambda *a: tiers.append("TV-L1") or real_tvl1(*a)
+    try:
+        run_slice(make_context(frames), device)
+    except cuda_build.KernelError as exc:
+        raised = exc
+    else:
+        raised = None
+    finally:
+        lib.cvst_cost_volume, TV.tvl1_flow = real_k2, real_tvl1
+    log(f"[kernel error] K2 launch refused: stabilize_flow raised {type(raised).__name__}: {raised}; "
+        f"fallback tiers run: {tiers}")
+    check(raised is not None, "a refused K2 launch did not make stabilize_flow raise KernelError")
+    check(not tiers, "a fallback tier ran after a kernel failure")
+
+
+def phase_flow_split(device, frames):
+    """The 1080p x 80 Flow call's time split: the device stages one at a
+    time with a synchronize after each (median of 3), then a timeline of
+    real calls (median of 3 warm calls), stamped on the host as the
+    engine enters and leaves its stages: the gray, the estimation (DIS
+    enqueued, then the fits and their fetch, which waits for the card),
+    the host trajectory + meta between the fits' fetch and K1's launch
+    (the card idle), the warp call (the mask pass and K1) and the tail
+    (the ratio fetch and the meta); one call's device events and busy
+    share under torch.profiler."""
+    import torch
+
+    from comfyui_video_stabilizer_tpu_torch.models import flow as FL
+    from comfyui_video_stabilizer_tpu_torch.models import stabilize as ST
+
+    mats = np.tile(np.eye(3, dtype=np.float32), (CLIP_FRAMES, 1, 1))
+    split = [flow_stage_split(frames, device, "similarity", mats, (WIDTH, HEIGHT)) for _ in range(3)]
+    ctx = make_context(frames)
+    marks: dict = {}
+
+    def stamped(fn, before, after):
+        def wrapper(*a, **k):
+            if before:
+                marks[before] = time.perf_counter()
+            out = fn(*a, **k)
+            marks[after] = time.perf_counter()
+            return out
+        return wrapper
+
+    patched = [(ST.R, "gray_for_estimation", None, "gray"), (FL, "_fused_fits_sampled", None, "fits"),
+               (ST.W, "warp_clip_with_mask", "warp in", "warp out")]
+    real = [getattr(mod, name) for mod, name, _, _ in patched]
+    spans = ("gray", "estimation", "host trajectory + meta", "warp call", "tail")
+    edges = ("start", "gray", "fits", "warp in", "warp out", "end")
+    timeline = []
+    try:
+        for (mod, name, before, after), fn in zip(patched, real):
+            setattr(mod, name, stamped(fn, before, after))
+        for _ in range(4):
+            torch.cuda.synchronize()
+            marks["start"] = time.perf_counter()
+            run_slice(ctx, device)
+            torch.cuda.synchronize()
+            marks["end"] = time.perf_counter()
+            timeline.append([1e3 * (marks[b] - marks[a]) for a, b in zip(edges, edges[1:])])
+    finally:
+        for (mod, name, _, _), fn in zip(patched, real):
+            setattr(mod, name, fn)
+    timeline = np.array(timeline[1:])
+    host = timeline[:, 2]
+    n_events, busy, wall = profile_call(lambda: run_slice(ctx, device))
+    log(f"[flow split] 1080p x {CLIP_FRAMES} Flow, crop_and_pad, ms (median of 3, synchronize after each device "
+        "stage): " + ", ".join(f"{k} {float(np.median([s[k] for s in split])):.2f}" for k in split[0]))
+    log("[flow split] inside warm calls (host stamps, median of 3): "
+        + ", ".join(f"{k} {float(np.median(timeline[:, i])):.2f}" for i, k in enumerate(spans))
+        + f"; whole call {float(np.median(timeline.sum(axis=1))):.1f}; host trajectory + meta runs "
+        f"{[round(float(h), 2) for h in host]}")
+    log(f"[flow split] torch.profiler over one DIS call: {n_events} device events, busy {busy:.1f} ms of "
+        f"{wall:.1f} ms wall (busy share {busy / wall:.2f} under the profiler)")
+    return float(np.median(host))
 
 
 def host_available_bytes() -> int:
@@ -1585,9 +1863,15 @@ def main() -> int:
     config3_launches = timed_phase("config 3", phase_config3, device, frames)
 
     meta4 = shake_meta("action", 3, CLIP_FRAMES, HEIGHT, WIDTH)
-    # config 4 first: once K3's plain version has run at 80 frames,
-    # torch.profiler records no device events for the rest of the process
+    # every profile ahead of K3's check: once K3's plain version has run at
+    # 80 frames, torch.profiler records no device events for the rest of
+    # the process; config 4 (3 device events a call) ahead of the Flow
+    # chain's profiles, as it ran before they existed
     apply_launches, _ = timed_phase("config 4", phase_motion_apply, device, frames, meta4)
+    dense_launches, k2_r3, dense_ms = timed_phase("dense DIS", phase_dense_dis, device, frames)
+    tier_ms = timed_phase("fallback tiers", phase_fallback_tiers, device, frames)
+    timed_phase("kernel error", phase_kernel_error, device, frames)
+    host_ms = timed_phase("Flow split", phase_flow_split, device, frames)
     k3 = timed_phase("K3", phase_k3, device, frames, meta4)
     timed_phase("config 2", phase_config2, device)
     timed_phase("Motion Apply reference", phase_apply_reference, device)
@@ -1598,7 +1882,11 @@ def main() -> int:
     timed_phase("65,536 frames", phase_65536, device)
     config5_launches = timed_phase("config 5", phase_config5, device)
     log(f"[launches] K1 / K2 a call: config 3 {config3_launches['warp']} / {config3_launches['cost_volume']}, "
-        f"config 5 {config5_launches['warp']} / {config5_launches['cost_volume']}")
+        f"config 5 {config5_launches['warp']} / {config5_launches['cost_volume']}; K2 in dense dis_flow "
+        f"{dense_launches}")
+    log(f"[summary] dense dis_flow 960x540 x {CLIP_FRAMES} {dense_ms:.1f} ms; Flow 1080p x {CLIP_FRAMES} with "
+        f"TV-L1 {tier_ms['TVL1']:.1f} ms, with phase correlation {tier_ms['phase_correlate']:.1f} ms; host "
+        f"trajectory + meta between the fits' fetch and K1's launch {host_ms:.2f} ms")
     check("jax" not in sys.modules, "jax was imported")
     jax_pkg = [m for m in sys.modules if m.split(".")[0] == "comfyui_video_stabilizer_tpu"]
     check(not jax_pkg, f"modules of the JAX package were imported: {sorted(jax_pkg)}")
@@ -1615,7 +1903,8 @@ def main() -> int:
         {"name": "cost_volume", "route": "cuda",
          "source": "comfyui_video_stabilizer_tpu_torch/csrc/cost_volume.cu",
          "replaces": "comfyui_video_stabilizer_tpu/ops/cv_pallas.py:178",
-         "launches": launches["cost_volume"], **k2},
+         "launches": launches["cost_volume"], **k2,
+         "r3": {"path": "dense dis_flow", "launches": dense_launches, **k2_r3}},
         {"name": "gftt", "route": "cuda",
          "source": "comfyui_video_stabilizer_tpu_torch/csrc/gftt.cu",
          "replaces": "comfyui_video_stabilizer_tpu/ops/gftt_pallas.py:151",

@@ -1,4 +1,4 @@
-"""Flow (dense optical flow) estimator + stabilizer, DIS tier.
+"""Flow (dense optical flow) estimator + stabilizer.
 
 Counterpart of ``comfyui_video_stabilizer_tpu/models/flow.py``: DIS
 flow (ops/flow_dis.py) sampled on the 8-px working-res grid, then the
@@ -7,10 +7,19 @@ robust fits for the whole fallback chain in one batched pass
 translation, residual diagnostics).  Perspective drives the
 coarse-to-fine pre-warp with the IRLS homography fit.
 
-Only the DIS tier is ported.  The reference degrades DIS -> TV-L1 ->
-phase correlation on any exception; here a DIS failure (a kernel that
-does not build or launch included) raises, so a broken CUDA path can
-never pass as a quietly degraded run.
+The backend degrades as the JAX package's does: when the DIS tier
+(DIS and the fits) raises, TV-L1 (ops/tvl1.py) feeds the same fits;
+when that raises too, phase correlation (ops/phase_corr.py) gives
+translation-only fits.  ``flow_backend`` and ``flow_fallback_reason``
+say which tier ran and why.  Two kinds of exception are never degraded
+and propagate from any tier: ``cuda_build.KernelError`` (a hand kernel
+that does not build, load or launch, or whose wrapper refuses its
+arguments) and ``torch.AcceleratorError`` (a CUDA runtime error), so a
+broken or refused kernel never passes as a degraded run.
+Every other exception, out-of-memory included, degrades as in the
+reference.  An interrupt raised in a progress tick arrives as the
+engine's ``EstimationInterrupted``, a BaseException, and passes
+through.
 """
 
 from __future__ import annotations
@@ -21,8 +30,11 @@ import numpy as np
 import torch
 
 from ..ops import flow_dis as FD
+from ..ops import phase_corr as PC
 from ..ops import prng
 from ..ops import ransac as RS
+from ..ops import tvl1 as TV
+from ..ops.cuda_build import KernelError
 from ..ops.resize import can_decimate
 from ..utils.video_io import VideoContext
 from . import geometry as G
@@ -32,6 +44,9 @@ SAMPLE_STEP = 8
 MIN_VALID = 12
 PERSP_MIN_RATIO = 0.15
 SIM_MIN_RATIO = 0.1
+
+# failures of the kernels or the card, which the backend chain re-raises
+NOT_DEGRADED = (KernelError, torch.AcceleratorError)
 
 
 def _grid_points(h: int, w: int, step: int, device: torch.device | str) -> torch.Tensor:
@@ -102,23 +117,53 @@ def flow_estimator(
     grays: torch.Tensor, requested_mode: str, *, seed: int = 0, decimation: int = 1,
     tick_pairs=None,
 ) -> PairFits:
-    """Per-pair fits from DIS flow; grays (N, h, w) on the working device."""
+    """Per-pair fits from dense flow; grays (N, h, w) on the working device."""
     n, h, w = grays.shape
     b = n - 1
     h_work, w_work = h * decimation, w * decimation
     want_persp = requested_mode == "perspective"
-
-    samples = _dis_samples_chunked(
-        grays,
-        SAMPLE_STEP // decimation,
-        0 if decimation > 1 else FD.FINEST_SCALE,
-        "homography" if want_persp else "similarity",
-        tick_pairs,
-    )
-    if decimation > 1:
-        samples = samples * float(decimation)  # back to working px units
+    step_local = SAMPLE_STEP // decimation
     pts = _grid_points(h_work, w_work, SAMPLE_STEP, grays.device)
-    fused = _fused_fits_sampled(samples, pts, seed, want_persp, RS.DEFAULT_HYPOTHESES)
+    extra = {"flow_backend": "DIS", "flow_fallback_reason": None}
+
+    try:
+        samples = _dis_samples_chunked(
+            grays, step_local, 0 if decimation > 1 else FD.FINEST_SCALE,
+            "homography" if want_persp else "similarity", tick_pairs,
+        )
+        if decimation > 1:
+            samples = samples * float(decimation)  # back to working px units
+        fused = _fused_fits_sampled(samples, pts, seed, want_persp, RS.DEFAULT_HYPOTHESES)
+    except NOT_DEGRADED:
+        raise
+    except Exception as exc:
+        try:
+            flow_full, _ = TV.tvl1_flow(grays)
+            samples = flow_full[:, ::step_local, ::step_local, :].reshape(b, -1, 2)
+            if decimation > 1:
+                samples = samples * float(decimation)
+            fused = _fused_fits_sampled(samples, pts, seed, want_persp, RS.DEFAULT_HYPOTHESES)
+        except NOT_DEGRADED:
+            raise
+        except Exception as exc2:
+            shifts, resp = PC.phase_correlate_batch(grays[:-1], grays[1:])
+            mats = np.tile(np.eye(3, dtype=np.float32), (b, 1, 1))
+            shifts = shifts * float(decimation)
+            mats[:, 0, 2] = shifts[:, 0]
+            mats[:, 1, 2] = shifts[:, 1]
+            return PairFits(
+                degenerate=np.zeros(b, bool),
+                matrices={"translation": mats},
+                confidences={"translation": resp},
+                accepted={"translation": np.ones(b, bool)},
+                residuals={"translation": np.zeros(b)},
+                extra_meta={
+                    "flow_backend": "phase_correlate",
+                    "flow_fallback_reason":
+                        f"DIS unavailable ({exc}; TV-L1 failed ({exc2})); using phase correlation.",
+                },
+            )
+        extra = {"flow_backend": "TVL1", "flow_fallback_reason": f"DIS unavailable ({exc}); using TV-L1."}
 
     valid_counts = fused["valid_counts"]
     total_pts = (
@@ -149,7 +194,7 @@ def flow_estimator(
         confidences=confidences,
         accepted=accepted,
         residuals=residuals,
-        extra_meta={"flow_backend": "DIS", "flow_fallback_reason": None},
+        extra_meta=extra,
     )
 
 

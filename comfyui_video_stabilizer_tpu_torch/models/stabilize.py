@@ -7,7 +7,8 @@ Counterpart of the host engine of
   2. grayscale at <=960 px working size, on the device
   3. estimator: per-pair fits for the whole fallback chain, all pairs
      batched, in 32-pair chunks with a progress tick and interrupt poll
-     between chunks when anyone observes them
+     between chunks when anyone observes them; an exception raised by a
+     tick reaches the caller as itself (``EstimationInterrupted``)
   4. sticky mode selection (host scan over per-pair acceptance flags)
   5. path integration, 6. target path (camera_lock or fps smoothing)
   7. framing: crop (keep_fov solver + no-padding refine, models/
@@ -62,6 +63,21 @@ MODE_PRIORITY: Dict[str, List[str]] = {
 # Estimation dispatch granularity: pairs per chunk, with a progress
 # tick + interrupt poll between chunks.
 ESTIMATION_CHUNK_PAIRS = 32
+
+
+class EstimationInterrupted(BaseException):
+    """An exception raised by a progress tick inside estimation, carried
+    past the estimator's backend chain.
+
+    The Flow estimator degrades DIS -> TV-L1 -> phase correlation on
+    ``except Exception``; a cancellation raised in a tick must not pass
+    for a failed backend, so the engine's tick re-raises it as this
+    BaseException and the engine unwraps it around the estimator call.
+    """
+
+    @property
+    def original(self) -> BaseException:
+        return self.args[0]
 
 
 def estimation_chunk_spans(n_frames: int, chunk: int = ESTIMATION_CHUNK_PAIRS):
@@ -277,7 +293,10 @@ def stabilize_clip(
     base_mode = transform_mode
 
     def _tick_pairs(done_pairs: int) -> None:
-        _tick(min(int(done_pairs), estimation_steps), progress_total)
+        try:
+            _tick(min(int(done_pairs), estimation_steps), progress_total)
+        except BaseException as exc:
+            raise EstimationInterrupted(exc) from exc
 
     # chunked dispatch only when an observer exists
     tick_pairs_cb = _tick_pairs if (progress is not None or interrupt_check is not None) else None
@@ -285,7 +304,10 @@ def stabilize_clip(
     with timer.stage("grayscale_downscale"):
         grays = R.gray_for_estimation(frames, working_size, decimation=decimation, device=dev)
     with timer.stage("estimation"):
-        fits = estimator(grays, transform_mode, decimation=decimation, tick_pairs=tick_pairs_cb)
+        try:
+            fits = estimator(grays, transform_mode, decimation=decimation, tick_pairs=tick_pairs_cb)
+        except EstimationInterrupted as ei:
+            raise ei.original
     matrices, modes_used, confidences, residuals = sticky_select(transform_mode, fits)
     if working_size is not None:
         matrices = G.rescale_transforms_to_full(matrices, (width, height), working_size)

@@ -46,6 +46,25 @@ NVCC_FLAGS = (
 # the largest grid y or z dimension a launch may have
 MAX_GRID_FRAMES = 65535
 
+
+class KernelError(RuntimeError):
+    """A hand-written kernel could not be built, loaded or launched.
+
+    Raised by this module, and as one of the two subclasses below by a
+    kernel's wrapper that refuses its arguments on the card.  The Flow
+    estimator's backend chain re-raises it instead of degrading to a
+    slower tier, so a broken or refused kernel never passes as a
+    degraded run."""
+
+
+class KernelArgumentError(KernelError, ValueError):
+    """A kernel's wrapper refused the arguments it was to launch with."""
+
+
+class KernelTypeError(KernelError, TypeError):
+    """A kernel's wrapper refused a tensor of the wrong dtype."""
+
+
 LAUNCHES = {"warp": 0, "warp_blur": 0, "cost_volume": 0, "gftt": 0, "lk_gn": 0, "extract_windows": 0}
 
 
@@ -90,7 +109,7 @@ def find_nvcc() -> str:
     for cand in candidates:
         if os.path.isfile(cand) and os.access(cand, os.X_OK):
             return cand
-    raise RuntimeError(
+    raise KernelError(
         "nvcc not found (looked in $CUDA_HOME, $CUDA_PATH, $PATH and the "
         "default toolkit location); the CUDA kernels cannot be built"
     )
@@ -131,13 +150,13 @@ def build() -> pathlib.Path:
         report = [proc.communicate()[0] for _, proc in compiles]
         for (cmd, proc), out in zip(compiles, report):
             if proc.returncode != 0:
-                raise RuntimeError(
+                raise KernelError(
                     f"nvcc failed with exit code {proc.returncode}:\n{' '.join(cmd)}\n{out}"
                 )
         link = [nvcc, "-shared", "-o", str(tmp), *(str(objdir / f"{s}.o") for s in SOURCES)]
         proc = subprocess.run(link, capture_output=True, text=True, check=False)
         if proc.returncode != 0:
-            raise RuntimeError(
+            raise KernelError(
                 f"nvcc failed with exit code {proc.returncode}:\n{' '.join(link)}\n"
                 f"{proc.stdout}\n{proc.stderr}"
             )
@@ -152,7 +171,11 @@ def build() -> pathlib.Path:
 @functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
     """The built kernel library with every entry point's signature set."""
-    lib = ctypes.CDLL(str(build()))
+    path = build()
+    try:
+        lib = ctypes.CDLL(str(path))
+    except OSError as exc:
+        raise KernelError(f"the kernel library {path} does not load: {exc}") from exc
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.cvst_warp.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32, ptr]
     lib.cvst_warp.restype = i32
@@ -179,16 +202,16 @@ def check_launch(err: int, kernel: str) -> None:
     """Raise when a launch was refused (cudaGetLastError() != 0)."""
     if err != 0:
         msg = library().cvst_error_string(err).decode()
-        raise RuntimeError(f"CUDA kernel {kernel!r} failed to launch: error {err} ({msg})")
+        raise KernelError(f"CUDA kernel {kernel!r} failed to launch: error {err} ({msg})")
 
 
 def require_cuda_tensor(name: str, t: torch.Tensor, dtype: torch.dtype, ndim: int) -> None:
     """Validate a kernel argument before its pointer is passed on."""
     if t.device.type != "cuda":
-        raise ValueError(f"{name} must be a CUDA tensor, got device {t.device}")
+        raise KernelArgumentError(f"{name} must be a CUDA tensor, got device {t.device}")
     if t.dtype != dtype:
-        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+        raise KernelTypeError(f"{name} must be {dtype}, got {t.dtype}")
     if t.ndim != ndim:
-        raise ValueError(f"{name} must have {ndim} dims, got shape {tuple(t.shape)}")
+        raise KernelArgumentError(f"{name} must have {ndim} dims, got shape {tuple(t.shape)}")
     if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
+        raise KernelArgumentError(f"{name} must be contiguous")

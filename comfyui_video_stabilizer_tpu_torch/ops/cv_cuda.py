@@ -112,12 +112,13 @@ def cost_volume_subpixel(I: torch.Tensor, Jw: torch.Tensor, radius: int, patch: 
     cuda_build.require_cuda_tensor("I", I, torch.float32, 3)
     cuda_build.require_cuda_tensor("Jw", Jw, torch.float32, 3)
     if I.shape != Jw.shape or I.device != Jw.device:
-        raise ValueError(f"I {tuple(I.shape)} and Jw {tuple(Jw.shape)} must match in shape and device")
+        raise cuda_build.KernelArgumentError(
+            f"I {tuple(I.shape)} and Jw {tuple(Jw.shape)} must match in shape and device")
     if radius not in (2, 3) or patch != 8:
-        raise ValueError(f"K2 takes radius 2 or 3 and patch 8, got {radius} and {patch}")
+        raise cuda_build.KernelArgumentError(f"K2 takes radius 2 or 3 and patch 8, got {radius} and {patch}")
     B, H, W = I.shape
     if B < 1:
-        raise ValueError(f"K2 takes at least one pair, got {B}")
+        raise cuda_build.KernelArgumentError(f"K2 takes at least one pair, got {B}")
     fx = torch.empty_like(I)
     fy = torch.empty_like(I)
     cmin = torch.empty_like(I)

@@ -52,13 +52,13 @@ def extract_windows(stack: torch.Tensor, corners: torch.Tensor, wext: int) -> to
     cuda_build.require_cuda_tensor("corners", corners, torch.int32, 3)
     B, H, W = stack.shape
     if corners.shape[0] != B or corners.shape[2] != 2 or corners.device != stack.device:
-        raise ValueError(
+        raise cuda_build.KernelArgumentError(
             f"corners {tuple(corners.shape)} must be ({B}, F, 2) on {stack.device}"
         )
     F_ = corners.shape[1]
     if B < 1 or F_ < 1 or not 1 <= wext <= 1024:
-        raise ValueError(f"K6 takes B >= 1 frames, F >= 1 and 1 <= wext <= 1024, got "
-                         f"{B}, {F_}, {wext}")
+        raise cuda_build.KernelArgumentError(f"K6 takes B >= 1 frames, F >= 1 and 1 <= wext <= 1024, got "
+                                             f"{B}, {F_}, {wext}")
     out = torch.empty((B, F_, wext, wext), dtype=torch.float32, device=stack.device)
     with torch.cuda.device(stack.device):
         for s, e in cuda_build.frame_spans(B):

@@ -14,17 +14,22 @@ The arithmetic follows the reference op for op, including the
 separable masked-shift pre-warp (not exact bilinear) of
 ``_warp_similarity_device``, which honours the projective row.  The
 homography fit's 8x8 normal equations are solved by
-``torch.linalg.solve`` (LAPACK on the CPU, cuSOLVER on the card).  The
-dense ``dis_flow`` API, its half-res polish and the flow upsampling
-belong to the TV-L1 / phase fallback chain, which is not ported.
+``torch.linalg.solve`` (LAPACK on the CPU, cuSOLVER on the card).
+
+The dense API, :func:`dis_flow`, runs three
+refine rounds at radius 3 (K2 at r = 3), then an LK-only polish at
+level ``finest - 1`` and bilinear upsampling to the input resolution.
+The TV-L1 tier (ops/tvl1.py) shares the pyramid, the pre-warp, the
+fits and the upsampling.
 """
 
 from __future__ import annotations
 
-from typing import List
+from typing import List, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from . import cv_cuda as CV
 from .cv_cuda import edge_pad
@@ -365,6 +370,18 @@ def _warp_similarity_device(img: torch.Tensor, M: torch.Tensor, pad_t: int, radi
     return out
 
 
+def _upsample2_flow(flow: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    """(B, h, w, 2) flow resized bilinearly to (B, out_h, out_w, 2), x 2.
+
+    ``jax.image.resize(..., "bilinear")`` samples at half-pixel centres
+    and renormalises the weights that fall off the edge, which equals
+    ``F.interpolate``'s edge clamp; out_h may be 2h or 2h + 1.
+    """
+    up = F.interpolate(flow.permute(0, 3, 1, 2), size=(out_h, out_w), mode="bilinear",
+                       align_corners=False)
+    return up.permute(0, 2, 3, 1) * 2.0
+
+
 def _scale_up_matrix(M: torch.Tensor) -> torch.Tensor:
     """diag(2, 2, 1) @ M @ diag(0.5, 0.5, 1), written out (exact)."""
     out = M.clone()
@@ -403,8 +420,8 @@ def _dis_levels(grays, coarsest, finest, radius, patch, refine_rounds,
                 model="similarity", lk_mid=False):
     """Coarse-to-fine solve down to ``finest`` (no polish).
 
-    Returns (flow_level, conf_level, M) with flow at level ``finest``
-    resolution in level-pixel units.
+    Returns (flow_level, conf_level, M, pyr_I, pyr_J) with flow at
+    level ``finest`` resolution in level-pixel units.
     """
     b = grays.shape[0] - 1
     pyr = build_pyramid(grays, coarsest)
@@ -434,7 +451,48 @@ def _dis_levels(grays, coarsest, finest, radius, patch, refine_rounds,
         lk_only = 0 < rnd < refine_rounds - 1
         level_radius = radius if rnd == 0 else min(radius, 2)
         flow_level, conf_level = refine_at(finest, M, lk_only=lk_only, level_radius=level_radius)
-    return flow_level, conf_level, M
+    return flow_level, conf_level, M, pyr_I, pyr_J
+
+
+def dis_flow(grays: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Dense flow for all adjacent pairs of a gray clip.
+
+    grays (N, H, W) float 0..255 on any device.  Returns (flow (N-1, H,
+    W, 2) float32 at the input resolution, conf (N-1, Hf, Wf) at the
+    last solved level), on the grays' device.  The levels with three
+    refine rounds and radius-3 cost volumes, then (the reference's
+    ``_dis_flow_fused``) a half-res LK-only polish at level
+    ``finest - 1`` behind the refitted pre-warp, the cost-volume flow
+    kept where its residual exceeds 1 px, then the upsample chain.  The
+    reference's defaults are fixed: FINEST_SCALE, RADIUS, PATCH and the
+    similarity pre-warp.  No node calls it; the Flow estimator samples
+    :func:`dis_flow_fit`.
+    """
+    n, h, w = grays.shape
+    if n < 2:
+        return (torch.zeros((0, h, w, 2), dtype=torch.float32, device=grays.device),
+                torch.zeros((0, h, w), dtype=torch.float32, device=grays.device))
+    grays = grays.to(torch.float32)
+    coarsest = num_levels(h, w)
+    finest = min(FINEST_SCALE, coarsest)
+    flow_level, conf_level, M, pyr_I, pyr_J = _dis_levels(grays, coarsest, finest, RADIUS, PATCH, 3)
+    polish = finest - 1
+    if polish >= 0:
+        M = _scale_up_matrix(_guarded_fit(flow_level, conf_level, M, "similarity"))
+        Il = pyr_I[polish]
+        Jw = _warp_similarity_device(pyr_J[polish], M, pad_t=32, radius=4)
+        r_lk, conf_lk = _lk_refine(Il * (1.0 / 255.0), Jw * (1.0 / 255.0), _make_agg(PATCH))
+        f_up = _upsample2_flow(flow_level, Il.shape[1], Il.shape[2])
+        glob = _compose_flow(M, torch.zeros_like(f_up))
+        r_cv = f_up - glob
+        mag = torch.sqrt(r_cv[..., 0] * r_cv[..., 0] + r_cv[..., 1] * r_cv[..., 1])
+        flow_level = glob + torch.where((mag <= 1.0)[..., None], r_lk, r_cv)
+        conf_level = conf_lk
+        finest = polish
+    flow = flow_level
+    for lvl in range(finest, 0, -1):
+        flow = _upsample2_flow(flow, pyr_I[lvl - 1].shape[1], pyr_I[lvl - 1].shape[2])
+    return flow, conf_level
 
 
 def dis_flow_fit(
@@ -458,8 +516,7 @@ def dis_flow_fit(
     grays = grays.to(torch.float32)
     coarsest = num_levels(h, w)
     finest = min(finest_scale, coarsest)
-    flow_level, _, _ = _dis_levels(grays, coarsest, finest, min(radius, 2), patch, 2,
-                                   model, lk_mid=True)
+    flow_level = _dis_levels(grays, coarsest, finest, min(radius, 2), patch, 2, model, lk_mid=True)[0]
     scale = float(1 << finest)
     lh, lw = flow_level.shape[1], flow_level.shape[2]
     # level-grid indices of the working-res grid, clamped where

@@ -85,7 +85,8 @@ def gftt_scores_gray(g: torch.Tensor) -> torch.Tensor:
     cuda_build.require_cuda_tensor("g", g, torch.float32, 3)
     B, H, W = g.shape
     if B < 1 or H < 1 or W < 1:
-        raise ValueError(f"K4 takes at least one frame of at least 1x1, got {tuple(g.shape)}")
+        raise cuda_build.KernelArgumentError(
+            f"K4 takes at least one frame of at least 1x1, got {tuple(g.shape)}")
     out = torch.empty_like(g)
     with torch.cuda.device(g.device):
         for s, e in cuda_build.frame_spans(B):

@@ -122,13 +122,15 @@ def lk_gn_iterate(jw: torch.Tensor, T: torch.Tensor, gx: torch.Tensor, gy: torch
     for name, t in (("T", T), ("gx", gx), ("gy", gy)):
         cuda_build.require_cuda_tensor(name, t, torch.float32, 3)
         if tuple(t.shape) != (n, WIN, WIN) or t.device != jw.device:
-            raise ValueError(f"{name} must be ({n}, {WIN}, {WIN}) on {jw.device}, got {tuple(t.shape)}")
+            raise cuda_build.KernelArgumentError(
+                f"{name} must be ({n}, {WIN}, {WIN}) on {jw.device}, got {tuple(t.shape)}")
     cuda_build.require_cuda_tensor("scal", scal, torch.float32, 2)
     if tuple(jw.shape[1:]) != (WEXT, WEXT) or tuple(scal.shape) != (n, N_SCAL) or scal.device != jw.device:
-        raise ValueError(f"K5 takes jw (N, {WEXT}, {WEXT}) and scal (N, {N_SCAL}), got "
-                         f"{tuple(jw.shape)} and {tuple(scal.shape)}")
+        raise cuda_build.KernelArgumentError(f"K5 takes jw (N, {WEXT}, {WEXT}) and scal (N, {N_SCAL}), got "
+                                             f"{tuple(jw.shape)} and {tuple(scal.shape)}")
     if not 1 <= n < 2**31 or iters < 0:
-        raise ValueError(f"K5 takes 1 <= N < 2**31 features and iters >= 0, got {n}, {iters}")
+        raise cuda_build.KernelArgumentError(
+            f"K5 takes 1 <= N < 2**31 features and iters >= 0, got {n}, {iters}")
     g = torch.empty((n, 2), dtype=torch.float32, device=jw.device)
     count = torch.empty(n, dtype=torch.int32, device=jw.device)
     with torch.cuda.device(jw.device):

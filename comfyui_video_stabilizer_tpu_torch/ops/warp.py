@@ -236,12 +236,13 @@ def warp_frames(frames: torch.Tensor, coeffs: torch.Tensor, border: torch.Tensor
     cuda_build.require_cuda_tensor("coeffs", coeffs, torch.float32, 2)
     cuda_build.require_cuda_tensor("border", border, torch.float32, 1)
     if coeffs.shape != (n, 8) or border.shape != (c,):
-        raise ValueError(f"coeffs {tuple(coeffs.shape)} / border {tuple(border.shape)} "
-                         f"do not match {n} frames of {c} channels")
+        raise cuda_build.KernelArgumentError(f"coeffs {tuple(coeffs.shape)} / border {tuple(border.shape)} "
+                                             f"do not match {n} frames of {c} channels")
     if not 1 <= c <= 4 or n < 1:
-        raise ValueError(f"K1 takes 1..4 channels and at least one frame, got {c} and {n}")
+        raise cuda_build.KernelArgumentError(
+            f"K1 takes 1..4 channels and at least one frame, got {c} and {n}")
     if coeffs.device != frames.device or border.device != frames.device:
-        raise ValueError("frames, coeffs and border must be on one device")
+        raise cuda_build.KernelArgumentError("frames, coeffs and border must be on one device")
     out = torch.empty((n, out_h, out_w, c), dtype=torch.float32, device=frames.device)
     with torch.cuda.device(frames.device):
         for s, e in cuda_build.frame_spans(n):
@@ -292,17 +293,17 @@ def warp_blur_frames(frames: torch.Tensor, coeffs_s: torch.Tensor, border: torch
     cuda_build.require_cuda_tensor("border", border, torch.float32, 1)
     s = coeffs_s.shape[1]
     if coeffs_s.shape != (n, s, 8) or border.shape != (c,):
-        raise ValueError(f"coeffs_s {tuple(coeffs_s.shape)} / border {tuple(border.shape)} "
-                         f"do not match {n} frames of {c} channels")
+        raise cuda_build.KernelArgumentError(f"coeffs_s {tuple(coeffs_s.shape)} / border {tuple(border.shape)} "
+                                             f"do not match {n} frames of {c} channels")
     if not 1 <= c <= 4 or n < 1 or not 3 <= s <= 33:
-        raise ValueError(f"K3 takes 1..4 channels, at least one frame and 3..33 samples, "
-                         f"got {c}, {n} and {s}")
+        raise cuda_build.KernelArgumentError(f"K3 takes 1..4 channels, at least one frame and 3..33 samples, "
+                                             f"got {c}, {n} and {s}")
     if coeffs_s.device != frames.device or border.device != frames.device:
-        raise ValueError("frames, coeffs_s and border must be on one device")
+        raise cuda_build.KernelArgumentError("frames, coeffs_s and border must be on one device")
     if stats is not None:
         cuda_build.require_cuda_tensor("stats", stats, torch.int64, 1)
         if stats.shape != (3,) or stats.device != frames.device:
-            raise ValueError(f"stats must be a (3,) int64 tensor on {frames.device}")
+            raise cuda_build.KernelArgumentError(f"stats must be a (3,) int64 tensor on {frames.device}")
     out = torch.empty((n, out_h, out_w, c), dtype=torch.float32, device=frames.device)
     mask = torch.empty((n, out_h, out_w), dtype=torch.float32, device=frames.device) if with_mask else None
     with torch.cuda.device(frames.device):

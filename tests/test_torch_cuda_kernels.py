@@ -185,9 +185,9 @@ def test_wrappers_validate_arguments(cuda):
     with pytest.raises(TypeError, match="float32"):
         CV.cost_volume_subpixel(torch.zeros((1, 8, 8), device=cuda, dtype=torch.float64),
                                 torch.zeros((1, 8, 8), device=cuda, dtype=torch.float64), 2, 8)
-    with pytest.raises(ValueError, match="radius"):
+    with pytest.raises(cuda_build.KernelArgumentError, match="radius"):
         CV.cost_volume_subpixel(torch.zeros((1, 8, 8), device=cuda), torch.zeros((1, 8, 8), device=cuda), 4, 8)
-    with pytest.raises(TypeError, match="float32"):
+    with pytest.raises(cuda_build.KernelTypeError, match="float32"):
         GF.gftt_scores_gray(torch.zeros((1, 8, 8), device=cuda, dtype=torch.float64))
     with pytest.raises(ValueError, match="3 dims"):
         GF.gftt_scores_gray(torch.zeros((8, 8), device=cuda))
@@ -230,6 +230,7 @@ def test_slice_on_cuda_launches_kernels_and_matches_cpu(cuda):
     gpu = stabilize_flow(normalize_video_input(frames, device=cuda), *args, device=cuda)
     torch.cuda.synchronize()
     assert cuda_build.LAUNCHES["warp"] == 1 and cuda_build.LAUNCHES["cost_volume"] >= 4
+    assert gpu.meta["flow_backend"] == cpu.meta["flow_backend"] == "DIS"
     tc, tg = cpu.meta["estimated_motion"]["per_transition"], gpu.meta["estimated_motion"]["per_transition"]
     assert [t["mode"] for t in tg] == [t["mode"] for t in tc]
     assert np.abs(np.array([t["matrix"] for t in tg]) - np.array([t["matrix"] for t in tc])).max() <= 1e-3
@@ -352,6 +353,8 @@ def test_perspective_and_crop_on_cuda_match_cpu(cuda, estimator, framing, transf
     gpu = run(normalize_video_input(frames, device=cuda), *args, device=cuda)
     torch.cuda.synchronize()
     assert cuda_build.LAUNCHES["warp"] == 1
+    if estimator == "flow":
+        assert gpu.meta["flow_backend"] == cpu.meta["flow_backend"] == "DIS"
     tc, tg = cpu.meta["estimated_motion"]["per_transition"], gpu.meta["estimated_motion"]["per_transition"]
     assert [t["mode"] for t in tg] == [t["mode"] for t in tc]
     assert gpu.meta["transform_mode_applied"] == cpu.meta["transform_mode_applied"] == transform
@@ -399,6 +402,8 @@ def test_forced_streaming_on_cuda_equals_unstreamed(cuda, monkeypatch, path):
     torch.cuda.synchronize()
     assert ours.frames.device.type == "cpu" and ours.masks.device.type == "cpu"
     assert cuda_build.LAUNCHES["warp_blur" if path == "apply_blur" else "warp"] == 4   # ceil(10 / 3) chunks
+    if path == "flow":
+        assert ours.meta["flow_backend"] == ref.meta["flow_backend"] == "DIS"
     assert torch.equal(ours.frames, ref.frames.cpu()) and torch.equal(ours.masks, ref.masks.cpu())
 
 
@@ -424,3 +429,78 @@ def test_motion_apply_65536_frames_on_cuda_matches_cpu(cuda):
     d = (gpu.frames.cpu() - cpu.frames).abs()
     assert float(torch.quantile(d.flatten()[::61], 0.99)) <= 1e-6
     assert (gpu.masks.cpu() != cpu.masks).float().mean().item() <= 1e-3
+
+
+@pytest.mark.parametrize("tier", ["TVL1", "phase_correlate"])
+def test_flow_fallback_tiers_on_cuda_match_cpu(cuda, monkeypatch, tier):
+    """Each fallback tier forced (DIS, then TV-L1 too, raising): the CUDA
+    path against the CPU path on a small clip, the same backend and
+    reason, per-pair modes equal, matrices <= 1e-3, frames p99 <= 1e-3;
+    K1 launched, K2 not (the DIS tier raised before it)."""
+    from comfyui_video_stabilizer_tpu_torch.models.flow import stabilize_flow
+    from comfyui_video_stabilizer_tpu_torch.ops import flow_dis as FD
+    from comfyui_video_stabilizer_tpu_torch.ops import tvl1 as TV
+    from comfyui_video_stabilizer_tpu_torch.utils.video_io import normalize_video_input
+
+    def outage(*_a, **_k):
+        raise RuntimeError("synthetic backend outage")
+
+    monkeypatch.setattr(FD, "dis_flow_fit", outage)
+    if tier == "phase_correlate":
+        monkeypatch.setattr(TV, "tvl1_flow", outage)
+    frames = _small_clip(11)
+    args = ("crop_and_pad", "similarity", False, 0.8, 0.6, 0.6, (127, 127, 127), 24.0)
+    cpu = stabilize_flow(normalize_video_input(frames, device="cpu"), *args, device="cpu")
+    cuda_build.reset_launches()
+    gpu = stabilize_flow(normalize_video_input(frames, device=cuda), *args, device=cuda)
+    torch.cuda.synchronize()
+    assert cuda_build.LAUNCHES["warp"] == 1 and cuda_build.LAUNCHES["cost_volume"] == 0
+    for key in ("flow_backend", "flow_fallback_reason", "transform_mode_applied"):
+        assert gpu.meta[key] == cpu.meta[key]
+    assert gpu.meta["flow_backend"] == tier
+    tc, tg = cpu.meta["estimated_motion"]["per_transition"], gpu.meta["estimated_motion"]["per_transition"]
+    assert [t["mode"] for t in tg] == [t["mode"] for t in tc]
+    assert np.abs(np.array([t["matrix"] for t in tg]) - np.array([t["matrix"] for t in tc])).max() <= 1e-3
+    d = (gpu.frames.cpu() - cpu.frames).abs()
+    assert float(torch.quantile(d.flatten()[::7], 0.99)) <= 1e-3
+
+
+def test_kernel_error_at_k2_launch_is_not_degraded(cuda, monkeypatch):
+    """K2's launch refused (error 9): stabilize_flow raises KernelError and
+    TV-L1 never runs."""
+    from comfyui_video_stabilizer_tpu_torch.models.flow import stabilize_flow
+    from comfyui_video_stabilizer_tpu_torch.ops import tvl1 as TV
+    from comfyui_video_stabilizer_tpu_torch.utils.video_io import normalize_video_input
+
+    calls = []
+    monkeypatch.setattr(TV, "tvl1_flow", lambda *a: calls.append(1))
+    lib = cuda_build.library()
+    real = lib.cvst_cost_volume
+    lib.cvst_cost_volume = lambda *a: 9
+    try:
+        with pytest.raises(cuda_build.KernelError, match="cost_volume"):
+            stabilize_flow(normalize_video_input(_small_clip(11), device=cuda), "crop_and_pad", "similarity",
+                           False, 0.8, 0.6, 0.6, (127, 127, 127), 24.0, device=cuda)
+    finally:
+        lib.cvst_cost_volume = real
+    assert calls == []
+
+
+def test_dense_dis_flow_on_cuda_matches_cpu(cuda):
+    """Dense dis_flow (K2 at r = 3 on every level, r = 2 in the last
+    round): the CUDA path against the CPU path, flow median <= 1e-4 px
+    and p99 <= 1e-2 px (K2 is bitwise, but the IRLS fits' sums run in
+    another order on the card, so pre-warps differ by ulps and an argmin
+    tie may flip); confidences median <= 1e-4."""
+    from comfyui_video_stabilizer_tpu_torch.ops import flow_dis as FD
+
+    gray = _small_clip(13, n=6, h=150, w=198).mean(dim=-1) * 255.0
+    cpu_flow, cpu_conf = FD.dis_flow(gray)
+    cuda_build.reset_launches()
+    flow, conf = FD.dis_flow(gray.to(cuda))
+    torch.cuda.synchronize()
+    assert cuda_build.LAUNCHES["cost_volume"] >= 3
+    assert flow.shape == cpu_flow.shape == (5, 150, 198, 2)
+    d = (flow.cpu() - cpu_flow).abs()
+    assert float(d.median()) <= 1e-4 and float(torch.quantile(d.flatten(), 0.99)) <= 1e-2
+    assert float((conf.cpu() - cpu_conf).abs().median()) <= 1e-4

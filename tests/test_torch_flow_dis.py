@@ -8,6 +8,17 @@ contracts multiply-adds into FMAs, so costs differ by ulps; a flipped
 argmin tie moves one pixel's cost-volume flow by up to a pixel before
 the 8x8 densification averages it down.  The stages are also compared
 one by one, each with the tolerance stated beside it.
+
+The dense path (``dis_flow``: three refine rounds at radius 3, the
+half-res polish and the upsample chain) runs on a (4, 75, 99) clip,
+whose level sizes are odd (75x99 -> 37x49 -> 18x24), so the upsampling
+takes 2h + 1 outputs.  Tolerances: flow median <= 1e-5 px and max
+<= 1e-3 px, confidence <= 1e-4 (the same FMA ulps; on this clip no
+argmin tie flips).  ``_upsample2_flow``: <= 4e-6 px on unit-scale
+flows; ``F.interpolate`` and ``jax.image.resize`` weigh the same two
+taps (the edge renormalisation equals the clamp), but the sample
+positions (i + 0.5) / (out / in) and (i + 0.5) * (in / out) and the
+weight sums round apart at odd sizes.
 """
 
 import numpy as np
@@ -144,3 +155,42 @@ def test_homography_prewarp_not_ported(level_inputs):
     our_g = TFD._guarded_fit(torch.from_numpy(flow), torch.from_numpy(conf), torch.from_numpy(M),
                              "homography").numpy()
     assert np.abs(our_g - ref_g).max() <= 1e-4
+
+
+@pytest.mark.parametrize("h,w,out_h,out_w", [(18, 24, 36, 48), (12, 16, 25, 33), (5, 7, 11, 14), (9, 12, 19, 24)])
+def test_upsample2_flow_matches(h, w, out_h, out_w):
+    f = np.random.default_rng(h * w).normal(size=(3, h, w, 2)).astype(np.float32)
+    ref = np.asarray(JFD._upsample2_flow(jnp.asarray(f), out_h, out_w))
+    ours = TFD._upsample2_flow(torch.from_numpy(f), out_h, out_w).numpy()
+    assert ours.shape == ref.shape == (3, out_h, out_w, 2)
+    assert np.abs(ours - ref).max() <= 4e-6
+
+
+@pytest.fixture(scope="module")
+def dense():
+    """Both packages' dense ``dis_flow`` on a (4, 75, 99) shaken clip."""
+    base = _scene(115, 139, 3) * 255.0
+    rng = np.random.default_rng(4)
+    frames = []
+    for _ in range(4):
+        m = cv2.getRotationMatrix2D((69.5, 57.5), np.degrees(rng.uniform(-0.01, 0.01)), 1.0)
+        m[:, 2] += rng.uniform(-3, 3, 2)
+        frames.append(cv2.warpAffine(base, m, (139, 115), flags=cv2.INTER_LINEAR)[20:95, 20:119])
+    grays = np.stack(frames).astype(np.float32)
+    ref = tuple(np.asarray(a) for a in JFD.dis_flow(grays))
+    ours = tuple(t.numpy() for t in TFD.dis_flow(torch.from_numpy(grays)))
+    return ref, ours
+
+
+def test_dense_dis_flow_matches(dense):
+    (rf, rc), (of, oc) = dense
+    assert of.shape == rf.shape == (3, 75, 99, 2)
+    assert oc.shape == rc.shape == (3, 37, 49)       # the polish level's confidence
+    d = np.abs(of - rf)
+    assert np.median(d) <= 1e-5 and d.max() <= 1e-3
+    assert np.abs(oc - rc).max() <= 1e-4
+
+
+def test_dense_dis_flow_short_clip():
+    flow, conf = TFD.dis_flow(torch.zeros((1, 20, 30)))
+    assert tuple(flow.shape) == (0, 20, 30, 2) and tuple(conf.shape) == (0, 20, 30)

@@ -5,7 +5,8 @@ there is none.
 The import check runs in a subprocess: this test session imports JAX
 for every test (tests/conftest.py).  It imports every module of the
 port and runs all six nodes on the CPU before it looks, both
-stabilizers also with crop framing and the perspective model.
+stabilizers also with crop framing and the perspective model, the Flow
+node also with each fallback tier forced (TV-L1, phase correlation).
 """
 
 import os
@@ -30,6 +31,7 @@ _CPU_SLICE = textwrap.dedent(
     from comfyui_video_stabilizer_tpu_torch import nodes
     from comfyui_video_stabilizer_tpu_torch.ops import cuda_build, cv_cuda, flow_dis, prng, ransac, resize, warp
     from comfyui_video_stabilizer_tpu_torch.ops import extract_cuda, gftt_cuda, lk, lk_cuda, morphology, pad
+    from comfyui_video_stabilizer_tpu_torch.ops import phase_corr, tvl1
     from comfyui_video_stabilizer_tpu_torch.models import classic, flow, framing, geometry, inverse, motion_apply
     from comfyui_video_stabilizer_tpu_torch.models import shake, stabilize
     from comfyui_video_stabilizer_tpu_torch.meta import motion_meta
@@ -58,6 +60,19 @@ _CPU_SLICE = textwrap.dedent(
                            0.8, 0.6, 0.6, "#7F7F7F", device="cpu")
         assert out[2]["transform_mode_requested"] == "perspective"
         assert out[2]["framing"]["keep_fov_status"] in ("met", "clamped", "failed", "disabled")
+    def outage(*_a, **_k):
+        raise RuntimeError("synthetic backend outage")
+
+    real_dis, real_tvl1 = flow_dis.dis_flow_fit, tvl1.tvl1_flow
+    flow_dis.dis_flow_fit = outage
+    for tier in ("TVL1", "phase_correlate"):
+        if tier == "phase_correlate":
+            tvl1.tvl1_flow = outage
+        out = nodes.VideoStabilizerFlow.execute(
+            torch.from_numpy(frames), 16.0, "crop_and_pad", "similarity", False,
+            0.8, 0.6, 0.6, "#7F7F7F", device="cpu")
+        assert out[2]["flow_backend"] == tier, out[2]["flow_fallback_reason"]
+    flow_dis.dis_flow_fit, tvl1.tvl1_flow = real_dis, real_tvl1
     clip = torch.from_numpy(frames)
     shake_meta = nodes.VideoStabilizerShakeGenerator.execute(clip, 16.0, "handheld", 1.0, 1.0, 3)[0]
     manual = nodes.VideoStabilizerShakeGeneratorManual.execute(
