@@ -11,8 +11,12 @@ Phases (any failure raises and the script exits non-zero):
   4. K2 (cost volume) against its plain version at the slice's level shapes,
      bitwise
   5. the slice: stabilize_flow on a synthetic shaken 1080p x 80-frame clip,
-     with launch counts, output checks, a CPU-path reference on a small
-     clip, and the warm frames/s
+     which takes the fast path (models/fastpath.py) with its estimation
+     from one CUDA graph: the first call's launches (the graph's eager
+     warm-up, its capture and one replay) on a line of their own, then a
+     warm call's launch counts (the kernels line's), the replay, output
+     checks, a CPU-path reference on a small clip (the fast path on both
+     devices), and the warm frames/s
   6. the Flow node on a CPU tensor of 16 frames at 1080p
   7. K4 (GFTT scores from the gray) against its plain version on the
      Classic slice's grays, (79, 540, 960), bitwise, beside the plain
@@ -21,7 +25,8 @@ Phases (any failure raises and the script exits non-zero):
      and (79, 400, 36) on the level-0 stack with the real GFTT corners
   9. K5 (LK Gauss-Newton) against its plain version: one level-0 solve
      on the real clip's windows, with the iteration histogram
- 10. the Classic slice: stabilize_classic on the same 1080p x 80 clip,
+ 10. the Classic slice: stabilize_classic (its fast path, not captured)
+     on the same 1080p x 80 clip,
      with launch counts, output checks, the warm frames/s, the peak
      device memory, the device events of one call under torch.profiler,
      a stage split (K4 apart from the threshold and sort), and BASELINE
@@ -46,15 +51,20 @@ Phases (any failure raises and the script exits non-zero):
      without blur; the Motion Apply, Inverse and both Shake Generator
      nodes on CPU tensors of 16 frames at 1080p
  16. crop framing (keep_fov 0.6) of Flow and Classic on the 1080p x 80
-     clip: status, scale, crop and no padding after a successful refine;
-     the CUDA path against the CPU path on a small clip, crop and
-     perspective, statuses, notes and scale equal
+     clip, through the fast path and through the host engine
+     (CVST_FASTPATH=0): status, scale, crop and no padding after a
+     successful refine; the CUDA path against the CPU path on a small
+     clip, crop and perspective, each engine on both devices, statuses,
+     notes and scale equal
  17. BASELINE config 3: Flow, 1280x720 x 128, crop_and_pad, perspective,
-     camera_lock, 24 fps: per-pair modes, K1 / K2 launches, the warm
+     camera_lock, 24 fps, once through the host engine and once through
+     the fast path: per-pair modes, K1 / K2 launches; the fast path's warm
      frames/s (median of 3); Classic perspective once on the 1080p clip
+     through each engine
  18. forced streaming: Flow, Classic and config 4 on the 1080p clip held
      on the host, the chunk budget lowered to 20 frames, frames and masks
-     bitwise equal to the unstreamed calls
+     bitwise equal to the unstreamed calls (Flow and Classic through the
+     host engine, which a streamed call takes)
  19. Motion Apply on 65,536 frames of 64x64 RGB: K1 splits its launch at
      65,535 frames; the result against the CPU path
  20. BASELINE config 5: Flow, 3840x2160 x 300, expand, the clip held on
@@ -66,25 +76,39 @@ Phases (any failure raises and the script exits non-zero):
      launches in one dense call and the call's time; the CUDA path
      against the CPU path on a small clip
  22. the 1080p x 80 Flow call with DIS forced to raise (TV-L1 tier), then
-     with TV-L1 too (phase correlation): backend, reason string, modes,
-     launches, ms a call, device events and busy share under
+     with TV-L1 too (phase correlation), the graph cache cleared (the
+     fast path then fails and leaves the call to the host engine):
+     backend, reason string, modes, launches, ms a call, device events
+     and busy share under torch.profiler
+ 23. K2's launch refused (error 9), through the fast path (the graph
+     captured anew) and through the host engine: stabilize_flow raises
+     KernelError and no fallback tier runs
+ 24. the host engine's (CVST_FASTPATH=0) 1080p x 80 Flow call's time
+     split: the device stages with a synchronize after each, the host
+     trajectory + meta between the fits' fetch and K1's launch, the tail
+     after the warp, and one call's device events and busy share under
      torch.profiler
- 23. K2's launch refused (error 9): stabilize_flow raises KernelError and
-     no fallback tier runs
- 24. the 1080p x 80 Flow call's time split: the device stages with a
-     synchronize after each, the host trajectory + meta between the
-     fits' fetch and K1's launch, the tail after the warp, and one call's
-     device events and busy share under torch.profiler
- 25. a JSON line per kernel (its time, its plain version's, its bound
+ 25. the 1080p x 80 Flow call through the host engine against the fast
+     path, to the docs/parity.md contract, and the warm calls of both
+ 26. the fused graph: the first call (warm-up + capture) apart from warm
+     calls, the replay alone, bitwise equality with CVST_FUSED=0, the
+     launches of a warm call, its device events under torch.profiler
+     (and the replay's alone)
+ 27. the fast path's Flow split: gray, graph replay, padding stats, K1
+     and the fetch, a synchronize after each
+ 28. a JSON line per kernel (its time, its plain version's, its bound
      and the time of a PyTorch call that computes the same function,
      where one exists; K2 adds its r = 3 figures and the dense call's
      launches), the card line, then {"ok": true, ...} last
 
-Phases 16-17 run after phase 11, 21-24 after phase 12 and ahead of
+Phases 16-17 run after phase 11, 21-27 after phase 12 and ahead of
 phase 13 (once K3's plain version has run, torch.profiler records no
 device event), and 18-20 after phase 15 (config 5 last, alone on the
 card).  Each phase's wall time is printed on a line of its own
-("[time]").
+("[time]").  The card's calls take the fast path by default, as a user's
+do; phases that compare with the host engine say so.  Every phase that
+claims the fast path checks fastpath.SERVED, the count of calls it
+served, so a call that fell back to the host engine fails the phase.
 
 Every kernel's bound is the larger of its bytes over 3.35 TB/s and its
 float32 operations over 67 TFLOP/s (the H100 SXM data sheet), counted
@@ -97,6 +121,8 @@ Exits 2 without printing a result when torch.cuda.is_available() is false.
 
 from __future__ import annotations
 
+import contextlib
+import itertools
 import json
 import os
 import re
@@ -134,6 +160,34 @@ def check(cond: bool, what: str) -> None:
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+@contextlib.contextmanager
+def env(**values):
+    """Set environment variables (the fast-path switches) for a block."""
+    old = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+@contextlib.contextmanager
+def served(kind: str, calls: int, what: str):
+    """Fails unless the fast path served exactly ``calls`` of the block's
+    ``kind`` ("flow" or "classic") calls (0: the host engine ran them all),
+    so a fast path that falls back cannot pass for one that ran."""
+    from comfyui_video_stabilizer_tpu_torch.models import fastpath as FP
+
+    before = FP.SERVED[kind]
+    yield
+    got = FP.SERVED[kind] - before
+    check(got == calls, f"{what}: the fast path served {got} {kind} calls, not {calls}")
 
 
 def nvidia_smi_line() -> str:
@@ -462,13 +516,26 @@ def phase_slice(device, frames):
 
     from comfyui_video_stabilizer_tpu_torch.ops import cuda_build
 
+    from comfyui_video_stabilizer_tpu_torch.models import fastpath as FP
+
     ctx = make_context(frames)
     torch.cuda.synchronize()
+    captures = FP.GRAPH_STATS["captures"]
     cuda_build.reset_launches()
-    res = run_slice(ctx, device)
+    with served("flow", 1, "the slice's first call"):
+        run_slice(ctx, device)
+    torch.cuda.synchronize()
+    log(f"[slice] launches in the first stabilize_flow call (the graph's eager warm-up, its capture and one "
+        f"replay): {dict(cuda_build.LAUNCHES)}")
+    check(FP.GRAPH_STATS["captures"] == captures + 1, "the slice's first call did not capture its CUDA graph")
+    replays = FP.GRAPH_STATS["replays"]
+    cuda_build.reset_launches()
+    with served("flow", 1, "the slice"):
+        res = run_slice(ctx, device)
     torch.cuda.synchronize()
     launches = dict(cuda_build.LAUNCHES)
-    log(f"[slice] launches in one stabilize_flow call: {launches}")
+    log(f"[slice] launches in one warm stabilize_flow call (one graph replay): {launches}; graph {FP.GRAPH_STATS}")
+    check(FP.GRAPH_STATS["replays"] == replays + 1, "the slice's estimation did not run from its CUDA graph")
     check(launches["warp"] >= 1, "K1 was not launched by the slice")
     check(launches["cost_volume"] >= 4, "K2 was launched fewer than 4 times by the slice")
     meta = res.meta
@@ -487,13 +554,14 @@ def phase_slice(device, frames):
     del res
 
     times = []
-    for _ in range(5):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = run_slice(ctx, device)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-        del out
+    with served("flow", 5, "the slice's warm calls"):
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = run_slice(ctx, device)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            del out
     fps = [CLIP_FRAMES / t for t in times]
     log(f"[slice] warm stabilize_flow 1080p x {CLIP_FRAMES}: "
         f"{', '.join(f'{f:.1f}' for f in fps)} f/s; best {max(fps):.1f}, median {float(np.median(fps)):.1f}; "
@@ -503,12 +571,16 @@ def phase_slice(device, frames):
 
 def phase_small_reference(device, run=run_slice, name="reference"):
     """The CUDA path against the CPU path (the plain versions, which the
-    CPU tests hold to the JAX reference) on a small shaken clip."""
+    CPU tests hold to the JAX reference) on a small shaken clip, the fast
+    path on both."""
     import torch
 
     frames = synth_clip(8, 144, 192, seed=9, device="cpu")
-    cpu = run(make_context(frames), "cpu")
-    gpu = run(make_context(frames.to(device)), device)
+    kind = "flow" if run is run_slice else "classic"
+    with served(kind, 2, name):
+        with env(CVST_FASTPATH="1"):  # the CPU takes the fast path too, as the card does
+            cpu = run(make_context(frames), "cpu")
+        gpu = run(make_context(frames.to(device)), device)
     pc = [t["mode"] for t in cpu.meta["estimated_motion"]["per_transition"]]
     pg = [t["mode"] for t in gpu.meta["estimated_motion"]["per_transition"]]
     check(pc == pg, f"per-pair modes differ: {pc} vs {pg}")
@@ -761,25 +833,32 @@ KERNEL_SYMBOLS = {"warp": "warp_kernel", "warp_blur": "warp_blur_kernel", "cost_
                   "gftt": "gftt_gray_kernel", "lk_gn": "lk_gn_kernel", "extract_windows": "extract_kernel"}
 
 
-def profile_call(fn):
-    """torch.profiler over one call: (device events -- kernels and copies
-    --, device busy ms, wall ms); the distinct device event names are kept
-    in LAST_PROFILE_NAMES.  Fails unless the profile holds one event for
-    each hand-kernel launch the call made, so a profiler that drops events
-    is caught where it drops a hand kernel's."""
+def device_events(fn):
+    """(the device events -- kernels and copies -- torch.profiler records
+    over one call of fn, wall ms)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from comfyui_video_stabilizer_tpu_torch.ops import cuda_build
-
     torch.cuda.synchronize()
-    before = dict(cuda_build.LAUNCHES)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = 1e3 * (time.perf_counter() - t0)
-    device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA], wall
+
+
+def profile_call(fn):
+    """torch.profiler over one call: (device events -- kernels and copies
+    --, device busy ms, wall ms); the distinct device event names are kept
+    in LAST_PROFILE_NAMES.  Fails unless the profile holds one event for
+    each hand-kernel launch the call made (a CUDA graph's replay counts
+    its captured launches), so a profiler that drops events is caught
+    where it drops a hand kernel's."""
+    from comfyui_video_stabilizer_tpu_torch.ops import cuda_build
+
+    before = dict(cuda_build.LAUNCHES)
+    device, wall = device_events(fn)
     busy = sum(e.time_range.elapsed_us() for e in device) / 1e3
     LAST_PROFILE_NAMES[:] = sorted({e.name[:48] for e in device})
     for key, sym in KERNEL_SYMBOLS.items():
@@ -797,10 +876,11 @@ def phase_classic(device, frames):
     ctx = make_context(frames)
     torch.cuda.synchronize()
     cuda_build.reset_launches()
-    res = run_classic(ctx, device)
+    with served("classic", 1, "the Classic slice"):
+        res = run_classic(ctx, device)
     torch.cuda.synchronize()
     launches = dict(cuda_build.LAUNCHES)
-    log(f"[classic] launches in one stabilize_classic call: {launches}")
+    log(f"[classic] launches in one stabilize_classic call (the fast path): {launches}")
     check(launches["gftt"] >= 1, "K4 was not launched by the Classic slice")
     check(launches["lk_gn"] >= 4, "K5 was launched fewer than 4 times by the Classic slice")
     check(launches["extract_windows"] >= 8, "K6 was launched fewer than 8 times by the Classic slice")
@@ -828,18 +908,20 @@ def phase_classic(device, frames):
 
     torch.cuda.reset_peak_memory_stats()
     times = []
-    for _ in range(5):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = run_classic(ctx, device)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-        del out
+    with served("classic", 5, "the Classic slice's warm calls"):
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = run_classic(ctx, device)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            del out
     fps = [CLIP_FRAMES / t for t in times]
     log(f"[classic] warm stabilize_classic 1080p x {CLIP_FRAMES}: "
         f"{', '.join(f'{f:.1f}' for f in fps)} f/s; best {max(fps):.1f}, median {float(np.median(fps)):.1f}; "
         f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    n_kernels, busy, wall = profile_call(lambda: run_classic(ctx, device))
+    with served("classic", 1, "the Classic slice's profiled call"):
+        n_kernels, busy, wall = profile_call(lambda: run_classic(ctx, device))
     log(f"[classic] torch.profiler over one call: {n_kernels} device events, device busy {busy:.1f} ms "
         f"of {wall:.1f} ms wall (busy share {busy / wall:.2f} under the profiler); "
         f"{len(LAST_PROFILE_NAMES)} kernel and copy names")
@@ -850,12 +932,13 @@ def phase_classic(device, frames):
     n, h, w = BASELINE1
     small = synth_clip(n, h, w, seed=1, device=device)
     sctx = make_context(small)
-    run_classic(sctx, device)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    out = run_classic(sctx, device)
-    torch.cuda.synchronize()
-    secs = time.perf_counter() - t0
+    with served("classic", 2, "BASELINE config 1"):
+        run_classic(sctx, device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run_classic(sctx, device)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
     modes = {t["mode"] for t in out.meta["estimated_motion"]["per_transition"]}
     check(bool(torch.isfinite(out.frames).all()), "BASELINE config 1: non-finite frames")
     log(f"[classic] BASELINE config 1 ({w}x{h}, {n} frames, similarity, crop_and_pad): warm call "
@@ -1270,40 +1353,50 @@ def flow_stage_split(clip, device, transform, mats, out_size):
 
 def phase_crop(device, frames):
     """Crop framing (keep_fov 0.6) of Flow and Classic on the 1080p x 80
-    clip, then the CUDA path against the CPU path on a small clip, crop
-    and perspective, Flow and Classic."""
+    clip through the fast path and through the host engine
+    (CVST_FASTPATH=0: models/framing.py's keep_fov search and no-padding
+    refine on the card), then the CUDA path against the CPU path on a
+    small clip, crop and perspective, Flow and Classic, each engine on
+    both devices."""
     import torch
 
     from comfyui_video_stabilizer_tpu_torch.ops import cuda_build
 
+    engines = (("fast path", "1"), ("host engine", "0"))
     ctx = make_context(frames)
     for kind in ("flow", "classic"):
-        torch.cuda.synchronize()
-        cuda_build.reset_launches()
-        t0 = time.perf_counter()
-        res = run_stabilizer(kind, ctx, device, framing="crop")
-        torch.cuda.synchronize()
-        secs = time.perf_counter() - t0
-        fr, meta = res.meta["framing"], res.meta
-        check(tuple(res.frames.shape) == (CLIP_FRAMES, HEIGHT, WIDTH, 3), f"crop {kind}: frames {tuple(res.frames.shape)}")
-        check(res.frames.device.type == "cuda" and bool(torch.isfinite(res.frames).all()), f"crop {kind}: frames")
-        refined = fr["keep_fov_effective"] == 1.0
-        log(f"[crop] {kind} 1080p x {CLIP_FRAMES}, keep_fov 0.6: status {fr['keep_fov_status']}, scale "
-            f"{fr['stabilization_scale']}, crop origin {fr['crop_origin']} size {fr['crop_size']}, refine "
-            f"{'succeeded' if refined else 'bailed'}, note {fr.get('keep_fov_note')!r}; padding max "
-            f"{meta['padding_fraction_max']}, strength_effective {meta['strength_effective']}; one call "
-            f"{1e3 * secs:.1f} ms; launches {dict(cuda_build.LAUNCHES)}")
-        check(fr["keep_fov_status"] in ("met", "clamped", "failed", "disabled"), f"crop {kind}: status")
-        if refined:
-            check(meta["padding_fraction_max"] == 0.0 and float(res.masks.max()) == 0.0,
-                  f"crop {kind}: padding remains after a successful refine")
-        del res
+        for engine, flag in engines:
+            torch.cuda.synchronize()
+            cuda_build.reset_launches()
+            t0 = time.perf_counter()
+            with env(CVST_FASTPATH=flag), served(kind, int(flag), f"crop {kind} ({engine})"):
+                res = run_stabilizer(kind, ctx, device, framing="crop")
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            fr, meta = res.meta["framing"], res.meta
+            check(tuple(res.frames.shape) == (CLIP_FRAMES, HEIGHT, WIDTH, 3),
+                  f"crop {kind}: frames {tuple(res.frames.shape)}")
+            check(res.frames.device.type == "cuda" and bool(torch.isfinite(res.frames).all()), f"crop {kind}: frames")
+            check(cuda_build.LAUNCHES["warp"] >= 1, f"crop {kind} ({engine}): K1 was not launched")
+            refined = fr["keep_fov_effective"] == 1.0
+            log(f"[crop] {kind} 1080p x {CLIP_FRAMES}, keep_fov 0.6, {engine}: status {fr['keep_fov_status']}, "
+                f"scale {fr['stabilization_scale']}, crop origin {fr['crop_origin']} size {fr['crop_size']}, refine "
+                f"{'succeeded' if refined else 'bailed'}, note {fr.get('keep_fov_note')!r}; padding max "
+                f"{meta['padding_fraction_max']}, strength_effective {meta['strength_effective']}; one call "
+                f"{1e3 * secs:.1f} ms; launches {dict(cuda_build.LAUNCHES)}")
+            check(fr["keep_fov_status"] in ("met", "clamped", "failed", "disabled"), f"crop {kind}: status")
+            if refined:
+                check(meta["padding_fraction_max"] == 0.0 and float(res.masks.max()) == 0.0,
+                      f"crop {kind} ({engine}): padding remains after a successful refine")
+            del res
 
     small = synth_clip(8, 144, 192, seed=9, device="cpu")
     for kind in ("flow", "classic"):
-        for framing, transform in (("crop", "similarity"), ("crop_and_pad", "perspective")):
-            cpu = run_stabilizer(kind, make_context(small), "cpu", framing, transform)
-            gpu = run_stabilizer(kind, make_context(small.to(device)), device, framing, transform)
+        for (framing, transform), (engine, flag) in itertools.product(
+                (("crop", "similarity"), ("crop_and_pad", "perspective")), engines):
+            with env(CVST_FASTPATH=flag), served(kind, 2 * int(flag), f"crop reference {kind} ({engine})"):
+                cpu = run_stabilizer(kind, make_context(small), "cpu", framing, transform)
+                gpu = run_stabilizer(kind, make_context(small.to(device)), device, framing, transform)
             pc = [t["mode"] for t in cpu.meta["estimated_motion"]["per_transition"]]
             pg = [t["mode"] for t in gpu.meta["estimated_motion"]["per_transition"]]
             mc = np.array([t["matrix"] for t in cpu.meta["estimated_motion"]["per_transition"]])
@@ -1312,7 +1405,7 @@ def phase_crop(device, frames):
             d = (cpu.frames - gpu.frames.cpu()).abs().flatten()
             p99 = float(torch.quantile(d[:: max(1, d.numel() // 1_000_000)], 0.99))
             mat_err = float(np.abs(mc - mg).max())
-            log(f"[crop reference] {kind} {framing} {transform} 8x144x192, CUDA vs CPU path: modes {pg} "
+            log(f"[crop reference] {kind} {framing} {transform} 8x144x192, {engine}, CUDA vs CPU path: modes {pg} "
                 f"(equal {pc == pg}), matrices max|d| {mat_err:.3e}, frames p99 {p99:.3e}; status "
                 f"{fg.get('keep_fov_status')} / {fc.get('keep_fov_status')}, scale {fg.get('stabilization_scale')} "
                 f"/ {fc.get('stabilization_scale')}")
@@ -1332,36 +1425,46 @@ def phase_config3(device, frames):
     n, h, w = BASELINE3
     clip = synth_clip(n, h, w, seed=3, device=device)
     ctx = make_context(clip)
-    torch.cuda.synchronize()
-    cuda_build.reset_launches()
-    res = run_stabilizer("flow", ctx, device, "crop_and_pad", "perspective", lock=True, fps=24.0)
-    torch.cuda.synchronize()
-    launches = dict(cuda_build.LAUNCHES)
-    modes = mode_counts(res.meta)
-    check(tuple(res.frames.shape) == (n, h, w, 3) and bool(torch.isfinite(res.frames).all()), "config 3: frames")
-    check(res.meta["camera_lock"] is True and launches["warp"] >= 1 and launches["cost_volume"] >= 4,
-          f"config 3: launches {launches}")
-    check(modes.get("perspective", 0) > 0, f"config 3: no pair kept the perspective fit: {modes}")
-    res_mats = res.meta["stabilization_warp"]["per_frame"]
-    del res
-    times = []
-    for _ in range(3):
+    for engine, flag in (("host engine", "0"), ("fast path", "1")):
         torch.cuda.synchronize()
+        cuda_build.reset_launches()
         t0 = time.perf_counter()
-        run_stabilizer("flow", ctx, device, "crop_and_pad", "perspective", lock=True, fps=24.0)
+        with env(CVST_FASTPATH=flag), served("flow", int(flag), f"config 3 ({engine})"):
+            res = run_stabilizer("flow", ctx, device, "crop_and_pad", "perspective", lock=True, fps=24.0)
         torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
+        secs = time.perf_counter() - t0
+        launches = dict(cuda_build.LAUNCHES)
+        modes = mode_counts(res.meta)
+        check(tuple(res.frames.shape) == (n, h, w, 3) and bool(torch.isfinite(res.frames).all()),
+              f"config 3 ({engine}): frames")
+        check(res.meta["camera_lock"] is True and launches["warp"] >= 1 and launches["cost_volume"] >= 4,
+              f"config 3 ({engine}): launches {launches}")
+        check(modes.get("perspective", 0) > 0, f"config 3 ({engine}): no pair kept the perspective fit: {modes}")
+        log(f"[config3] Flow {w}x{h} x {n}, perspective + camera_lock, {engine}: per-pair modes {modes}, applied "
+            f"{res.meta['transform_mode_applied']}; launches K1 {launches['warp']}, K2 {launches['cost_volume']}; "
+            f"one call {1e3 * secs:.1f} ms")
+        res_mats = res.meta["stabilization_warp"]["per_frame"]
+        del res
+    times = []
+    with served("flow", 3, "config 3's warm calls"):
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run_stabilizer("flow", ctx, device, "crop_and_pad", "perspective", lock=True, fps=24.0)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
     fps = [n / t for t in times]
-    log(f"[config3] Flow {w}x{h} x {n}, perspective + camera_lock, 24 fps: per-pair modes {modes}; "
+    log(f"[config3] Flow {w}x{h} x {n}, perspective + camera_lock, 24 fps, fast path: per-pair modes {modes}; "
         f"launches K1 {launches['warp']}, K2 {launches['cost_volume']}; warm {', '.join(f'{f:.1f}' for f in fps)} "
         f"f/s, median {float(np.median(fps)):.1f}")
     sim = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        run_stabilizer("flow", ctx, device, "crop_and_pad", "similarity", lock=True, fps=24.0)
-        torch.cuda.synchronize()
-        sim.append(n / (time.perf_counter() - t0))
+    with served("flow", 3, "config 3 with similarity"):
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run_stabilizer("flow", ctx, device, "crop_and_pad", "similarity", lock=True, fps=24.0)
+            torch.cuda.synchronize()
+            sim.append(n / (time.perf_counter() - t0))
     mats = np.array([e["applied_matrix"] for e in res_mats])
     split = {t: flow_stage_split(clip, device, t, mats, (w, h)) for t in ("perspective", "similarity")}
     log(f"[config3] the same call with similarity: warm {', '.join(f'{f:.1f}' for f in sim)} f/s, median "
@@ -1370,16 +1473,21 @@ def phase_config3(device, frames):
     del ctx, clip
 
     ctx = make_context(frames)
-    torch.cuda.synchronize()
-    cuda_build.reset_launches()
-    t0 = time.perf_counter()
-    res = run_stabilizer("classic", ctx, device, "crop_and_pad", "perspective")
-    torch.cuda.synchronize()
-    secs = time.perf_counter() - t0
-    check(bool(torch.isfinite(res.frames).all()), "Classic perspective: non-finite frames")
-    log(f"[config3] Classic perspective 1080p x {CLIP_FRAMES}: per-pair modes {mode_counts(res.meta)}, "
-        f"applied {res.meta['transform_mode_applied']}; one call {1e3 * secs:.1f} ms "
-        f"(cold for the perspective fits); launches {dict(cuda_build.LAUNCHES)}")
+    for engine, flag in (("fast path", "1"), ("host engine", "0")):
+        torch.cuda.synchronize()
+        cuda_build.reset_launches()
+        t0 = time.perf_counter()
+        with env(CVST_FASTPATH=flag), served("classic", int(flag), f"Classic perspective ({engine})"):
+            res = run_stabilizer("classic", ctx, device, "crop_and_pad", "perspective")
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        check(bool(torch.isfinite(res.frames).all()), f"Classic perspective ({engine}): non-finite frames")
+        check(cuda_build.LAUNCHES["warp"] >= 1 and cuda_build.LAUNCHES["lk_gn"] >= 4,
+              f"Classic perspective ({engine}): launches {dict(cuda_build.LAUNCHES)}")
+        log(f"[config3] Classic perspective 1080p x {CLIP_FRAMES}, {engine}: per-pair modes {mode_counts(res.meta)}, "
+            f"applied {res.meta['transform_mode_applied']}; one call {1e3 * secs:.1f} ms "
+            f"({'cold for the perspective fits' if flag == '1' else 'warm fits'}); launches {dict(cuda_build.LAUNCHES)}")
+        del res
     return launches
 
 
@@ -1497,8 +1605,13 @@ def phase_fallback_tiers(device, frames):
         "phase_correlate": "DIS unavailable (synthetic backend outage; TV-L1 failed (synthetic backend "
                            "outage)); using phase correlation.",
     }
+    from comfyui_video_stabilizer_tpu_torch.models import fastpath as FP
+
     real_dis, real_tvl1 = FD.dis_flow_fit, TV.tvl1_flow
     result = {}
+    # a captured graph replays DIS without calling the patched function: with
+    # none, the fast path calls it, fails and leaves the call to the host engine
+    FP.clear_graph_cache()
     try:
         FD.dis_flow_fit = forced_outage
         for tier in ("TVL1", "phase_correlate"):
@@ -1545,23 +1658,28 @@ def phase_kernel_error(device, frames):
     from comfyui_video_stabilizer_tpu_torch.ops import cuda_build
     from comfyui_video_stabilizer_tpu_torch.ops import tvl1 as TV
 
+    from comfyui_video_stabilizer_tpu_torch.models import fastpath as FP
+
     lib = cuda_build.library()
     real_k2, real_tvl1 = lib.cvst_cost_volume, TV.tvl1_flow
-    tiers = []
-    lib.cvst_cost_volume = lambda *_a: 9
-    TV.tvl1_flow = lambda *a: tiers.append("TV-L1") or real_tvl1(*a)
-    try:
-        run_slice(make_context(frames), device)
-    except cuda_build.KernelError as exc:
-        raised = exc
-    else:
-        raised = None
-    finally:
-        lib.cvst_cost_volume, TV.tvl1_flow = real_k2, real_tvl1
-    log(f"[kernel error] K2 launch refused: stabilize_flow raised {type(raised).__name__}: {raised}; "
-        f"fallback tiers run: {tiers}")
-    check(raised is not None, "a refused K2 launch did not make stabilize_flow raise KernelError")
-    check(not tiers, "a fallback tier ran after a kernel failure")
+    for engine, flag in (("fast path", "1"), ("host engine", "0")):
+        tiers = []
+        FP.clear_graph_cache()  # the graph's capture launches K2 through the stub
+        lib.cvst_cost_volume = lambda *_a: 9
+        TV.tvl1_flow = lambda *a: tiers.append("TV-L1") or real_tvl1(*a)
+        try:
+            with env(CVST_FASTPATH=flag):
+                run_slice(make_context(frames), device)
+        except cuda_build.KernelError as exc:
+            raised = exc
+        else:
+            raised = None
+        finally:
+            lib.cvst_cost_volume, TV.tvl1_flow = real_k2, real_tvl1
+        log(f"[kernel error] {engine}: K2 launch refused: stabilize_flow raised {type(raised).__name__}: "
+            f"{raised}; fallback tiers run: {tiers}")
+        check(raised is not None, f"{engine}: a refused K2 launch did not make stabilize_flow raise KernelError")
+        check(not tiers, f"{engine}: a fallback tier ran after a kernel failure")
 
 
 def phase_flow_split(device, frames):
@@ -1583,6 +1701,7 @@ def phase_flow_split(device, frames):
     split = [flow_stage_split(frames, device, "similarity", mats, (WIDTH, HEIGHT)) for _ in range(3)]
     ctx = make_context(frames)
     marks: dict = {}
+    os.environ["CVST_FASTPATH"] = "0"  # this phase splits the host engine's call
 
     def stamped(fn, before, after):
         def wrapper(*a, **k):
@@ -1609,21 +1728,183 @@ def phase_flow_split(device, frames):
             torch.cuda.synchronize()
             marks["end"] = time.perf_counter()
             timeline.append([1e3 * (marks[b] - marks[a]) for a, b in zip(edges, edges[1:])])
+        n_events, busy, wall = profile_call(lambda: run_slice(ctx, device))
     finally:
         for (mod, name, _, _), fn in zip(patched, real):
             setattr(mod, name, fn)
+        os.environ.pop("CVST_FASTPATH")
     timeline = np.array(timeline[1:])
     host = timeline[:, 2]
-    n_events, busy, wall = profile_call(lambda: run_slice(ctx, device))
-    log(f"[flow split] 1080p x {CLIP_FRAMES} Flow, crop_and_pad, ms (median of 3, synchronize after each device "
+    log(f"[flow split] host engine (CVST_FASTPATH=0): 1080p x {CLIP_FRAMES} Flow, crop_and_pad, ms (median of 3, "
+        "synchronize after each device "
         "stage): " + ", ".join(f"{k} {float(np.median([s[k] for s in split])):.2f}" for k in split[0]))
     log("[flow split] inside warm calls (host stamps, median of 3): "
         + ", ".join(f"{k} {float(np.median(timeline[:, i])):.2f}" for i, k in enumerate(spans))
         + f"; whole call {float(np.median(timeline.sum(axis=1))):.1f}; host trajectory + meta runs "
         f"{[round(float(h), 2) for h in host]}")
-    log(f"[flow split] torch.profiler over one DIS call: {n_events} device events, busy {busy:.1f} ms of "
+    log(f"[flow split] torch.profiler over one host-engine DIS call: {n_events} device events, busy {busy:.1f} ms of "
         f"{wall:.1f} ms wall (busy share {busy / wall:.2f} under the profiler)")
     return float(np.median(host))
+
+
+def phase_fast_vs_host(device, frames):
+    """The 1080p x 80 Flow crop_and_pad call through the host engine
+    (CVST_FASTPATH=0) against the fast path, to the docs/parity.md
+    contract: per-pair modes equal, path <= 1e-3, applied matrices
+    <= 2e-3, frames p99 <= 1e-3 and max <= 1e-2, masks unequal on <= 0.1 %
+    of pixels (a round-half-even coverage tie flips on a one-ulp
+    coefficient: the fast path inverts on the card in float32, the host
+    engine in float64); the warm calls of both, in turns."""
+    import torch
+
+    from comfyui_video_stabilizer_tpu_torch.ops import cuda_build
+
+    ctx = make_context(frames)
+    with served("flow", 1, "fast vs host: the fast path"):
+        fast = run_slice(ctx, device)
+    with env(CVST_FASTPATH="0"), served("flow", 0, "fast vs host: the host engine"):
+        torch.cuda.synchronize()
+        cuda_build.reset_launches()
+        host = run_slice(ctx, device)
+        torch.cuda.synchronize()
+        host_launches = dict(cuda_build.LAUNCHES)
+    fm, hm = fast.meta, host.meta
+    check(mode_counts(fm) == mode_counts(hm) and [t["mode"] for t in fm["estimated_motion"]["per_transition"]]
+          == [t["mode"] for t in hm["estimated_motion"]["per_transition"]], "fast vs host: per-pair modes differ")
+    path_err = float(np.abs(np.array(fm["estimated_motion"]["path"]) - np.array(hm["estimated_motion"]["path"])).max())
+    applied = [np.array([e["applied_matrix"] for e in m["stabilization_warp"]["per_frame"]]) for m in (fm, hm)]
+    app_err = float(np.abs(applied[0] - applied[1]).max())
+    d = (fast.frames - host.frames).abs().flatten()
+    p99 = float(torch.quantile(d[:: max(1, d.numel() // 1_000_000)], 0.99))
+    fmax = float(d.max())
+    del d
+    unequal = float((fast.masks != host.masks).float().mean())
+    pad = abs(fm["padding_fraction_mean"] - hm["padding_fraction_mean"])
+    del fast, host
+    times = {"fast": [], "host": []}
+    for which in ("host", "fast", "fast", "host"):
+        with env(CVST_FASTPATH="1" if which == "fast" else "0"), served("flow", 2 * (which == "fast"), which):
+            times[which] += timed_calls(lambda: run_slice(ctx, device), 2)
+    med = {k: float(np.median(v)) for k, v in times.items()}
+    log(f"[fast vs host] 1080p x {CLIP_FRAMES} Flow crop_and_pad similarity: modes equal; path max|d| "
+        f"{path_err:.3e}, applied matrices {app_err:.3e}, frames p99 {p99:.3e} max {fmax:.3e}, masks unequal on "
+        f"{unequal:.2e} of pixels, padding mean |d| {pad:.2e}; host engine launches {host_launches}; warm calls "
+        f"(host, fast, fast, host turns) host {[round(t, 1) for t in times['host']]} ms, fast "
+        f"{[round(t, 1) for t in times['fast']]} ms; medians host {med['host']:.1f} ms "
+        f"({CLIP_FRAMES / med['host'] * 1e3:.1f} f/s), fast {med['fast']:.1f} ms ({CLIP_FRAMES / med['fast'] * 1e3:.1f} f/s)")
+    check(path_err <= 1e-3 and app_err <= 2e-3, f"fast vs host: path {path_err}, applied {app_err}")
+    check(p99 <= 1e-3 and fmax <= 1e-2, f"fast vs host: frames p99 {p99}, max {fmax}")
+    check(unequal <= 1e-3 and pad <= 1e-3, f"fast vs host: masks unequal on {unequal}, padding {pad}")
+    return med
+
+
+def phase_fused(device, frames):
+    """The fused Flow graph at 1080p x 80: the first call after the cache is
+    cleared (eager warm-up, capture, replay) timed apart from warm calls;
+    the graph's replay alone (CUDA events); the call bitwise equal to the
+    eager fast path (CVST_FUSED=0) in frames, masks and every meta matrix;
+    the launches of a warm call; the device events of one call under
+    torch.profiler, and those of the replay alone."""
+    import torch
+
+    from comfyui_video_stabilizer_tpu_torch.models import fastpath as FP
+    from comfyui_video_stabilizer_tpu_torch.ops import cuda_build
+
+    ctx = make_context(frames)
+    FP.clear_graph_cache()
+    captures = FP.GRAPH_STATS["captures"]
+    with served("flow", 1, "fused: the first call"):
+        first_ms = timed_calls(lambda: run_slice(ctx, device), 1)[0]
+    check(FP.GRAPH_STATS["captures"] == captures + 1, "the first call did not capture a graph")
+    torch.cuda.synchronize()
+    cuda_build.reset_launches()
+    with served("flow", 1, "fused: a warm call"):
+        fused = run_slice(ctx, device)
+    torch.cuda.synchronize()
+    launches = dict(cuda_build.LAUNCHES)
+    check(launches["cost_volume"] >= 4 and launches["warp"] == 1, f"fused: launches {launches}")
+    with env(CVST_FUSED="0"), served("flow", 1, "fused: CVST_FUSED=0"):
+        replays = FP.GRAPH_STATS["replays"]
+        eager = run_slice(ctx, device)
+        check(FP.GRAPH_STATS["replays"] == replays, "CVST_FUSED=0 replayed the graph")
+    equal = {"frames": bool(torch.equal(fused.frames, eager.frames)),
+             "masks": bool(torch.equal(fused.masks, eager.masks))}
+    for key in ("path", "target_path", "target_path_effective", "per_transition"):
+        equal[key] = fused.meta["estimated_motion"][key] == eager.meta["estimated_motion"][key]
+    equal["applied"] = fused.meta["stabilization_warp"] == eager.meta["stabilization_warp"]
+    del fused, eager
+    check(all(equal.values()), f"the fused graph differs from the eager fast path: {equal}")
+    times = {"fused": [], "eager": []}
+    for which in ("eager", "fused", "fused", "eager"):
+        with env(CVST_FUSED="1" if which == "fused" else "0"):
+            times[which] += timed_calls(lambda: run_slice(ctx, device), 2)
+    entry = next(reversed(FP._GRAPHS.values()))
+    replay_ms = cuda_ms(entry.graph.replay, 10)
+    n_events, busy, wall = profile_call(lambda: run_slice(ctx, device))
+    graph_events, _ = device_events(entry.graph.replay)
+    outside = n_events - len(graph_events)
+    med = {k: float(np.median(v)) for k, v in times.items()}
+    log(f"[fused] 1080p x {CLIP_FRAMES} Flow crop_and_pad similarity: bitwise equal to CVST_FUSED=0 {equal}; "
+        f"first call (eager warm-up + capture + replay) {first_ms:.1f} ms; warm calls (eager, fused, fused, eager "
+        f"turns) fused {[round(t, 1) for t in times['fused']]} ms, eager {[round(t, 1) for t in times['eager']]} ms; "
+        f"medians fused {med['fused']:.1f} ms ({CLIP_FRAMES / med['fused'] * 1e3:.1f} f/s), eager {med['eager']:.1f} ms "
+        f"({CLIP_FRAMES / med['eager'] * 1e3:.1f} f/s); the replay alone {replay_ms:.2f} ms (CUDA events); "
+        f"launches of a warm call {launches}")
+    log(f"[fused] torch.profiler over one call: {n_events} device events ({len(graph_events)} in the replay "
+        f"alone, {outside} outside it), busy {busy:.1f} ms of {wall:.1f} ms wall (busy share {busy / wall:.2f} "
+        "under the profiler)")
+    return {"first_ms": first_ms, "fused_ms": med["fused"], "eager_ms": med["eager"], "replay_ms": replay_ms,
+            "events": n_events, "graph_events": len(graph_events), "launches": launches}
+
+
+def phase_fast_split(device, frames):
+    """The fast path's 1080p x 80 Flow call stage by stage, a synchronize
+    after each (median of 3): the gray, the graph replay (with the copy of
+    the grays in and of the outputs out), the padding stats, K1 and the
+    one diagnostics fetch; the whole warm call beside them."""
+    import torch
+
+    from comfyui_video_stabilizer_tpu_torch.models import fastpath as FP
+    from comfyui_video_stabilizer_tpu_torch.models.flow import flow_estimator
+    from comfyui_video_stabilizer_tpu_torch.models.stabilize import estimation_plan
+    from comfyui_video_stabilizer_tpu_torch.ops import resize as R
+    from comfyui_video_stabilizer_tpu_torch.ops import warp as W
+
+    working, dec = estimation_plan(WIDTH, HEIGHT, flow_estimator)
+    strength, _, keep_fov, window, scale_xy = FP._trajectory_args(0.8, 0.6, 30.0, False, 0.6, WIDTH, HEIGHT,
+                                                                   working)
+    kw = dict(decimation=dec, seed=0, mode="similarity", camera_lock=False, window=window, width=WIDTH,
+              height=HEIGHT, scale_xy=scale_xy)
+    border = torch.full((3,), 127 / 255.0, device=device)
+    splits = []
+    for _ in range(3):
+        ms = {}
+
+        def stage(name, fn):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            ms[name] = round(1e3 * (time.perf_counter() - t0), 2)
+            return out
+
+        grays = stage("gray", lambda: R.gray_for_estimation(frames, working, decimation=dec))
+        captures = FP.GRAPH_STATS["captures"]
+        out = stage("graph replay", lambda: FP._fused_flow_estimate(grays, strength, keep_fov, kw))
+        check(FP.GRAPH_STATS["captures"] == captures, "the split captured a new graph")
+        masks, ratios = stage("padding stats", lambda: W.padding_stats(out["coeffs"], HEIGHT, WIDTH, HEIGHT, WIDTH))
+        stage("K1", lambda: W.warp_frames(frames, out["coeffs"], border, HEIGHT, WIDTH, "bilinear"))
+        stage("fetch", lambda: FP._fetch({**{k: out[k] for k in FP.DIAG_KEYS}, "ratios": ratios}))
+        splits.append(ms)
+        del grays, out, masks, ratios
+    ctx = make_context(frames)
+    whole = timed_calls(lambda: run_slice(ctx, device), 3)
+    med = {k: float(np.median([s[k] for s in splits])) for k in splits[0]}
+    log(f"[fast split] 1080p x {CLIP_FRAMES} Flow crop_and_pad, the fast path, ms (median of 3, synchronize after "
+        "each stage): " + ", ".join(f"{k} {v:.2f}" for k, v in med.items())
+        + f"; sum {sum(med.values()):.2f}; whole warm call {[round(t, 1) for t in whole]}, median "
+        f"{float(np.median(whole)):.1f}")
+    return med
 
 
 def host_available_bytes() -> int:
@@ -1738,7 +2019,8 @@ def phase_config5(device):
 def phase_forced_streaming(device, frames, meta4):
     """Flow, Classic and Motion Apply config 4 on the 1080p x 80 clip held
     on the host, with the chunk budget lowered to 20 frames, against the
-    same calls unstreamed: frames and masks bitwise."""
+    same calls unstreamed (Flow and Classic through the host engine, which
+    a streamed call takes): frames and masks bitwise."""
     import torch
 
     from comfyui_video_stabilizer_tpu_torch.ops import cuda_build
@@ -1752,7 +2034,9 @@ def phase_forced_streaming(device, frames, meta4):
     }
     budget = W.CHUNK_BUDGET_BYTES
     for name, run in runs.items():
-        ref = run()
+        # a streamed call goes through the host engine: so does its reference
+        with env(CVST_FASTPATH="0"):
+            ref = run()
         ref_frames, ref_masks = ref.frames.cpu(), ref.masks.cpu()
         del ref
         W.CHUNK_BUDGET_BYTES = 20 * W.clip_device_bytes(1, HEIGHT, WIDTH, HEIGHT, WIDTH)
@@ -1872,6 +2156,9 @@ def main() -> int:
     tier_ms = timed_phase("fallback tiers", phase_fallback_tiers, device, frames)
     timed_phase("kernel error", phase_kernel_error, device, frames)
     host_ms = timed_phase("Flow split", phase_flow_split, device, frames)
+    fast_host = timed_phase("fast vs host", phase_fast_vs_host, device, frames)
+    fused = timed_phase("fused graph", phase_fused, device, frames)
+    fast_split = timed_phase("fast split", phase_fast_split, device, frames)
     k3 = timed_phase("K3", phase_k3, device, frames, meta4)
     timed_phase("config 2", phase_config2, device)
     timed_phase("Motion Apply reference", phase_apply_reference, device)
@@ -1887,6 +2174,11 @@ def main() -> int:
     log(f"[summary] dense dis_flow 960x540 x {CLIP_FRAMES} {dense_ms:.1f} ms; Flow 1080p x {CLIP_FRAMES} with "
         f"TV-L1 {tier_ms['TVL1']:.1f} ms, with phase correlation {tier_ms['phase_correlate']:.1f} ms; host "
         f"trajectory + meta between the fits' fetch and K1's launch {host_ms:.2f} ms")
+    log(f"[summary] {smi}: fast path, Flow 1080p x {CLIP_FRAMES} crop_and_pad: from its CUDA graph {fused['fused_ms']:.1f} ms "
+        f"({CLIP_FRAMES / fused['fused_ms'] * 1e3:.1f} f/s), eager {fused['eager_ms']:.1f} ms, host engine "
+        f"{fast_host['host']:.1f} ms; first call with the capture {fused['first_ms']:.1f} ms; the replay alone "
+        f"{fused['replay_ms']:.2f} ms; {fused['events']} device events a call ({fused['graph_events']} in the graph); "
+        f"launches {fused['launches']}; split {fast_split}")
     check("jax" not in sys.modules, "jax was imported")
     jax_pkg = [m for m in sys.modules if m.split(".")[0] == "comfyui_video_stabilizer_tpu"]
     check(not jax_pkg, f"modules of the JAX package were imported: {sorted(jax_pkg)}")

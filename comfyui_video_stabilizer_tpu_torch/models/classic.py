@@ -12,8 +12,11 @@ Acceptance contract (the reference's thresholds):
   similarity:  >=3 points, RANSAC inlier ratio >= 0.1
   translation: always accepted; confidence = survivors / detected
 
-The JAX package's zero-sync fast path (``_classic_fast_path``,
-``models/fastpath.py``) is not ported; its host engine is.
+On the card (and on the CPU with ``CVST_FASTPATH=1``) the engine first
+offers crop, crop_and_pad and expand calls to the zero-sync fast path
+(``classic_estimator.fast_path``, models/fastpath.py): the same tracks
+and fits, the trajectory on the device.  Its one host read before the
+warp is the corner greedy's (ops/lk.py::gftt_batch).
 """
 
 from __future__ import annotations
@@ -36,27 +39,37 @@ PERSP_MIN_RATIO = 0.15
 SIM_MIN_RATIO = 0.1
 
 
-def _fused_classic_fits(pts, tracked, status, seed: int, want_persp: bool, n_hyp: int) -> Dict[str, np.ndarray]:
+def _fused_classic_fits_device(pts, tracked, status, seed: int, want_persp: bool,
+                               n_hyp: int) -> Tuple[torch.Tensor, ...]:
     """Survivor counts, the perspective RANSAC (key salt 0, with
     ``want_persp``), the similarity RANSAC (salt 1) and the median
-    translation of every pair; one fetch brings them to the host."""
+    translation of every pair, as device tensors in the order the fast
+    path's trajectory program unpacks them: survivors, [H, its inliers,
+    valid counts,] S, its inliers, valid counts, T."""
     b = pts.shape[0]
     dev = pts.device
 
     def keys(salt):
         return prng.fold_in(prng.PRNGKey(seed + salt, device=dev), torch.arange(b, device=dev))
 
-    out = {"surv": status.sum(1)}
+    out = [status.sum(1)]
     if want_persp:
-        H, n_in, n_valid = RS.ransac_fit(keys(0), pts, tracked, status, "perspective", n_hyp, RS.PERSP_THRESH)
-        out.update(H=H, nH=n_in, vH=n_valid)
-    S, n_in, n_valid = RS.ransac_fit(keys(1), pts, tracked, status, "similarity", n_hyp, RS.SIM_THRESH)
+        out += list(RS.ransac_fit(keys(0), pts, tracked, status, "perspective", n_hyp, RS.PERSP_THRESH))
+    out += list(RS.ransac_fit(keys(1), pts, tracked, status, "similarity", n_hyp, RS.SIM_THRESH))
     med = RS.masked_median_shift(pts, tracked, status)
     T = torch.eye(3, dtype=torch.float32, device=dev).repeat(b, 1, 1)
     T[:, 0, 2] = med[:, 0]
     T[:, 1, 2] = med[:, 1]
-    out.update(S=S, nS=n_in, vS=n_valid, T=T)
-    return {k: v.cpu().numpy() for k, v in out.items()}
+    out.append(T)
+    return tuple(out)
+
+
+def _fused_classic_fits(pts, tracked, status, seed: int, want_persp: bool, n_hyp: int) -> Dict[str, np.ndarray]:
+    """:func:`_fused_classic_fits_device`; one fetch brings them to the
+    host as numpy arrays keyed surv, [H, nH, vH,] S, nS, vS, T."""
+    names = ("surv",) + (("H", "nH", "vH") if want_persp else ()) + ("S", "nS", "vS", "T")
+    fits = _fused_classic_fits_device(pts, tracked, status, seed, want_persp, n_hyp)
+    return {k: v.cpu().numpy() for k, v in zip(names, fits)}
 
 
 def _tracks(grays: torch.Tensor):
@@ -121,6 +134,17 @@ def classic_estimator(grays: torch.Tensor, requested_mode: str, *, seed: int = 0
         accepted=accepted,
         residuals=None,
     )
+
+
+def _classic_fast_path(*args, **kwargs):
+    """Engine hook: the device pipeline for crop / crop_and_pad / expand
+    (models/fastpath.py); None leaves the call to the host engine."""
+    from . import fastpath
+
+    return fastpath.offer("classic", fastpath.run_classic_fast, *args, **kwargs)
+
+
+classic_estimator.fast_path = _classic_fast_path
 
 
 def stabilize_classic(

@@ -20,6 +20,12 @@ Every other exception, out-of-memory included, degrades as in the
 reference.  An interrupt raised in a progress tick arrives as the
 engine's ``EstimationInterrupted``, a BaseException, and passes
 through.
+
+On the card (and on the CPU with ``CVST_FASTPATH=1``) the engine first
+offers crop, crop_and_pad and expand calls to the zero-sync fast path
+(``flow_estimator.fast_path``, models/fastpath.py), which runs the same
+DIS and fits with the trajectory on the device; a fast path that gives
+up leaves the call to this estimator.
 """
 
 from __future__ import annotations
@@ -57,11 +63,13 @@ def _grid_points(h: int, w: int, step: int, device: torch.device | str) -> torch
     return torch.stack([gx.reshape(-1), gy.reshape(-1)], dim=1)
 
 
-def _fused_fits_sampled(samples: torch.Tensor, pts: torch.Tensor, seed: int, want_persp: bool,
-                        n_hyp: int) -> Dict[str, np.ndarray]:
+def _fused_fits_device(samples: torch.Tensor, pts: torch.Tensor, seed: int, want_persp: bool,
+                       n_hyp: int) -> Tuple[torch.Tensor, ...]:
     """Perspective RANSAC (key salt 0, with ``want_persp``), similarity
     RANSAC (salt 1), median translation and residuals, all pairs at
-    once; the results come back to the host as numpy arrays."""
+    once, as device tensors in the order the fast path's trajectory
+    program unpacks them: valid counts, [H, its inliers, valid counts,
+    residuals,] S, its inliers, valid counts, residuals, T, residuals."""
     b = samples.shape[0]
     dev = samples.device
     prev_pts = pts[None].expand(samples.shape)
@@ -71,19 +79,29 @@ def _fused_fits_sampled(samples: torch.Tensor, pts: torch.Tensor, seed: int, wan
     def keys(salt):
         return prng.fold_in(prng.PRNGKey(seed + salt, device=dev), torch.arange(b, device=dev))
 
-    out = {"valid_counts": valid.sum(1)}
+    out = [valid.sum(1)]
     if want_persp:
         H, n_in, n_valid = RS.ransac_fit(keys(0), prev_pts, curr_pts, valid, "perspective", n_hyp,
                                          RS.PERSP_THRESH)
-        out.update(H=H, nH=n_in, vH=n_valid, rH=RS.residuals(H, prev_pts, curr_pts, valid))
+        out += [H, n_in, n_valid, RS.residuals(H, prev_pts, curr_pts, valid)]
     S, n_in, n_valid = RS.ransac_fit(keys(1), prev_pts, curr_pts, valid, "similarity", n_hyp, RS.SIM_THRESH)
     med = RS.masked_median_shift(prev_pts, curr_pts, valid)
     T = torch.eye(3, dtype=torch.float32, device=dev).repeat(b, 1, 1)
     T[:, 0, 2] = med[:, 0]
     T[:, 1, 2] = med[:, 1]
-    out.update(S=S, nS=n_in, vS=n_valid, rS=RS.residuals(S, prev_pts, curr_pts, valid),
-               T=T, rT=RS.residuals(T, prev_pts, curr_pts, valid))
-    return {k: v.cpu().numpy() for k, v in out.items()}
+    out += [S, n_in, n_valid, RS.residuals(S, prev_pts, curr_pts, valid),
+            T, RS.residuals(T, prev_pts, curr_pts, valid)]
+    return tuple(out)
+
+
+def _fused_fits_sampled(samples: torch.Tensor, pts: torch.Tensor, seed: int, want_persp: bool,
+                        n_hyp: int) -> Dict[str, np.ndarray]:
+    """:func:`_fused_fits_device`, brought to the host as numpy arrays
+    keyed valid_counts, [H, nH, vH, rH,] S, nS, vS, rS, T, rT."""
+    names = (("valid_counts",) + (("H", "nH", "vH", "rH") if want_persp else ())
+             + ("S", "nS", "vS", "rS", "T", "rT"))
+    fits = _fused_fits_device(samples, pts, seed, want_persp, n_hyp)
+    return {k: v.cpu().numpy() for k, v in zip(names, fits)}
 
 
 def _gray_decimation(width: int, height: int, working_size) -> int:
@@ -200,6 +218,17 @@ def flow_estimator(
 
 # engine hook: stabilize_clip consults this to produce pre-decimated grays
 flow_estimator.gray_decimation = _gray_decimation
+
+
+def _flow_fast_path(*args, **kwargs):
+    """Engine hook: the device pipeline for crop / crop_and_pad / expand
+    (models/fastpath.py); None leaves the call to the host engine."""
+    from . import fastpath
+
+    return fastpath.offer("flow", fastpath.run_flow_fast, *args, **kwargs)
+
+
+flow_estimator.fast_path = _flow_fast_path
 
 
 def stabilize_flow(

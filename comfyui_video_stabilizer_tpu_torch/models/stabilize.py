@@ -18,8 +18,14 @@ Counterpart of the host engine of
 
 Geometry and motion_meta are the port's copies of the JAX package's
 host modules (numpy, the same code), so the meta contract is
-identical.  The port has no fast path: it is the JAX package's host
-engine.
+identical.
+
+Before step 2 the engine offers crop, crop_and_pad and expand calls to
+the estimator's ``fast_path`` (models/fastpath.py), as the JAX engine
+does: steps 2-8 on the device with one diagnostics fetch, returning the
+host values the meta assembly below needs.  It runs by default on CUDA
+frames (``CVST_FASTPATH=0/1`` overrides); when it declines or gives up
+(None), the host engine above runs the call.
 
 A clip whose warp-stage live set exceeds ``ops/warp.py``'s
 ``CHUNK_BUDGET_BYTES`` is never uploaded whole: its grays are made 16
@@ -301,34 +307,61 @@ def stabilize_clip(
     # chunked dispatch only when an observer exists
     tick_pairs_cb = _tick_pairs if (progress is not None or interrupt_check is not None) else None
 
-    with timer.stage("grayscale_downscale"):
-        grays = R.gray_for_estimation(frames, working_size, decimation=decimation, device=dev)
-    with timer.stage("estimation"):
-        try:
-            fits = estimator(grays, transform_mode, decimation=decimation, tick_pairs=tick_pairs_cb)
-        except EstimationInterrupted as ei:
-            raise ei.original
-    matrices, modes_used, confidences, residuals = sticky_select(transform_mode, fits)
-    if working_size is not None:
-        matrices = G.rescale_transforms_to_full(matrices, (width, height), working_size)
-    extra_meta.update(fits.extra_meta)
-    active_mode = modes_used[-1] if modes_used else transform_mode
-    _tick(estimation_steps, progress_total)
-
-    delta_params = G.matrices_to_params(matrices, base_mode)
-    path = G.integrate_path(delta_params)
-
-    strength = float(np.clip(strength, 0.0, 1.0))
-    smooth = float(np.clip(smooth, 0.0, 1.0))
-
-    if camera_lock:
-        smooth = max(smooth, 0.85)
-        target_path = np.zeros_like(path)
+    fast = None
+    fast_fn = getattr(estimator, "fast_path", None)
+    if fast_fn is not None and framing_mode in ("crop", "crop_and_pad", "expand"):
+        with timer.stage("estimation"):
+            try:
+                fast = fast_fn(
+                    frames, framing_mode, transform_mode, camera_lock, strength, smooth,
+                    fps_effective, (width, height), working_size, decimation, padding_rgb,
+                    tick_pairs=tick_pairs_cb, keep_fov=keep_fov,
+                )
+            except EstimationInterrupted as ei:
+                raise ei.original
+    if fast is not None:
+        matrices = fast["matrices"]
+        modes_used = fast["modes_used"]
+        confidences = fast["confidences"]
+        residuals = fast["residuals"]
+        extra_meta.update(fast["extra_meta"])
+        active_mode = modes_used[-1] if modes_used else transform_mode
+        _tick(estimation_steps, progress_total)
+        strength = fast["strength"]
+        smooth = fast["smooth"]
+        path = fast["path"]
+        target_path = fast["target_path"]
+        delta_params_full = fast["diffs"]
     else:
-        smoothed = G.smooth_path(path, smooth, fps_effective)
-        target_path = path + strength * (smoothed - path)
+        with timer.stage("grayscale_downscale"):
+            grays = R.gray_for_estimation(frames, working_size, decimation=decimation, device=dev)
+        with timer.stage("estimation"):
+            try:
+                fits = estimator(grays, transform_mode, decimation=decimation, tick_pairs=tick_pairs_cb)
+            except EstimationInterrupted as ei:
+                raise ei.original
+        del grays
+        matrices, modes_used, confidences, residuals = sticky_select(transform_mode, fits)
+        if working_size is not None:
+            matrices = G.rescale_transforms_to_full(matrices, (width, height), working_size)
+        extra_meta.update(fits.extra_meta)
+        active_mode = modes_used[-1] if modes_used else transform_mode
+        _tick(estimation_steps, progress_total)
 
-    delta_params_full = target_path - path
+        delta_params = G.matrices_to_params(matrices, base_mode)
+        path = G.integrate_path(delta_params)
+
+        strength = float(np.clip(strength, 0.0, 1.0))
+        smooth = float(np.clip(smooth, 0.0, 1.0))
+
+        if camera_lock:
+            smooth = max(smooth, 0.85)
+            target_path = np.zeros_like(path)
+        else:
+            smoothed = G.smooth_path(path, smooth, fps_effective)
+            target_path = path + strength * (smoothed - path)
+
+        delta_params_full = target_path - path
     keep_fov_clamped = float(np.clip(keep_fov, 0.0, 1.0))
     keep_fov_applied = framing_mode == "crop" and keep_fov_clamped > 1e-6
     stabilization_scale = 1.0
@@ -377,27 +410,45 @@ def stabilize_clip(
             zero_masks = torch.zeros((total_frames, height, width), dtype=torch.float32, device=frames.device)
             return StabilizationResult(frames.clone(), zero_masks, _attach_motion_meta(meta))
 
-        with timer.stage("framing"):
-            safety_margin_px = max(0.5, 0.02 * max(width, height))
-            (
-                final_matrices,
-                apply_matrices,
-                keep_fov_effective_value,
-                keep_fov_status,
-                keep_fov_note,
-                stabilization_scale,
-                crop_origin,
-                crop_size,
-            ) = F.compute_crop_with_keep_fov_parametric(
-                base_mode, delta_params_full, width, height, keep_fov_clamped, safety_margin_px, dev,
-                interrupt_check=interrupt_check,
-            )
-            final_matrices, crop_origin, crop_size, keep_fov_effective_value = F.refine_no_padding_crop(
-                final_matrices, width, height, dev, safety_shrink_px=1, interrupt_check=interrupt_check,
-            )
+        if fast is not None:
+            # the keep_fov search and the no-padding refine ran on the
+            # device (models/fastpath.py); the statuses were rebuilt there
+            apply_matrices = fast["apply_matrices"]
+            final_matrices = fast["final_matrices"]
+            keep_fov_status = fast["keep_fov_status"]
+            keep_fov_note = fast["keep_fov_note"]
+            keep_fov_effective_value = fast["keep_fov_effective"]
+            stabilization_scale = fast["stabilization_scale"]
+            crop_origin = list(fast["crop_origin"])
+            crop_size = list(fast["crop_size"])
+        else:
+            with timer.stage("framing"):
+                safety_margin_px = max(0.5, 0.02 * max(width, height))
+                (
+                    final_matrices,
+                    apply_matrices,
+                    keep_fov_effective_value,
+                    keep_fov_status,
+                    keep_fov_note,
+                    stabilization_scale,
+                    crop_origin,
+                    crop_size,
+                ) = F.compute_crop_with_keep_fov_parametric(
+                    base_mode, delta_params_full, width, height, keep_fov_clamped, safety_margin_px, dev,
+                    interrupt_check=interrupt_check,
+                )
+                final_matrices, crop_origin, crop_size, keep_fov_effective_value = F.refine_no_padding_crop(
+                    final_matrices, width, height, dev, safety_shrink_px=1, interrupt_check=interrupt_check,
+                )
+    elif fast is not None:
+        apply_matrices = fast["apply_matrices"]
+        final_matrices = fast["final_matrices"]
     else:
         apply_matrices = G.params_to_matrices(delta_params_full, base_mode)
-    mins, maxs = G.compute_bounding_boxes(apply_matrices, width, height)
+    if fast is not None:
+        mins, maxs = fast["mins"], fast["maxs"]
+    else:
+        mins, maxs = G.compute_bounding_boxes(apply_matrices, width, height)
 
     framing_meta: Dict[str, Any] = {
         "mode": framing_mode,
@@ -424,12 +475,15 @@ def stabilize_clip(
         x0, y0, x1, y1 = G.intersection_box(mins, maxs)
         intersection_w = max(1.0, x1 - x0)
         intersection_h = max(1.0, y1 - y0)
-        offset_x = width * 0.5 - (x0 + x1) * 0.5
-        offset_y = height * 0.5 - (y0 + y1) * 0.5
-        translate = G.translation_matrix(offset_x, offset_y).astype(np.float64)
-        final_matrices = np.einsum(
-            "ij,njk->nik", translate, np.asarray(apply_matrices, np.float64)
-        ).astype(np.float32)
+        if fast is not None:
+            offset_x, offset_y = fast["center_offset"]
+        else:
+            offset_x = width * 0.5 - (x0 + x1) * 0.5
+            offset_y = height * 0.5 - (y0 + y1) * 0.5
+            translate = G.translation_matrix(offset_x, offset_y).astype(np.float64)
+            final_matrices = np.einsum(
+                "ij,njk->nik", translate, np.asarray(apply_matrices, np.float64)
+            ).astype(np.float32)
         framing_meta.update(
             {
                 "safe_region_origin": [x0, y0],
@@ -439,10 +493,14 @@ def stabilize_clip(
             }
         )
     elif framing_mode == "expand":
-        translate, output_size = G.prepare_expand_transform(mins, maxs)
-        final_matrices = np.einsum(
-            "ij,njk->nik", translate.astype(np.float64), np.asarray(apply_matrices, np.float64)
-        ).astype(np.float32)
+        if fast is not None:
+            # the union canvas and its translation were composed on the device
+            output_size = fast["output_size"]
+        else:
+            translate, output_size = G.prepare_expand_transform(mins, maxs)
+            final_matrices = np.einsum(
+                "ij,njk->nik", translate.astype(np.float64), np.asarray(apply_matrices, np.float64)
+            ).astype(np.float32)
         framing_meta["expanded_size"] = list(output_size)
     else:
         raise ValueError(f"Unknown framing_mode {framing_mode!r}.")
@@ -459,13 +517,18 @@ def stabilize_clip(
     if W.will_stream(total_frames, height, width, int(output_size[1]), int(output_size[0]), channels):
         frames = context.frames  # drop the engine's own upload, if any: the warp streams
     with timer.stage("warp"):
-        # unstreamed, the ratio fetch waits for the mask pass only; the
-        # frame warp is queued after it and runs while the host assembles
-        # the meta
-        stabilized, padding_masks, ratios = W.warp_clip_with_mask(
-            frames, final_matrices, output_size, "bilinear", border, device=dev
-        )
-        padded_ratios = ratios.cpu().numpy()
+        if fast is not None:
+            # queued (and its ratios fetched) by the fast path
+            stabilized, padding_masks = fast["stabilized"], fast["padding_masks"]
+            padded_ratios = fast["padded_ratios"]
+        else:
+            # unstreamed, the ratio fetch waits for the mask pass only; the
+            # frame warp is queued after it and runs while the host
+            # assembles the meta
+            stabilized, padding_masks, ratios = W.warp_clip_with_mask(
+                frames, final_matrices, output_size, "bilinear", border, device=dev
+            )
+            padded_ratios = ratios.cpu().numpy()
     framing_meta["padding_detected"] = bool((padded_ratios > 0).any())
     _tick(progress_total, progress_total)
 

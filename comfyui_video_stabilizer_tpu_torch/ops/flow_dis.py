@@ -27,10 +27,10 @@ from __future__ import annotations
 
 from typing import List, Tuple
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..utils.device import device_constant
 from . import cv_cuda as CV
 from .cv_cuda import edge_pad
 
@@ -235,9 +235,9 @@ def _fit_homography_dense(flow: torch.Tensor, conf: torch.Tensor, stride: int) -
     cx, cy = (W - 1) * 0.5, (H - 1) * 0.5
     s = 2.0 / float(max(H, W))
     f32 = dict(dtype=torch.float32, device=dev)
-    T = torch.tensor([[s, 0.0, -s * cx], [0.0, s, -s * cy], [0.0, 0.0, 1.0]], **f32)
-    Tinv = torch.tensor([[1.0 / s, 0.0, cx], [0.0, 1.0 / s, cy], [0.0, 0.0, 1.0]], **f32)
-    centre = torch.tensor([cx, cy], **f32)
+    T = device_constant((s, 0.0, -s * cx, 0.0, s, -s * cy, 0.0, 0.0, 1.0), dev, shape=(3, 3))
+    Tinv = device_constant((1.0 / s, 0.0, cx, 0.0, 1.0 / s, cy, 0.0, 0.0, 1.0), dev, shape=(3, 3))
+    centre = device_constant((cx, cy), dev)
     pn = (p - centre) * s                                            # (P, 2)
     qn = (q - centre) * s                                            # (B, P, 2)
     px, py = pn[None, :, 0].expand(B, -1), pn[None, :, 1].expand(B, -1)
@@ -521,9 +521,7 @@ def dis_flow_fit(
     lh, lw = flow_level.shape[1], flow_level.shape[2]
     # level-grid indices of the working-res grid, clamped where
     # floor-halving dropped a trailing row/col
-    ys = np.minimum(np.arange(0, h, step) // (1 << finest), lh - 1)
-    xs = np.minimum(np.arange(0, w, step) // (1 << finest), lw - 1)
-    ys_t = torch.as_tensor(ys, device=grays.device)
-    xs_t = torch.as_tensor(xs, device=grays.device)
+    ys_t = torch.clamp(torch.arange(0, h, step, device=grays.device) // (1 << finest), max=lh - 1)
+    xs_t = torch.clamp(torch.arange(0, w, step, device=grays.device) // (1 << finest), max=lw - 1)
     sub = flow_level.index_select(1, ys_t).index_select(2, xs_t) * scale
     return sub.reshape(sub.shape[0], -1, 2)

@@ -8,7 +8,9 @@ directly comparable with the reference's.
 
 A key is a (..., 2) int64 tensor holding two uint32 words.  The 32-bit
 arithmetic runs in int64 and is masked back to 32 bits after every
-add and rotate; every function works on any device.
+add and rotate; every function works on any device, and the keys
+are made there by fills (no copy from the host, so a CUDA graph can
+capture them).
 """
 
 from __future__ import annotations
@@ -17,6 +19,8 @@ from typing import Sequence
 
 import numpy as np
 import torch
+
+from ..utils.device import device_constant
 
 _MASK = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -51,7 +55,7 @@ def PRNGKey(seed: int, device: torch.device | str = "cpu") -> torch.Tensor:
     seed = int(seed)
     if not -(1 << 31) <= seed < (1 << 31):
         raise OverflowError(f"seed {seed} does not fit a 32-bit PRNG seed")
-    return torch.tensor([0, seed & _MASK], dtype=torch.int64, device=device)
+    return device_constant((0, seed & _MASK), device, torch.int64)
 
 
 def fold_in(key: torch.Tensor, data: torch.Tensor | int) -> torch.Tensor:
@@ -60,7 +64,10 @@ def fold_in(key: torch.Tensor, data: torch.Tensor | int) -> torch.Tensor:
     key (2,) or (..., 2); data an int or int tensor.  Returns keys of
     shape broadcast(key[..., 0], data) + (2,).
     """
-    data = torch.as_tensor(data, dtype=torch.int64, device=key.device) & _MASK
+    if isinstance(data, torch.Tensor):
+        data = data.to(key.device, torch.int64) & _MASK
+    else:
+        data = torch.full((), int(data) & _MASK, dtype=torch.int64, device=key.device)
     y0, y1 = threefry2x32(key[..., 0], key[..., 1], torch.zeros_like(data), data)
     return torch.stack(torch.broadcast_tensors(y0, y1), dim=-1)
 

@@ -349,13 +349,43 @@ def padding_mask_stats(
     coeffs = torch.as_tensor(
         prepare_inverse_coeffs(matrices).astype(np.float32), device=device
     )
+    return padding_stats(coeffs, out_h, out_w, in_h, in_w)
+
+
+def padding_stats(coeffs: torch.Tensor, out_h: int, out_w: int, in_h: int, in_w: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`padding_mask_stats` from (N, 8) float32 inverse coefficients
+    already on the device (the fast path's, made there)."""
     n = coeffs.shape[0]
-    mask = torch.empty((n, out_h, out_w), dtype=torch.float32, device=device)
+    mask = torch.empty((n, out_h, out_w), dtype=torch.float32, device=coeffs.device)
     chunk = _mask_chunk(out_h, out_w)
     for s in range(0, n, chunk):
         inside = _inside(coeffs[s:s + chunk], out_h, out_w, in_h, in_w)
         mask[s:s + chunk] = 1.0 - inside.to(torch.float32)
     return mask, mask.reshape(n, -1).mean(dim=1)
+
+
+def padding_stats_bucket(coeffs: torch.Tensor, out_wh: torch.Tensor, out_h: int, out_w: int,
+                         in_h: int, in_w: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`padding_stats` over a static bucket canvas (out_h, out_w)
+    whose true canvas, ``out_wh`` = (w, h) int32 on the device, is known
+    only there (the expand fast path's bucket).  The mask is valid in
+    [:h, :w], which the caller slices once it has fetched the size; the
+    ratios average over the true canvas only.  Counterpart of the JAX
+    package's ``ops/warp.py::_padding_stats_bucket``."""
+    n = coeffs.shape[0]
+    dev = coeffs.device
+    mask = torch.empty((n, out_h, out_w), dtype=torch.float32, device=dev)
+    ratios = torch.empty((n,), dtype=torch.float32, device=dev)
+    in_canvas = ((torch.arange(out_w, dtype=torch.int32, device=dev)[None, :] < out_wh[0])
+                 & (torch.arange(out_h, dtype=torch.int32, device=dev)[:, None] < out_wh[1]))
+    area = torch.clamp((out_wh[0] * out_wh[1]).to(torch.float32), min=1.0)
+    chunk = _mask_chunk(out_h, out_w)
+    for s in range(0, n, chunk):
+        part = 1.0 - _inside(coeffs[s:s + chunk], out_h, out_w, in_h, in_w).to(torch.float32)
+        mask[s:s + chunk] = part
+        ratios[s:s + chunk] = torch.where(in_canvas[None], part, 0.0).reshape(part.shape[0], -1).sum(1) / area
+    return mask, ratios
 
 
 def coverage_mask(

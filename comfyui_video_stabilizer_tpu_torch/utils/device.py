@@ -8,6 +8,9 @@ and then every kernel wrapper takes its plain PyTorch version.
 
 from __future__ import annotations
 
+import math
+from typing import Sequence
+
 import torch
 
 DEFAULT_DEVICE = "cuda"
@@ -35,3 +38,21 @@ def strict_fp32() -> None:
     """
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+
+def device_constant(values: Sequence, device: torch.device | str, dtype: torch.dtype = torch.float32,
+                    shape: Sequence[int] | None = None) -> torch.Tensor:
+    """A small constant tensor made on ``device`` by fills, with no copy
+    from the host: one zero fill, then one fill for each value that is
+    not +0.
+
+    ``torch.tensor(..., device="cuda")`` copies from pageable host
+    memory, which waits for the stream and is refused while a CUDA graph
+    is captured; a fill is an ordinary kernel.  Each value is rounded to
+    ``dtype`` as ``torch.tensor`` rounds it.
+    """
+    out = torch.zeros(len(values), dtype=dtype, device=device)
+    for i, v in enumerate(values):
+        if v != 0 or math.copysign(1.0, v) < 0:
+            out[i].fill_(v)
+    return out if shape is None else out.reshape(tuple(shape))

@@ -13,7 +13,11 @@ path (the plain versions) on a small clip: per-pair modes equal,
 matrices <= 1e-3, frames p99 <= 1e-3 (reductions run in another order
 on the card); Motion Apply, which has no reductions, frames p99 <= 1e-6
 and masks differing on <= 0.1 % of pixels (a round-half-even tie of the
-coverage may flip on a one-ulp coordinate).
+coverage may flip on a one-ulp coordinate).  The stabilizers take the
+fast path on both devices there (``CVST_FASTPATH=1`` on the CPU); the
+Flow call from its CUDA graph equals the same call run eagerly
+bitwise.  A test that patches a function the graph captured clears the
+graph cache first.
 """
 
 import numpy as np
@@ -21,6 +25,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from comfyui_video_stabilizer_tpu_torch.models import fastpath as FP  # noqa: E402
 from comfyui_video_stabilizer_tpu_torch.ops import cuda_build  # noqa: E402
 from comfyui_video_stabilizer_tpu_torch.ops import cv_cuda as CV  # noqa: E402
 from comfyui_video_stabilizer_tpu_torch.ops import extract_cuda as EX  # noqa: E402
@@ -210,7 +215,7 @@ def test_wrappers_validate_arguments(cuda):
                           torch.zeros((1, 9), device=cuda), 50, 0.01)
 
 
-def test_slice_on_cuda_launches_kernels_and_matches_cpu(cuda):
+def test_slice_on_cuda_launches_kernels_and_matches_cpu(cuda, monkeypatch):
     from comfyui_video_stabilizer_tpu_torch.models.flow import stabilize_flow
     from comfyui_video_stabilizer_tpu_torch.utils.video_io import normalize_video_input
 
@@ -225,6 +230,7 @@ def test_slice_on_cuda_launches_kernels_and_matches_cpu(cuda):
     view = np.stack([crop @ np.linalg.inv(m) for m in shake])
     frames = W.warp_clip(base[None].expand(8, *base.shape).contiguous(), view, (192, 144), "bilinear", (0.5,) * 3)
     args = ("crop_and_pad", "similarity", False, 0.8, 0.6, 0.6, (127, 127, 127), 30.0)
+    monkeypatch.setenv("CVST_FASTPATH", "1")    # the CPU takes the fast path too
     cpu = stabilize_flow(normalize_video_input(frames, device="cpu"), *args, device="cpu")
     cuda_build.reset_launches()
     gpu = stabilize_flow(normalize_video_input(frames, device=cuda), *args, device=cuda)
@@ -238,7 +244,7 @@ def test_slice_on_cuda_launches_kernels_and_matches_cpu(cuda):
     assert float(torch.quantile(d.flatten()[::7], 0.99)) <= 1e-3
 
 
-def test_classic_slice_on_cuda_launches_kernels_and_matches_cpu(cuda):
+def test_classic_slice_on_cuda_launches_kernels_and_matches_cpu(cuda, monkeypatch):
     from comfyui_video_stabilizer_tpu_torch.models.classic import stabilize_classic
     from comfyui_video_stabilizer_tpu_torch.utils.video_io import normalize_video_input
 
@@ -253,6 +259,7 @@ def test_classic_slice_on_cuda_launches_kernels_and_matches_cpu(cuda):
     view = np.stack([crop @ np.linalg.inv(m) for m in shake])
     frames = W.warp_clip(base[None].expand(8, *base.shape).contiguous(), view, (192, 144), "bilinear", (0.5,) * 3)
     args = ("crop_and_pad", "similarity", False, 0.8, 0.6, 0.6, (127, 127, 127), 30.0)
+    monkeypatch.setenv("CVST_FASTPATH", "1")    # the CPU takes the fast path too
     cpu = stabilize_classic(normalize_video_input(frames, device="cpu"), *args, device="cpu")
     cuda_build.reset_launches()
     gpu = stabilize_classic(normalize_video_input(frames, device=cuda), *args, device=cuda)
@@ -337,10 +344,13 @@ def _small_clip(seed, n=8, h=144, w=192):
 @pytest.mark.parametrize("estimator", ["flow", "classic"])
 @pytest.mark.parametrize("framing,transform", [("crop_and_pad", "perspective"), ("crop", "similarity"),
                                                ("crop", "perspective")])
-def test_perspective_and_crop_on_cuda_match_cpu(cuda, estimator, framing, transform):
+@pytest.mark.parametrize("fastpath", ["1", "0"])
+def test_perspective_and_crop_on_cuda_match_cpu(cuda, monkeypatch, estimator, framing, transform, fastpath):
     """Perspective fits (cuSOLVER on the card, LAPACK on the CPU) and crop
-    framing: per-pair modes, crop status, note and scale equal, matrices
-    <= 1e-3, frames p99 <= 1e-3."""
+    framing, through the fast path (CVST_FASTPATH=1) and through the host
+    engine (=0, its keep_fov search and no-padding refine on the card),
+    the same engine on both devices: per-pair modes, crop status, note
+    and scale equal, matrices <= 1e-3, frames p99 <= 1e-3."""
     from comfyui_video_stabilizer_tpu_torch.models.classic import stabilize_classic
     from comfyui_video_stabilizer_tpu_torch.models.flow import stabilize_flow
     from comfyui_video_stabilizer_tpu_torch.utils.video_io import normalize_video_input
@@ -348,10 +358,14 @@ def test_perspective_and_crop_on_cuda_match_cpu(cuda, estimator, framing, transf
     run = stabilize_flow if estimator == "flow" else stabilize_classic
     frames = _small_clip(7)
     args = (framing, transform, False, 0.8, 0.6, 0.6, (127, 127, 127), 24.0)
+    monkeypatch.setenv("CVST_FASTPATH", fastpath)
+    monkeypatch.setenv("CVST_FASTPATH_STRICT", "1")
+    served = FP.SERVED[estimator]
     cpu = run(normalize_video_input(frames, device="cpu"), *args, device="cpu")
     cuda_build.reset_launches()
     gpu = run(normalize_video_input(frames, device=cuda), *args, device=cuda)
     torch.cuda.synchronize()
+    assert FP.SERVED[estimator] == served + (2 if fastpath == "1" else 0)
     assert cuda_build.LAUNCHES["warp"] == 1
     if estimator == "flow":
         assert gpu.meta["flow_backend"] == cpu.meta["flow_backend"] == "DIS"
@@ -392,6 +406,9 @@ def test_forced_streaming_on_cuda_equals_unstreamed(cuda, monkeypatch, path):
         def run(ctx):
             return apply_motion(ctx, meta, (127, 127, 127), device=cuda, **kw)
 
+    # a streamed clip goes through the host engine, so the unstreamed
+    # reference is the host engine's too (the card defaults to the fast path)
+    monkeypatch.setenv("CVST_FASTPATH", "0")
     ref = run(normalize_video_input(frames, device=cuda))
     assert ref.frames.device.type == "cuda"
     monkeypatch.setattr(W, "CHUNK_BUDGET_BYTES", 3 * W.clip_device_bytes(1, h, w, h, w) + 1)
@@ -445,6 +462,8 @@ def test_flow_fallback_tiers_on_cuda_match_cpu(cuda, monkeypatch, tier):
     def outage(*_a, **_k):
         raise RuntimeError("synthetic backend outage")
 
+    # a captured graph would replay DIS without calling the patched function
+    FP.clear_graph_cache()
     monkeypatch.setattr(FD, "dis_flow_fit", outage)
     if tier == "phase_correlate":
         monkeypatch.setattr(TV, "tvl1_flow", outage)
@@ -474,6 +493,7 @@ def test_kernel_error_at_k2_launch_is_not_degraded(cuda, monkeypatch):
 
     calls = []
     monkeypatch.setattr(TV, "tvl1_flow", lambda *a: calls.append(1))
+    FP.clear_graph_cache()   # so the fused graph's capture launches K2 through the stub
     lib = cuda_build.library()
     real = lib.cvst_cost_volume
     lib.cvst_cost_volume = lambda *a: 9
@@ -484,6 +504,104 @@ def test_kernel_error_at_k2_launch_is_not_degraded(cuda, monkeypatch):
     finally:
         lib.cvst_cost_volume = real
     assert calls == []
+
+
+def _fast_call(frames, device, strength=0.8, framing="crop_and_pad", transform="similarity"):
+    from comfyui_video_stabilizer_tpu_torch.models.flow import stabilize_flow
+    from comfyui_video_stabilizer_tpu_torch.utils.video_io import normalize_video_input
+
+    return stabilize_flow(normalize_video_input(frames, device=device), framing, transform, False, strength, 0.6,
+                          0.6, (127, 127, 127), 24.0, device=device)
+
+
+def _meta_matrices(meta):
+    em = meta["estimated_motion"]
+    return [np.array([t["matrix"] for t in em["per_transition"]]), np.array(em["path"]),
+            np.array(em["target_path"]), np.array([e["applied_matrix"] for e in meta["stabilization_warp"]["per_frame"]])]
+
+
+def test_fused_graph_equals_eager_fast_path(cuda, monkeypatch):
+    """The Flow crop_and_pad call from its CUDA graph against the same fast
+    path run eagerly (CVST_FUSED=0): the same kernels in the same order,
+    so frames, masks and every meta matrix are bitwise equal.  The graph
+    replays once a call and the launch counts still count the call's K2
+    launches."""
+    monkeypatch.setenv("CVST_FASTPATH_STRICT", "1")
+    frames = _small_clip(15)
+    FP.clear_graph_cache()
+    first = _fast_call(frames, cuda)                    # warm-up and capture
+    replays = FP.GRAPH_STATS["replays"]
+    cuda_build.reset_launches()
+    fused = _fast_call(frames, cuda)
+    torch.cuda.synchronize()
+    launches = dict(cuda_build.LAUNCHES)
+    assert FP.GRAPH_STATS["replays"] == replays + 1
+    assert launches["cost_volume"] >= 4 and launches["warp"] == 1
+    monkeypatch.setenv("CVST_FUSED", "0")
+    cuda_build.reset_launches()
+    eager = _fast_call(frames, cuda)
+    torch.cuda.synchronize()
+    assert FP.GRAPH_STATS["replays"] == replays + 1
+    assert dict(cuda_build.LAUNCHES) == launches
+    for res in (first, fused):
+        assert torch.equal(res.frames, eager.frames) and torch.equal(res.masks, eager.masks)
+        for a, b in zip(_meta_matrices(res.meta), _meta_matrices(eager.meta)):
+            assert np.array_equal(a, b)
+        assert res.meta["padding_fraction_mean"] == eager.meta["padding_fraction_mean"]
+
+
+def test_fused_graph_results_are_not_aliased(cuda, monkeypatch):
+    """Two replays with different strengths give different results, and
+    the first call's result is not overwritten by the second."""
+    monkeypatch.setenv("CVST_FASTPATH_STRICT", "1")
+    frames = _small_clip(15)
+    a = _fast_call(frames, cuda, strength=0.8)
+    a_frames, a_path = a.frames.clone(), _meta_matrices(a.meta)
+    b = _fast_call(frames, cuda, strength=0.3)
+    torch.cuda.synchronize()
+    assert not torch.equal(a.frames, b.frames)
+    assert a.frames.data_ptr() != b.frames.data_ptr()
+    assert torch.equal(a.frames, a_frames)
+    assert not np.array_equal(_meta_matrices(a.meta)[2], _meta_matrices(b.meta)[2])
+    assert all(np.array_equal(x, y) for x, y in zip(_meta_matrices(a.meta), a_path))
+
+
+@pytest.mark.parametrize("estimator", ["flow", "classic"])
+@pytest.mark.parametrize("framing,transform,lock", [("crop_and_pad", "similarity", False),
+                                                    ("crop_and_pad", "translation", True),
+                                                    ("expand", "similarity", False),
+                                                    ("crop", "similarity", False)])
+def test_fast_path_on_cuda_matches_cpu_fast_path(cuda, monkeypatch, estimator, framing, transform, lock):
+    """The fast path on the card (the fused graph for Flow crop_and_pad)
+    against the fast path on the CPU (CVST_FASTPATH=1): per-pair modes
+    equal, matrices and applied matrices <= 1e-3, frames p99 <= 1e-3,
+    the same canvas, crop status and note."""
+    from comfyui_video_stabilizer_tpu_torch.models.classic import stabilize_classic
+    from comfyui_video_stabilizer_tpu_torch.models.flow import stabilize_flow
+    from comfyui_video_stabilizer_tpu_torch.utils.video_io import normalize_video_input
+
+    monkeypatch.setenv("CVST_FASTPATH", "1")
+    monkeypatch.setenv("CVST_FASTPATH_STRICT", "1")
+    ran = []
+    for name in ("run_flow_fast", "run_classic_fast"):
+        real = getattr(FP, name)
+        monkeypatch.setattr(FP, name, lambda *a, _r=real, **k: ran.append(_r(*a, **k)) or ran[-1])
+    run = stabilize_flow if estimator == "flow" else stabilize_classic
+    frames = _small_clip(17)
+    args = (framing, transform, lock, 0.8, 0.6, 0.6, (127, 127, 127), 24.0)
+    cpu = run(normalize_video_input(frames, device="cpu"), *args, device="cpu")
+    gpu = run(normalize_video_input(frames, device=cuda), *args, device=cuda)
+    torch.cuda.synchronize()
+    assert len(ran) == 2 and all(r is not None for r in ran)
+    mc, mg = _meta_matrices(cpu.meta), _meta_matrices(gpu.meta)
+    assert [t["mode"] for t in gpu.meta["estimated_motion"]["per_transition"]] == \
+        [t["mode"] for t in cpu.meta["estimated_motion"]["per_transition"]]
+    assert np.abs(mg[0] - mc[0]).max() <= 1e-3 and np.abs(mg[3] - mc[3]).max() <= 1e-3
+    assert gpu.meta["stabilization_warp"]["output_size"] == cpu.meta["stabilization_warp"]["output_size"]
+    for key in ("keep_fov_status", "keep_fov_note"):
+        assert gpu.meta["framing"].get(key) == cpu.meta["framing"].get(key)
+    d = (gpu.frames.cpu() - cpu.frames).abs()
+    assert float(torch.quantile(d.flatten()[::7], 0.99)) <= 1e-3
 
 
 def test_dense_dis_flow_on_cuda_matches_cpu(cuda):

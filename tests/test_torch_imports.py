@@ -5,8 +5,10 @@ there is none.
 The import check runs in a subprocess: this test session imports JAX
 for every test (tests/conftest.py).  It imports every module of the
 port and runs all six nodes on the CPU before it looks, both
-stabilizers also with crop framing and the perspective model, the Flow
-node also with each fallback tier forced (TV-L1, phase correlation).
+stabilizers also with crop framing and the perspective model and, with
+``CVST_FASTPATH=1``, through the fast path in all three framings, the
+Flow node also with each fallback tier forced (TV-L1, phase
+correlation).
 """
 
 import os
@@ -32,7 +34,8 @@ _CPU_SLICE = textwrap.dedent(
     from comfyui_video_stabilizer_tpu_torch.ops import cuda_build, cv_cuda, flow_dis, prng, ransac, resize, warp
     from comfyui_video_stabilizer_tpu_torch.ops import extract_cuda, gftt_cuda, lk, lk_cuda, morphology, pad
     from comfyui_video_stabilizer_tpu_torch.ops import phase_corr, tvl1
-    from comfyui_video_stabilizer_tpu_torch.models import classic, flow, framing, geometry, inverse, motion_apply
+    from comfyui_video_stabilizer_tpu_torch.models import classic, fastpath, flow, framing, geometry, inverse
+    from comfyui_video_stabilizer_tpu_torch.models import motion_apply
     from comfyui_video_stabilizer_tpu_torch.models import shake, stabilize
     from comfyui_video_stabilizer_tpu_torch.meta import motion_meta
     from comfyui_video_stabilizer_tpu_torch.native import rectangle
@@ -60,6 +63,19 @@ _CPU_SLICE = textwrap.dedent(
                            0.8, 0.6, 0.6, "#7F7F7F", device="cpu")
         assert out[2]["transform_mode_requested"] == "perspective"
         assert out[2]["framing"]["keep_fov_status"] in ("met", "clamped", "failed", "disabled")
+    import os
+    os.environ["CVST_FASTPATH"] = "1"
+    fast_runs = []
+    for name in ("run_flow_fast", "run_classic_fast"):
+        real = getattr(fastpath, name)
+        setattr(fastpath, name, lambda *a, _r=real, **k: fast_runs.append(_r(*a, **k)) or fast_runs[-1])
+    for node in (nodes.VideoStabilizerFlow, nodes.VideoStabilizerClassic):
+        for framing in ("crop_and_pad", "expand", "crop"):
+            out = node.execute(torch.from_numpy(frames), 16.0, framing, "similarity", False,
+                               0.8, 0.6, 0.6, "#7F7F7F", device="cpu")
+            assert out[0].shape[0] == 5 and out[2]["framing"]["mode"] == framing
+    assert len(fast_runs) == 6 and all(r is not None for r in fast_runs), fast_runs
+    del os.environ["CVST_FASTPATH"]
     def outage(*_a, **_k):
         raise RuntimeError("synthetic backend outage")
 
