@@ -96,15 +96,28 @@ Phases (any failure raises and the script exits non-zero):
      (and the replay's alone)
  27. the fast path's Flow split: gray, graph replay, padding stats, K1
      and the fetch, a synchronize after each
- 28. a JSON line per kernel (its time, its plain version's, its bound
+ 28. the multi-device layer on four shards of one card
+     (``make_mesh(devices=["cuda:0"] * 4)``): the 1080p x 80 Flow slice
+     through stabilize_flow_sharded (the fast path's mesh branch), torch.equal
+     to the unsharded eager call (CVST_FUSED=0) in frames, masks and
+     matrices, K2 launched 4 x its unsharded count and K1 once a shard,
+     no copy between the shards of one card, five warm calls in turns
+     with the unsharded graph call; Classic through
+     stabilize_classic_sharded against the unsharded call, K4-K6 by shard;
+     79 frames on a (2, 2) mesh (the rows outcome: two bands, K1 with
+     row0) against the unsharded host engine, and K1 with row0 bitwise
+     its plain version at 1080p; both sidecars at 1080p x 80 and, on a
+     small clip, against their CPU runs; with more than one card the Flow
+     check on distinct cards (else a line says so)
+ 29. a JSON line per kernel (its time, its plain version's, its bound
      and the time of a PyTorch call that computes the same function,
      where one exists; K2 adds its r = 3 figures and the dense call's
      launches), the card line, then {"ok": true, ...} last
 
 Phases 16-17 run after phase 11, 21-27 after phase 12 and ahead of
 phase 13 (once K3's plain version has run, torch.profiler records no
-device event), and 18-20 after phase 15 (config 5 last, alone on the
-card).  Each phase's wall time is printed on a line of its own
+device event), 18-20 after phase 15 (config 5 alone on the card), and 28
+after config 5.  Each phase's wall time is printed on a line of its own
 ("[time]").  The card's calls take the fast path by default, as a user's
 do; phases that compare with the host engine say so.  Every phase that
 claims the fast path checks fastpath.SERVED, the count of calls it
@@ -2099,6 +2112,245 @@ def phase_65536(device):
     check(p99 <= APPLY_FRAME_P99 and unequal <= APPLY_MASK_UNEQUAL, "65,536 frames: CUDA and CPU paths differ")
 
 
+MESH_SHARDS = 4          # the mesh phase's shards, all on cuda:0
+SIDECAR_SHIFT_TOL = 1e-5  # translation sidecar, card vs CPU (tests/test_torch_pipeline.py)
+
+
+def _same_result(res, ref, what: str) -> dict:
+    """torch.equal of frames and masks (gathered from their shards), and
+    equality of the per-pair and applied matrices and of the whole meta;
+    fails unless frames, masks and matrices are equal."""
+    import torch
+
+    from comfyui_video_stabilizer_tpu_torch.parallel.mesh import FrameShards
+
+    def whole(x):
+        return x.gather() if isinstance(x, FrameShards) else x
+
+    eq = {"frames": bool(torch.equal(whole(res.frames), ref.frames)),
+          "masks": bool(torch.equal(whole(res.masks), ref.masks)),
+          "per_transition": res.meta["estimated_motion"]["per_transition"]
+          == ref.meta["estimated_motion"]["per_transition"],
+          "applied": res.meta["stabilization_warp"] == ref.meta["stabilization_warp"]}
+    check(all(eq.values()), f"{what}: the sharded call differs from the unsharded one: {eq}")
+    eq["meta"] = res.meta == ref.meta
+    return eq
+
+
+def _k1_row_bands(device, frames) -> dict:
+    """K1 with row0 at 1080p: each 540-row band bitwise its plain version
+    and the same rows of the whole-frame launch, which (row0 = 0) is
+    bitwise the whole-frame plain version."""
+    import torch
+
+    from comfyui_video_stabilizer_tpu_torch.ops import warp as W
+
+    src = frames[:8].contiguous()
+    mats = np.stack(shake_matrices(8, 11, 0.01, 6.0))
+    coeffs = torch.as_tensor(W.prepare_inverse_coeffs(mats).astype(np.float32), device=device)
+    border = torch.tensor([0.5, 0.25, 0.75], device=device)
+    out = {}
+    for interp in ("bilinear", "bicubic"):
+        whole = W.warp_frames(src, coeffs, border, HEIGHT, WIDTH, interp, row0=0)
+        ok = bool(torch.equal(whole, W.warp_plain(src, coeffs, border, HEIGHT, WIDTH, interp)))
+        for r0 in (0, HEIGHT // 2):
+            band = W.warp_frames(src, coeffs, border, HEIGHT // 2, WIDTH, interp, row0=r0)
+            plain = W.warp_plain(src, coeffs, border, HEIGHT // 2, WIDTH, interp, row0=r0)
+            ok = ok and bool(torch.equal(band, plain)) and bool(torch.equal(band, whole[:, r0:r0 + HEIGHT // 2]))
+        out[interp] = ok
+    torch.cuda.synchronize()
+    check(all(out.values()), f"K1 with row0 differs from its plain version or the whole frame: {out}")
+    return out
+
+
+def phase_mesh(device):
+    """The multi-device layer (parallel/), on four shards of one card: the
+    1080p x 80 Flow slice through stabilize_flow_sharded (the fast path's
+    mesh branch) torch.equal to the unsharded call run eagerly
+    (CVST_FUSED=0), with K2's and K1's launches by shard and five warm
+    calls beside the unsharded graph call in turns; the same clip through
+    stabilize_classic_sharded against the unsharded call; a 79-frame clip
+    on a (2, 2) mesh (the "rows" outcome: two bands of output rows, K1
+    with row0) against the unsharded host engine, and K1 with row0
+    against its plain version; both sidecars at 1080p x 80, and on a
+    small clip against their CPU runs; with more than one card, the Flow
+    check again on distinct cards."""
+    import torch
+
+    from comfyui_video_stabilizer_tpu_torch.models import fastpath as FP
+    from comfyui_video_stabilizer_tpu_torch.models.flow import stabilize_flow
+    from comfyui_video_stabilizer_tpu_torch.ops import cuda_build
+    from comfyui_video_stabilizer_tpu_torch.parallel import mesh as PM
+    from comfyui_video_stabilizer_tpu_torch.parallel import pipeline as PL
+    from comfyui_video_stabilizer_tpu_torch.parallel import production as PR
+    from comfyui_video_stabilizer_tpu_torch.utils.meshinfo import set_mesh
+
+    frames = synth_clip(CLIP_FRAMES, HEIGHT, WIDTH, seed=0, device=device)
+    host = frames.cpu().numpy()
+    mesh = PM.make_mesh(devices=[str(device)] * MESH_SHARDS)
+    kw = dict(framing_mode="crop_and_pad", transform_mode="similarity", strength=0.8, smooth=0.6, keep_fov=0.6,
+              padding_rgb=(127, 127, 127), frame_rate=30.0)
+    out = {}
+
+    # Flow: the fast path's mesh branch against the eager unsharded call
+    with env(CVST_FUSED="0"), served("flow", 1, "mesh: the unsharded Flow call"):
+        cuda_build.reset_launches()
+        ref = run_slice(make_context(frames), device)
+        torch.cuda.synchronize()
+        ref_launches = dict(cuda_build.LAUNCHES)
+    mesh_served = FP.SERVED["mesh"]
+    PM.reset_transfers()
+    cuda_build.reset_launches()
+    with served("flow", 1, "mesh: the sharded Flow call"):
+        res = PR.stabilize_flow_sharded(host, mesh, **kw)
+    torch.cuda.synchronize()
+    flow_launches = dict(cuda_build.LAUNCHES)
+    check(FP.SERVED["mesh"] == mesh_served + 1, "the sharded Flow call did not run the fast path's mesh branch")
+    check(isinstance(res.frames, PM.FrameShards) and len(res.frames.shards) == MESH_SHARDS,
+          f"the sharded Flow frames are {type(res.frames).__name__}, not {MESH_SHARDS} frame shards")
+    check(flow_launches["cost_volume"] == MESH_SHARDS * ref_launches["cost_volume"],
+          f"K2 launches {flow_launches['cost_volume']} by shard, not {MESH_SHARDS} x {ref_launches['cost_volume']}")
+    check(flow_launches["warp"] == MESH_SHARDS, f"K1 launches {flow_launches['warp']}, not one a shard")
+    check(PM.TRANSFERS == {"halo": 0, "gather": 0, "scatter": 0}, f"copies on one card: {PM.TRANSFERS}")
+    out["flow_equal"] = _same_result(res, ref, "mesh Flow")
+    del res, ref
+    log(f"[mesh] Flow 1080p x {CLIP_FRAMES} on {MESH_SHARDS} shards of one card: equal to the unsharded eager "
+        f"call {out['flow_equal']}; launches by shard {flow_launches} (unsharded: {ref_launches}); copies "
+        f"{dict(PM.TRANSFERS)}")
+
+    # warm calls in turns: sharded (contexts already on the card) beside
+    # the unsharded call from its CUDA graph
+    ctx_sh = PR.sharded_video_context(host, mesh, fps=30.0)
+    ctx_one = make_context(frames)
+    run_slice(ctx_one, device)  # the graph, captured if it is not cached
+
+    def sharded_call():
+        with set_mesh(mesh):
+            return stabilize_flow(ctx_sh, "crop_and_pad", "similarity", False, 0.8, 0.6, 0.6, (127, 127, 127),
+                                  30.0, device=device)
+
+    times = {"sharded": [], "graph": []}
+    with served("flow", 10, "mesh: the warm calls"):
+        for _ in range(5):
+            times["sharded"] += timed_calls(sharded_call, 1)
+            times["graph"] += timed_calls(lambda: run_slice(ctx_one, device), 1)
+    out["times"] = times
+    log(f"[mesh] warm Flow calls in turns, ms: sharded ({MESH_SHARDS} shards, one card) "
+        f"{[round(t, 1) for t in times['sharded']]}, unsharded from its graph {[round(t, 1) for t in times['graph']]}; "
+        f"medians {float(np.median(times['sharded'])):.1f} / {float(np.median(times['graph'])):.1f} ms")
+    del ctx_sh
+
+    # Classic
+    cuda_build.reset_launches()
+    with served("classic", 1, "mesh: the unsharded Classic call"):
+        ref = run_classic(make_context(frames), device)
+    torch.cuda.synchronize()
+    ref_launches = dict(cuda_build.LAUNCHES)
+    cuda_build.reset_launches()
+    with served("classic", 1, "mesh: the sharded Classic call"):
+        res = PR.stabilize_classic_sharded(host, mesh, **kw)
+    torch.cuda.synchronize()
+    classic_launches = dict(cuda_build.LAUNCHES)
+    for name in ("gftt", "lk_gn", "extract_windows"):
+        check(classic_launches[name] == MESH_SHARDS * ref_launches[name],
+              f"{name} launches {classic_launches[name]} by shard, not {MESH_SHARDS} x {ref_launches[name]}")
+    check(classic_launches["warp"] == MESH_SHARDS, f"Classic K1 launches {classic_launches['warp']}")
+    out["classic_equal"] = _same_result(res, ref, "mesh Classic")
+    del res, ref
+    log(f"[mesh] Classic 1080p x {CLIP_FRAMES} on {MESH_SHARDS} shards: equal to the unsharded call "
+        f"{out['classic_equal']}; launches by shard {classic_launches} (unsharded: {ref_launches})")
+
+    # row bands: 79 frames on a (2, 2) mesh, against the host engine
+    rows_mesh = PM.make_mesh(devices=[str(device)] * MESH_SHARDS, spatial=2)
+    check(PR.input_partition_spec(rows_mesh, CLIP_FRAMES - 1, HEIGHT) == (None, "spatial", None, None),
+          "79 frames on a (2, 2) mesh do not take the rows outcome")
+    with env(CVST_FASTPATH="0"):
+        ref = run_slice(make_context(frames[:-1].contiguous()), device)
+    cuda_build.reset_launches()
+    with served("flow", 0, "mesh: the rows outcome"):
+        res = PR.stabilize_flow_sharded(host[:-1], rows_mesh, **kw)
+    torch.cuda.synchronize()
+    rows_launches = dict(cuda_build.LAUNCHES)
+    check(isinstance(res.frames, PM.FrameShards) and res.frames.axis == 1 and len(res.frames.shards) == 2,
+          "the rows outcome did not warp two bands of rows")
+    check(rows_launches["warp"] == 2, f"rows outcome: K1 launches {rows_launches['warp']}, not one a band")
+    out["rows_equal"] = _same_result(res, ref, "mesh rows")
+    del res, ref
+    out["k1_row0"] = _k1_row_bands(device, frames)
+    log(f"[mesh] rows outcome, 1080p x {CLIP_FRAMES - 1} on a (2, 2) mesh: equal to the unsharded host engine "
+        f"{out['rows_equal']}; launches {rows_launches}; K1 with row0 bitwise its plain version {out['k1_row0']}")
+
+    # the sidecars at 1080p x 80, then on a small clip against their CPU runs
+    side = {}
+    for name, fn, args in (("translation", PL.sharded_stabilize, (0.9, 5)),
+                           ("similarity", PL.sharded_stabilize_similarity, (1.0, 15))):
+        t0 = time.perf_counter()
+        warped, masks, per_frame = fn(host, mesh, *args)
+        ms = 1e3 * (time.perf_counter() - t0)
+        check(warped.shape == host.shape and masks.shape == host.shape[:3], f"sidecar {name}: shapes")
+        check(bool(np.isfinite(warped).all() and np.isfinite(masks).all() and np.isfinite(per_frame).all()),
+              f"sidecar {name}: non-finite output")
+        side[name] = {"ms": ms, "padded": float(masks.mean())}
+        del warped, masks
+    small = synth_clip(16, 128, 192, seed=5, device=device).cpu().numpy()
+    cpu_mesh = PM.make_mesh(devices=["cpu"] * MESH_SHARDS)
+    w_g, m_g, o_g = PL.sharded_stabilize(small, mesh, 0.9, 5)
+    w_c, m_c, o_c = PL.sharded_stabilize(small, cpu_mesh, 0.9, 5)
+    side["translation"]["vs_cpu"] = [float(np.abs(w_g - w_c).max()), float((m_g != m_c).mean()),
+                                     float(np.abs(o_g - o_c).max())]
+    check(side["translation"]["vs_cpu"][0] <= SIDECAR_SHIFT_TOL and side["translation"]["vs_cpu"][1] == 0.0
+          and side["translation"]["vs_cpu"][2] <= SIDECAR_SHIFT_TOL,
+          f"translation sidecar, card vs CPU: {side['translation']['vs_cpu']}")
+    w_g, m_g, c_g = PL.sharded_stabilize_similarity(small, mesh, 1.0, 15)
+    w_c, m_c, c_c = PL.sharded_stabilize_similarity(small, cpu_mesh, 1.0, 15)
+    d = np.abs(w_g - w_c)
+    side["similarity"]["vs_cpu"] = [float(np.quantile(d, 0.99)), float(d.max()), float((m_g != m_c).mean()),
+                                    float(np.abs(c_g - c_c).max())]
+    v = side["similarity"]["vs_cpu"]
+    check(v[0] <= SMALL_FRAME_P99 and v[1] <= 1e-2 and v[2] <= APPLY_MASK_UNEQUAL and v[3] <= SMALL_MAT_TOL,
+          f"similarity sidecar, card vs CPU: {v}")
+    out["sidecars"] = side
+    log(f"[mesh] sidecars at 1080p x {CLIP_FRAMES} on {MESH_SHARDS} shards: "
+        + "; ".join(f"{k} {s['ms']:.1f} ms (padded share {s['padded']:.4f}), small clip vs CPU {s['vs_cpu']}"
+                    for k, s in side.items()))
+
+    # distinct cards
+    count = torch.cuda.device_count()
+    if count > 1:
+        k = max(d for d in range(2, count + 1) if CLIP_FRAMES % d == 0)
+        cards = PM.make_mesh(n_devices=k)
+        with env(CVST_FUSED="0"):
+            ref = run_slice(make_context(frames), device)
+        PM.reset_transfers()
+        with served("flow", 1, "mesh: distinct cards"):
+            res = PR.stabilize_flow_sharded(host, cards, **kw)
+        torch.cuda.synchronize()
+        check(res.frames.devices == list(cards.devices[:, 0]), "the shards are not on their cards")
+        check(PM.TRANSFERS["halo"] == k - 1, f"halo copies {PM.TRANSFERS['halo']}, not {k - 1}")
+        out["cards_equal"] = _same_result(res, ref, "mesh, distinct cards")
+        copies = dict(PM.TRANSFERS)
+        del res, ref
+        ctx_cards = PR.sharded_video_context(host, cards, fps=30.0)
+
+        def cards_call():
+            with set_mesh(cards):
+                return stabilize_flow(ctx_cards, "crop_and_pad", "similarity", False, 0.8, 0.6, 0.6,
+                                      (127, 127, 127), 30.0, device=device)
+
+        cards_ms, graph_ms = [], []
+        for _ in range(5):
+            cards_ms += timed_calls(cards_call, 1)
+            graph_ms += timed_calls(lambda: run_slice(ctx_one, device), 1)
+        out["cards_times"] = {"cards": cards_ms, "graph": graph_ms}
+        log(f"[mesh] Flow on {k} distinct cards: equal to the unsharded call {out['cards_equal']}; copies "
+            f"{copies}; warm calls in turns, ms: {k} cards {[round(t, 1) for t in cards_ms]}, one card from "
+            f"its graph {[round(t, 1) for t in graph_ms]}")
+        del ctx_cards
+    else:
+        log("[mesh] one card: the Flow check on distinct cards needs more than one and did not run")
+    return out
+
+
 def timed_phase(name, fn, *args):
     """Run one phase and print its wall time on a line of its own."""
     t0 = time.perf_counter()
@@ -2168,6 +2420,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     timed_phase("65,536 frames", phase_65536, device)
     config5_launches = timed_phase("config 5", phase_config5, device)
+    mesh = timed_phase("mesh", phase_mesh, device)
     log(f"[launches] K1 / K2 a call: config 3 {config3_launches['warp']} / {config3_launches['cost_volume']}, "
         f"config 5 {config5_launches['warp']} / {config5_launches['cost_volume']}; K2 in dense dis_flow "
         f"{dense_launches}")
@@ -2179,6 +2432,10 @@ def main() -> int:
         f"{fast_host['host']:.1f} ms; first call with the capture {fused['first_ms']:.1f} ms; the replay alone "
         f"{fused['replay_ms']:.2f} ms; {fused['events']} device events a call ({fused['graph_events']} in the graph); "
         f"launches {fused['launches']}; split {fast_split}")
+    log(f"[summary] {smi}: mesh, {MESH_SHARDS} shards of one card, Flow 1080p x {CLIP_FRAMES} crop_and_pad: "
+        f"sharded {float(np.median(mesh['times']['sharded'])):.1f} ms, unsharded from its graph "
+        f"{float(np.median(mesh['times']['graph'])):.1f} ms (medians of 5 in turns); sharded Flow, Classic and "
+        f"rows bitwise equal to unsharded")
     check("jax" not in sys.modules, "jax was imported")
     jax_pkg = [m for m in sys.modules if m.split(".")[0] == "comfyui_video_stabilizer_tpu"]
     check(not jax_pkg, f"modules of the JAX package were imported: {sorted(jax_pkg)}")

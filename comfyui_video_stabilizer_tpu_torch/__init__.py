@@ -16,14 +16,25 @@ hand-written kernel (or raises), a CPU tensor takes its plain PyTorch
 version.  This package never imports JAX, nor any module of the JAX
 package.
 
-Ported so far: the Flow stabilizer (DIS tier) and the Classic
-stabilizer (GFTT + pyramidal LK) with crop_and_pad and expand framing
-and the translation/similarity models; Motion Apply (all three
-framings, shutter blur), the shake generators and the legacy inverse
-engine, with all six nodes.
+The port does everything the JAX package does: the Flow stabilizer
+(DIS, TV-L1 and phase-correlation tiers) and the Classic stabilizer
+(GFTT + pyramidal LK) in every framing and transform mode, with the
+zero-sync fast path; Motion Apply (all three framings, shutter blur),
+the shake generators and the legacy inverse engine, with all six nodes;
+streaming of clips past the card's memory; and multi-device runs
+(``parallel/``: a device mesh, the engines sharded over it, and the
+whole-clip sidecar steps).
 """
 
 from __future__ import annotations
+
+
+def apply_inverse_stabilization(*args, **kwargs):
+    """The legacy inverse engine (models/inverse.py), exported lazily as
+    in the JAX package: importing this package loads no engine."""
+    from .models.inverse import apply_inverse_stabilization as _impl
+
+    return _impl(*args, **kwargs)
 
 
 async def comfy_entrypoint():

@@ -215,7 +215,7 @@ template <int C, int INTERP>
 __global__ void __launch_bounds__(kThreads)
 warp_kernel(const float* __restrict__ frames, const float* __restrict__ coeffs,
             const float* __restrict__ border, float* __restrict__ out,
-            int h, int w, int out_h, int out_w) {
+            int h, int w, int out_h, int out_w, int row0) {
   const int x = blockIdx.x * kBlockX + threadIdx.x;
   const int y = blockIdx.y * kBlockY + threadIdx.y;
   const int n = blockIdx.z;
@@ -226,7 +226,9 @@ warp_kernel(const float* __restrict__ frames, const float* __restrict__ coeffs,
   for (int i = 0; i < 8; ++i) k[i] = coeffs[n * 8 + i];
   const FrameTaps taps = frame_taps<C>(frames + (int64_t)n * h * w * C, border, h, w);
   float v[kMaxChannels];
-  sample_pixel<C, INTERP>(taps, split_coords(k, x, y), v);
+  // out holds the band of output rows [row0, row0 + out_h): the pixel's
+  // coordinate is its frame row, its store its row within the band
+  sample_pixel<C, INTERP>(taps, split_coords(k, x, y + row0), v);
   float* dst = out + (((int64_t)n * out_h + y) * out_w + x) * C;
 #pragma unroll
   for (int ch = 0; ch < C; ++ch) dst[ch] = v[ch];
@@ -357,18 +359,21 @@ warp_blur_kernel(const float* __restrict__ frames, const float* __restrict__ coe
 
 template <int C>
 cudaError_t launch_c(const float* frames, const float* coeffs, const float* border, float* out,
-                     int n, int h, int w, int out_h, int out_w, int interp, cudaStream_t stream) {
+                     int n, int h, int w, int out_h, int out_w, int row0, int interp, cudaStream_t stream) {
   const dim3 block(kBlockX, kBlockY, 1);
   const dim3 grid((out_w + kBlockX - 1) / kBlockX, (out_h + kBlockY - 1) / kBlockY, n);
   switch (interp) {
     case kBilinear:
-      warp_kernel<C, kBilinear><<<grid, block, 0, stream>>>(frames, coeffs, border, out, h, w, out_h, out_w);
+      warp_kernel<C, kBilinear><<<grid, block, 0, stream>>>(frames, coeffs, border, out, h, w, out_h, out_w,
+                                                                 row0);
       break;
     case kBicubic:
-      warp_kernel<C, kBicubic><<<grid, block, 0, stream>>>(frames, coeffs, border, out, h, w, out_h, out_w);
+      warp_kernel<C, kBicubic><<<grid, block, 0, stream>>>(frames, coeffs, border, out, h, w, out_h, out_w,
+                                                                 row0);
       break;
     case kNearest:
-      warp_kernel<C, kNearest><<<grid, block, 0, stream>>>(frames, coeffs, border, out, h, w, out_h, out_w);
+      warp_kernel<C, kNearest><<<grid, block, 0, stream>>>(frames, coeffs, border, out, h, w, out_h, out_w,
+                                                                 row0);
       break;
     default:
       return cudaErrorInvalidValue;
@@ -400,17 +405,22 @@ cudaError_t launch_blur_c(const float* frames, const float* coeffs, const float*
 }  // namespace
 
 // frames (n, h, w, c), coeffs (n, 8), border (c,), out (n, out_h, out_w, c);
-// all float32, contiguous, on the current device.  interp: 0 bilinear,
+// all float32, contiguous, on the current device.  out receives the
+// output rows [row0, row0 + out_h) of the warp (row0 = 0: the whole
+// canvas; row0 > 0: one row band of a canvas split over devices, each
+// pixel computed as in the whole canvas).  interp: 0 bilinear,
 // 1 bicubic, 2 nearest.  Returns the launch's cudaError_t (0 on success).
 extern "C" int cvst_warp(const float* frames, const float* coeffs, const float* border, float* out,
-                         int n, int h, int w, int c, int out_h, int out_w, int interp, void* stream) {
+                         int n, int h, int w, int c, int out_h, int out_w, int row0, int interp, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n <= 0 || n > 65535 || out_h <= 0 || out_w <= 0 || h <= 0 || w <= 0) return (int)cudaErrorInvalidValue;
+  if (n <= 0 || n > 65535 || out_h <= 0 || out_w <= 0 || h <= 0 || w <= 0 || row0 < 0 || row0 > INT_MAX - out_h) {
+    return (int)cudaErrorInvalidValue;
+  }
   switch (c) {
-    case 1: return (int)launch_c<1>(frames, coeffs, border, out, n, h, w, out_h, out_w, interp, s);
-    case 2: return (int)launch_c<2>(frames, coeffs, border, out, n, h, w, out_h, out_w, interp, s);
-    case 3: return (int)launch_c<3>(frames, coeffs, border, out, n, h, w, out_h, out_w, interp, s);
-    case 4: return (int)launch_c<4>(frames, coeffs, border, out, n, h, w, out_h, out_w, interp, s);
+    case 1: return (int)launch_c<1>(frames, coeffs, border, out, n, h, w, out_h, out_w, row0, interp, s);
+    case 2: return (int)launch_c<2>(frames, coeffs, border, out, n, h, w, out_h, out_w, row0, interp, s);
+    case 3: return (int)launch_c<3>(frames, coeffs, border, out, n, h, w, out_h, out_w, row0, interp, s);
+    case 4: return (int)launch_c<4>(frames, coeffs, border, out, n, h, w, out_h, out_w, row0, interp, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -17,6 +17,13 @@ offers crop, crop_and_pad and expand calls to the zero-sync fast path
 (``classic_estimator.fast_path``, models/fastpath.py): the same tracks
 and fits, the trajectory on the device.  Its one host read before the
 warp is the corner greedy's (ops/lk.py::gftt_batch).
+
+Under an active mesh the engine hands the estimator frame-sharded grays
+(parallel/mesh.py::FrameShards): GFTT (K4, with the host greedy of each
+shard's candidates), the pyramids and LK (K6, K5) run over each shard's
+pairs on the shard's device, with a one-frame halo for the pair that
+crosses into the next shard (parallel/mesh.py::sharded_pairs); the tracks
+are gathered to the lead device, where the fits run as without a mesh.
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ import torch
 from ..ops import lk as LK
 from ..ops import prng
 from ..ops import ransac as RS
+from ..parallel.mesh import FrameShards, sharded_pairs
 from ..utils.video_io import VideoContext
 from . import geometry as G
 from .stabilize import PairFits, StabilizationResult, estimation_chunk_spans, stabilize_clip
@@ -85,7 +93,11 @@ def _lk_tracks_chunked(grays: torch.Tensor, tick_pairs):
     """_tracks over all adjacent pairs in 32-pair chunks, with a progress
     tick + interrupt poll between chunks (models/stabilize.py::
     estimation_chunk_spans).  GFTT is per frame and LK per pair, so the
-    concatenation equals one whole-clip call."""
+    concatenation equals one whole-clip call.  Frame-sharded grays run by
+    shard, the tracks gathered to the lead device."""
+    if isinstance(grays, FrameShards):
+        parts = sharded_pairs(grays, _lk_tracks_chunked, tick_pairs)
+        return tuple(torch.cat(xs, dim=0) for xs in zip(*parts))
     spans = estimation_chunk_spans(int(grays.shape[0]))
     if len(spans) == 1 or tick_pairs is None:
         return _tracks(grays)

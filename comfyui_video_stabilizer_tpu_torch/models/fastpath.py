@@ -35,6 +35,17 @@ host, so perspective runs the same program eagerly.  Classic is not
 captured either: its corner greedy fetches the candidates to the host
 (native/rectangle.cpp) in the middle of the estimation.
 
+Under an active mesh (utils/meshinfo.py) the fast path runs by shard, the
+counterpart of the JAX package's ``_mesh_defer`` branch: a clip the
+mesh's data axis splits evenly (parallel/mesh.py::FrameShards) makes its
+grays and runs its estimation on each shard (K2, or K4-K6 with the host
+greedy), the fits and the trajectory program run eagerly on the lead
+device, each shard's rows of the warp coefficients go back to it, and
+the padding stats and K1 run there.  The graph stays single-device: it
+is not used under a mesh of more than one shard (a static choice, as for
+perspective).  An uneven clip (the "rows" or "replicated" outcome) and
+crop framing defer to the host engine, as in the JAX package.
+
 The JAX package's speculative Pallas plan, its tile-span guard and
 guard-miss re-warp, and its planar ingest exist for the Pallas warp's
 host-planned tiles; K1 needs no plan, so they have no counterpart here.
@@ -59,7 +70,9 @@ from ..ops import morphology as M
 from ..ops import ransac as RS
 from ..ops import resize as R
 from ..ops import warp as W
+from ..parallel.mesh import FrameShards, frame_shards, lead_device
 from ..utils.device import device_constant
+from ..utils.meshinfo import active_mesh, data_shards
 from . import classic as CL
 from . import flow as FL
 from . import geometry as G
@@ -85,8 +98,9 @@ GRAPH_CACHE_SIZE = 4
 GRAPH_STATS = {"captures": 0, "replays": 0}
 
 # calls each estimator's fast path served (returned a result rather than
-# leaving the call to the host engine); chip_smoke.py checks them
-SERVED = {"flow": 0, "classic": 0}
+# leaving the call to the host engine), and of those the ones that ran by
+# shard on a mesh ("mesh"); chip_smoke.py checks them
+SERVED = {"flow": 0, "classic": 0, "mesh": 0}
 
 # set while a graph is captured, so offer() raises what the capture raised
 _CAPTURE = threading.local()
@@ -119,6 +133,8 @@ def offer(kind: str, runner, *args, **kwargs):
         return None
     if out is not None:
         SERVED[kind] += 1
+        if isinstance(out.get("stabilized"), FrameShards):
+            SERVED["mesh"] += 1
     return out
 
 
@@ -128,7 +144,7 @@ def enabled(frames) -> bool:
     flag = os.environ.get("CVST_FASTPATH")
     if flag is not None:
         return flag not in ("0", "false", "")
-    device = getattr(frames, "device", None)
+    device = frames.lead if isinstance(frames, FrameShards) else getattr(frames, "device", None)
     return device is not None and device.type == "cuda"
 
 
@@ -612,10 +628,23 @@ def _gray_pool_factors(width, height, working_size, decimation):
     return height // gh, width // gw
 
 
+def _mesh_defer(frames, n: int, framing: str) -> bool:
+    """True when the fast path must leave a call to the host engine for
+    its mesh layout (the JAX package's ``_mesh_defer`` and crop gate):
+    under an active mesh, a clip its data axis does not split evenly, or
+    crop framing; with no mesh, frame shards."""
+    if active_mesh() is None:
+        return isinstance(frames, FrameShards)
+    return framing == "crop" or data_shards(n) is None
+
+
 def _gates(frames, framing: str, size, keep_fov: float):
-    """(n, out_h_b, out_w_b) when the fast path takes this call, else None:
-    crop, crop_and_pad or expand framing of >= 2 NHWC RGB frames whose
-    warp does not stream, and not the crop keep_fov ~= 1 bypass."""
+    """(frames, n, out_h_b, out_w_b) when the fast path takes this call,
+    else None: crop, crop_and_pad or expand framing of >= 2 NHWC RGB
+    frames whose warp does not stream, not the crop keep_fov ~= 1 bypass,
+    and not a mesh layout that defers (:func:`_mesh_defer`).  Under a
+    mesh the frames come back as frame shards (split over the data axis
+    when they were one tensor)."""
     if not enabled(frames) or framing not in ("crop", "crop_and_pad", "expand"):
         return None
     width, height = int(size[0]), int(size[1])
@@ -625,9 +654,13 @@ def _gates(frames, framing: str, size, keep_fov: float):
     out_h_b, out_w_b = _out_dims(framing, height, width)
     if n < 2 or W.will_stream(n, height, width, out_h_b, out_w_b):
         return None
-    if _crop_gate(framing, keep_fov):
+    if _crop_gate(framing, keep_fov) or _mesh_defer(frames, n, framing):
         return None
-    return n, out_h_b, out_w_b
+    if active_mesh() is not None:
+        frames = frame_shards(frames)
+        if frames is None:
+            return None
+    return frames, n, out_h_b, out_w_b
 
 
 def _trajectory_args(strength, smooth, fps, camera_lock, keep_fov, width, height, working_size):
@@ -648,12 +681,13 @@ def _scalar(v: float, device) -> torch.Tensor:
     return torch.full((), v, dtype=_F32, device=device)
 
 
-def _fused_enabled(framing: str, factors, tick_pairs, want_persp: bool, device) -> bool:
+def _fused_enabled(framing: str, factors, tick_pairs, want_persp: bool, frames) -> bool:
     """The fused Flow graph's conditions: crop_and_pad, integer pool
-    factors, no progress observer, not perspective, a CUDA device, and
-    ``CVST_FUSED`` not 0."""
+    factors, no progress observer, not perspective, one CUDA device (not
+    frame shards: the graph stays single-device), and ``CVST_FUSED`` not
+    0."""
     return (framing == "crop_and_pad" and factors is not None and tick_pairs is None
-            and not want_persp and device.type == "cuda"
+            and not want_persp and not isinstance(frames, FrameShards) and frames.device.type == "cuda"
             and os.environ.get("CVST_FUSED", "1") not in ("0", "false"))
 
 
@@ -671,7 +705,7 @@ def _flow_estimate(grays, strength, keep_fov, *, decimation, seed, mode, camera_
     )
     if decimation > 1:
         samples = samples * float(decimation)  # back to working px units
-    pts = FL._grid_points(h_work, w_work, FL.SAMPLE_STEP, grays.device)
+    pts = FL._grid_points(h_work, w_work, FL.SAMPLE_STEP, lead_device(grays))
     fits = FL._fused_fits_device(samples, pts, seed, want_persp, RS.DEFAULT_HYPOTHESES)
     total_pts = (((h_work + FL.SAMPLE_STEP - 1) // FL.SAMPLE_STEP)
                  * ((w_work + FL.SAMPLE_STEP - 1) // FL.SAMPLE_STEP))
@@ -782,7 +816,8 @@ def run_flow_fast(
     gated = _gates(frames, framing, size, keep_fov)
     if gated is None:
         return None
-    _, out_h_b, out_w_b = gated
+    frames, _, out_h_b, out_w_b = gated
+    dev = lead_device(frames)
     width, height = int(size[0]), int(size[1])
     want_persp = transform_mode == "perspective"
     strength_c, smooth_c, keep_fov_c, window, scale_xy = _trajectory_args(
@@ -791,10 +826,10 @@ def run_flow_fast(
     kw = dict(decimation=decimation, seed=seed, mode=transform_mode, camera_lock=camera_lock,
               window=window, width=width, height=height, scale_xy=scale_xy)
     factors = _gray_pool_factors(width, height, working_size, decimation)
-    if _fused_enabled(framing, factors, tick_pairs, want_persp, frames.device):
+    if _fused_enabled(framing, factors, tick_pairs, want_persp, frames):
         out = _fused_flow_estimate(grays, strength_c, keep_fov_c, kw)
     else:
-        out = _flow_estimate(grays, _scalar(strength_c, frames.device), _scalar(keep_fov_c, frames.device),
+        out = _flow_estimate(grays, _scalar(strength_c, dev), _scalar(keep_fov_c, dev),
                              tick_pairs=tick_pairs, framing=framing, bucket=(out_h_b, out_w_b), **kw)
     del grays
     return _dispatch_and_collect(
@@ -827,7 +862,8 @@ def run_classic_fast(
     gated = _gates(frames, framing, size, keep_fov)
     if gated is None:
         return None
-    _, out_h_b, out_w_b = gated
+    frames, _, out_h_b, out_w_b = gated
+    dev = lead_device(frames)
     width, height = int(size[0]), int(size[1])
     want_persp = transform_mode == "perspective"
     strength_c, smooth_c, keep_fov_c, window, scale_xy = _trajectory_args(
@@ -837,7 +873,7 @@ def run_classic_fast(
     del grays
     fits = CL._fused_classic_fits_device(pts, tracked, status, seed, want_persp, RS.DEFAULT_HYPOTHESES)
     out = _traj_program(
-        _scalar(strength_c, frames.device), _scalar(keep_fov_c, frames.device), det_counts, *fits,
+        _scalar(strength_c, dev), _scalar(keep_fov_c, dev), det_counts, *fits,
         kind="classic", mode=transform_mode, want_persp=want_persp, camera_lock=camera_lock,
         window=window, width=width, height=height, scale_xy=scale_xy, total_pts=1,
         framing=framing, bucket=(out_h_b, out_w_b),
@@ -877,8 +913,13 @@ def _dispatch_and_collect(
 ):
     """Queue the padding stats and K1 on the device coefficients, then make
     the one diagnostics fetch and build the host-value dict the engine's
-    meta assembly consumes (None sends the call to the host engine)."""
-    dev = frames.device
+    meta assembly consumes (None sends the call to the host engine).
+    Frame shards run the stats and K1 on each shard with its rows of the
+    coefficients; their frames and masks stay there (one tensor is one
+    shard, and its results come back as tensors)."""
+    dev = lead_device(frames)
+    sharded = isinstance(frames, FrameShards)
+    shards = (frames if sharded else FrameShards([frames])).map(lambda f: f.to(_F32).contiguous())
     out_h_b, out_w_b = out_dims
     n = int(frames.shape[0])
     crop_fin = None
@@ -889,16 +930,19 @@ def _dispatch_and_collect(
         out = {**out, "final": crop_fin["final"], "coeffs": crop_fin["coeffs"]}
     border = np.asarray(padding_rgb, np.float32) / 255.0
     border_t = device_constant([float(v) for v in border], dev)
-    src = frames.to(_F32).contiguous()
+    src = shards if sharded else shards.shards[0]
     masks = stabilized = None
     ratios = torch.zeros(n, dtype=_F32, device=dev)  # crop: made after the fetch
     if framing == "crop_and_pad":
         # the stats are queued before K1, so the fetch waits for them only
-        masks, ratios = W.padding_stats(out["coeffs"], height, width, height, width)
-        stabilized = W.warp_frames(src, out["coeffs"], border_t, height, width, "bilinear")
+        masks, ratios = W.padding_stats_sharded(out["coeffs"], shards, height, width, height, width)
+        stabilized = W.warp_frames_sharded(shards, out["coeffs"], border_t, height, width, "bilinear")
     elif framing == "expand":
-        stabilized = W.warp_frames(src, out["coeffs"], border_t, out_h_b, out_w_b, "bilinear")
-        masks, ratios = W.padding_stats_bucket(out["coeffs"], out["out_wh"], out_h_b, out_w_b, height, width)
+        stabilized = W.warp_frames_sharded(shards, out["coeffs"], border_t, out_h_b, out_w_b, "bilinear")
+        masks, ratios = W.padding_stats_bucket_sharded(out["coeffs"], out["out_wh"], shards, out_h_b, out_w_b,
+                                                       height, width)
+    if not sharded and stabilized is not None:
+        stabilized, masks = stabilized.shards[0], masks.shards[0]
 
     # ONE host fetch, after K1 is queued
     bundle = {k: out[k] for k in DIAG_KEYS}
@@ -927,8 +971,11 @@ def _dispatch_and_collect(
         output_size = (out_w_e, out_h_e)
         if bool(diag["fit"]):
             # the bucket held: slice to the true canvas
-            stabilized = stabilized[:, :out_h_e, :out_w_e].contiguous()
-            masks = masks[:, :out_h_e, :out_w_e].contiguous()
+            def canvas(t):
+                return t[:, :out_h_e, :out_w_e].contiguous()
+
+            stabilized = stabilized.map(canvas) if sharded else canvas(stabilized)
+            masks = masks.map(canvas) if sharded else canvas(masks)
         else:
             # the canvas is past the bucket: re-warp at its exact size,
             # the trajectory kept (the bucket outputs released first)

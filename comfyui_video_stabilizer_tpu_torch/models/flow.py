@@ -26,6 +26,14 @@ offers crop, crop_and_pad and expand calls to the zero-sync fast path
 (``flow_estimator.fast_path``, models/fastpath.py), which runs the same
 DIS and fits with the trajectory on the device; a fast path that gives
 up leaves the call to this estimator.
+
+Under an active mesh (utils/meshinfo.py) the engine hands the estimator
+frame-sharded grays (parallel/mesh.py::FrameShards): DIS (K2) runs over
+each shard's pairs on the shard's device, the pair that crosses into the
+next shard with a one-frame halo of that shard's gray, and the sampled
+flow is gathered to the lead device, where the fits run as without a
+mesh.  The RANSAC keys fold in the global pair index, so each pair is
+fitted with the key an unsharded call gives it.
 """
 
 from __future__ import annotations
@@ -42,6 +50,7 @@ from ..ops import ransac as RS
 from ..ops import tvl1 as TV
 from ..ops.cuda_build import KernelError
 from ..ops.resize import can_decimate
+from ..parallel.mesh import FrameShards, lead_device, sharded_pairs
 from ..utils.video_io import VideoContext
 from . import geometry as G
 from .stabilize import PairFits, StabilizationResult, estimation_chunk_spans, stabilize_clip
@@ -77,6 +86,8 @@ def _fused_fits_device(samples: torch.Tensor, pts: torch.Tensor, seed: int, want
     valid = torch.isfinite(curr_pts).all(dim=2)
 
     def keys(salt):
+        # the global pair index: a sharded run gathers every pair's samples
+        # here, so a pair's key never depends on the shard it came from
         return prng.fold_in(prng.PRNGKey(seed + salt, device=dev), torch.arange(b, device=dev))
 
     out = [valid.sum(1)]
@@ -119,7 +130,13 @@ def _gray_decimation(width: int, height: int, working_size) -> int:
 def _dis_samples_chunked(grays, step_local, finest_scale, model, tick_pairs):
     """DIS flow over all adjacent pairs, in 32-pair chunks with a progress
     tick + interrupt poll between chunks (identical to one dispatch:
-    DIS is per pair)."""
+    DIS is per pair).  Frame-sharded grays run by shard
+    (parallel/mesh.py::sharded_pairs), the samples gathered to the lead
+    device."""
+    if isinstance(grays, FrameShards):
+        parts = sharded_pairs(
+            grays, lambda g, tick: _dis_samples_chunked(g, step_local, finest_scale, model, tick), tick_pairs)
+        return torch.cat(parts, dim=0)
     spans = estimation_chunk_spans(int(grays.shape[0]))
     if len(spans) == 1 or tick_pairs is None:
         return FD.dis_flow_fit(grays, step_local, finest_scale=finest_scale, model=model)
@@ -141,7 +158,7 @@ def flow_estimator(
     h_work, w_work = h * decimation, w * decimation
     want_persp = requested_mode == "perspective"
     step_local = SAMPLE_STEP // decimation
-    pts = _grid_points(h_work, w_work, SAMPLE_STEP, grays.device)
+    pts = _grid_points(h_work, w_work, SAMPLE_STEP, lead_device(grays))
     extra = {"flow_backend": "DIS", "flow_fallback_reason": None}
 
     try:
@@ -155,6 +172,8 @@ def flow_estimator(
     except NOT_DEGRADED:
         raise
     except Exception as exc:
+        if isinstance(grays, FrameShards):
+            grays = grays.gather()  # the fallback tiers run on the lead device
         try:
             flow_full, _ = TV.tvl1_flow(grays)
             samples = flow_full[:, ::step_local, ::step_local, :].reshape(b, -1, 2)

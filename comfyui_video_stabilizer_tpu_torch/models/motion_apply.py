@@ -25,7 +25,11 @@ card); frames and masks are returned on it, unless the clip's warp
 live set exceeds ``ops/warp.py``'s ``CHUNK_BUDGET_BYTES``: then the
 clip is never uploaded whole, the warp streams through time chunks and
 frames and masks are returned as host (CPU) tensors, as the JAX
-package returns host arrays when it streams.
+package returns host arrays when it streams.  Under an active mesh
+(utils/meshinfo.py) the unblurred warp (K1) splits over it as
+ops/warp.py::warp_clip says, and frames and masks come back as
+FrameShards; the shutter blur (K3) stays on one device, as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -42,6 +46,7 @@ from ..meta.motion_meta import (
     resolve_motion_meta,
 )
 from ..ops import warp as W
+from ..parallel.mesh import FrameShards
 from ..utils.device import resolve_device
 from ..utils.profiling import StageTimer
 from ..utils.video_io import VideoContext
@@ -137,7 +142,10 @@ def _warp_plain(frames, context, matrices, output_size, interp, padding_rgb, mas
     out_w, out_h = output_size
     if masks_zero:
         out = W.warp_clip(frames, matrices, output_size, interp, border, device=dev)
-        masks = torch.zeros((out.shape[0], out_h, out_w), dtype=torch.float32, device=out.device)
+        if isinstance(out, FrameShards):  # warped by shard under a mesh: each mask beside its frames
+            masks = out.map(lambda f: torch.zeros(f.shape[:3], dtype=torch.float32, device=f.device))
+        else:
+            masks = torch.zeros((out.shape[0], out_h, out_w), dtype=torch.float32, device=out.device)
     else:  # 1 - nearest coverage: binary, so zero_small is the identity on it
         out, masks, _ = W.warp_clip_with_mask(frames, matrices, output_size, interp, border, device=dev)
     if progress is not None:

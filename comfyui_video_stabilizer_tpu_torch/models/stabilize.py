@@ -32,6 +32,17 @@ A clip whose warp-stage live set exceeds ``ops/warp.py``'s
 frames at a time and its warp and masks stream through time chunks, as
 the JAX package's engine does; the result's frames and masks are then
 host (CPU) tensors, where an unstreamed result's stay on the device.
+
+Under an active mesh (utils/meshinfo.py; parallel/production.py sets
+one) the same code runs by shard: a frame-sharded clip
+(parallel/mesh.py::FrameShards) makes its grays on each shard, the
+estimator runs each shard's pairs there (parallel/mesh.py::
+sharded_pairs) and
+fits on the lead device, the trajectory stays on the host, and the warp
+and padding stats run on each shard (ops/warp.py); a clip the data axis
+does not split evenly estimates on the lead device and, in the "rows"
+outcome, warps one band of output rows a device.  The frames and masks
+then come back as FrameShards.
 """
 
 from __future__ import annotations
@@ -49,6 +60,7 @@ from ..meta.motion_meta import (
 )
 from ..ops import resize as R
 from ..ops import warp as W
+from ..parallel.mesh import FrameShards
 from ..utils.device import resolve_device, strict_fp32
 from ..utils.profiling import StageTimer
 from ..utils.video_io import VideoContext
@@ -123,8 +135,8 @@ class PairFits:
 
 @dataclass
 class StabilizationResult:
-    frames: torch.Tensor | List[torch.Tensor]
-    masks: torch.Tensor | List[torch.Tensor]
+    frames: torch.Tensor | FrameShards | List[torch.Tensor]
+    masks: torch.Tensor | FrameShards | List[torch.Tensor]
     meta: Dict[str, Any]
 
 
@@ -219,7 +231,10 @@ def stabilize_clip(
     channels = int(context.frames.shape[-1])
     # a clip that streams stays where it is; the warp uploads it chunk by chunk
     streams_in = W.will_stream(total_frames, height, width, height, width, channels)
-    frames = context.frames if streams_in else context.frames.to(dev)
+    if streams_in or isinstance(context.frames, FrameShards):
+        frames = context.frames  # streamed chunk by chunk, or already on its shards
+    else:
+        frames = context.frames.to(dev)
     fps_effective, fps_requested = _resolve_fps_pair(frame_rate, context.fps)
     extra_meta = dict(extra_meta or {})
 
@@ -407,6 +422,12 @@ def stabilize_clip(
                 "padding_fraction_max": 0.0,
             }
             _tick(progress_total, progress_total)
+            if isinstance(frames, FrameShards):
+                return StabilizationResult(
+                    frames.map(torch.clone),
+                    frames.map(lambda f: torch.zeros(f.shape[:3], dtype=torch.float32, device=f.device)),
+                    _attach_motion_meta(meta),
+                )
             zero_masks = torch.zeros((total_frames, height, width), dtype=torch.float32, device=frames.device)
             return StabilizationResult(frames.clone(), zero_masks, _attach_motion_meta(meta))
 

@@ -177,7 +177,7 @@ def library() -> ctypes.CDLL:
     except OSError as exc:
         raise KernelError(f"the kernel library {path} does not load: {exc}") from exc
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.cvst_warp.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32, ptr]
+    lib.cvst_warp.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32, i32, ptr]
     lib.cvst_warp.restype = i32
     lib.cvst_warp_blur.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32, i32, ptr]
     lib.cvst_warp_blur.restype = i32

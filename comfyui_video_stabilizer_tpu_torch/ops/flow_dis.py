@@ -154,8 +154,31 @@ def _approx_median(x: torch.Tensor, iters: int = 10) -> torch.Tensor:
     return 0.5 * (lo + hi)
 
 
+def _pairwise_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis in a fixed pairwise order: zero-padded to a
+    power of two, then the upper half added to the lower until one column
+    is left.
+
+    The order depends on the axis length only, so a row sums the same
+    whatever the batch and on every device.  A library reduction picks
+    its split of the axis by the whole launch's shape (on the card, a
+    (20, P, 2) sum over P adds in another order than a (79, P, 2) one), so
+    a pair's fit would change with the number of pairs beside it: a
+    sharded run (parallel/) could not equal an unsharded one."""
+    n = x.shape[-1]
+    width = 1 << max(0, (n - 1).bit_length())
+    if width != n:
+        x = F.pad(x, (0, width - n))
+    while x.shape[-1] > 1:
+        half = x.shape[-1] // 2
+        x = x[..., :half] + x[..., half:]
+    return x[..., 0]
+
+
 def _fit_similarity_dense(flow: torch.Tensor, conf: torch.Tensor, stride: int) -> torch.Tensor:
-    """Weighted IRLS similarity fit: flow (B,H,W,2) -> (B,3,3)."""
+    """Weighted IRLS similarity fit: flow (B,H,W,2) -> (B,3,3).  Every sum
+    over the points is a :func:`_pairwise_sum`, so each pair's fit is
+    independent of the batch."""
     B, H, W = flow.shape[:3]
     dev = flow.device
     ys = torch.arange(0, H, stride, dtype=torch.float32, device=dev)
@@ -175,15 +198,21 @@ def _fit_similarity_dense(flow: torch.Tensor, conf: torch.Tensor, stride: int) -
     pd = p[None]
 
     def solve(weight):
-        wsum = torch.clamp(weight.sum(-1, keepdim=True), min=1e-6)
-        pm = (pd * weight[..., None]).sum(1) / wsum
-        qm = (q * weight[..., None]).sum(1) / wsum
+        sums = _pairwise_sum(torch.stack(
+            [weight, pd[..., 0] * weight, pd[..., 1] * weight, q[..., 0] * weight, q[..., 1] * weight], dim=1))
+        wsum = torch.clamp(sums[:, 0:1], min=1e-6)
+        pm = sums[:, 1:3] / wsum
+        qm = sums[:, 3:5] / wsum
         pr = pd - pm[:, None]
         pc = pr * weight[..., None]
         qc = (q - qm[:, None]) * weight[..., None]
-        den = torch.clamp((pc * pr).sum((1, 2)), min=1e-9)
-        a = (pr[..., 0] * qc[..., 0] + pr[..., 1] * qc[..., 1]).sum(1) / den
-        b = (pr[..., 0] * qc[..., 1] - pr[..., 1] * qc[..., 0]).sum(1) / den
+        sums = _pairwise_sum(torch.stack(
+            [pc[..., 0] * pr[..., 0] + pc[..., 1] * pr[..., 1],
+             pr[..., 0] * qc[..., 0] + pr[..., 1] * qc[..., 1],
+             pr[..., 0] * qc[..., 1] - pr[..., 1] * qc[..., 0]], dim=1))
+        den = torch.clamp(sums[:, 0], min=1e-9)
+        a = sums[:, 1] / den
+        b = sums[:, 2] / den
         tx = qm[:, 0] - (a * pm[:, 0] - b * pm[:, 1])
         ty = qm[:, 1] - (b * pm[:, 0] + a * pm[:, 1])
         return a, b, tx, ty

@@ -25,6 +25,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from ..parallel.mesh import FrameShards
+
 _LUMA = np.array([0.299, 0.587, 0.114], np.float32)
 
 # Frames per gray chunk: bounds the float64 temporaries of the luma
@@ -119,9 +121,14 @@ def gray_for_estimation(
     """Gray at the working size (divided by ``decimation``) on ``device``
     (default: the frames' own), taken 16 frames at a time.
 
+    Frame shards (parallel/mesh.py::FrameShards) give frame shards: each
+    shard's gray is made on its own device (``device`` is not used).
+
     The caller must have checked :func:`can_decimate` for
     ``decimation`` > 1.
     """
+    if isinstance(frames, FrameShards):
+        return frames.map(lambda f: gray_for_estimation(f, working_size, quantize, decimation))
     dev = frames.device if device is None else torch.device(device)
     h_in, w_in = int(frames.shape[1]), int(frames.shape[2])
     if decimation > 1:

@@ -31,6 +31,16 @@ of frames to ``device``, warp it there and copy the result into a host
 (CPU) tensor, so a streamed result lies on the host while an unstreamed
 one stays on the device.  Every frame is computed from its own inputs
 only, so a streamed frame is bitwise the unstreamed one.
+
+Under an active mesh (utils/meshinfo.py) the warp and the padding stats
+run where the clip lies (parallel/mesh.py): on each frame shard, with
+that shard's rows of the coefficients (``warp_frames_sharded``, the
+counterpart of the JAX package's ``warp_pallas_sharded``; the
+``*_sharded`` stats), or, for the "rows" outcome, one band of output
+rows a device, K1 and the stats taking the band's first row ``row0``.
+A pixel does not depend on the layout, and the padded ratio of a frame
+is its exact padded count over the canvas area (``_ratios``), so every
+layout gives the unsharded result bitwise.
 """
 
 from __future__ import annotations
@@ -40,6 +50,10 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
+from ..parallel.mesh import (
+    FrameShards, data_devices, even_spans, frame_shards, lead_device, move, row_band_devices,
+)
+from ..utils.meshinfo import active_mesh, data_shards
 from . import cuda_build
 
 Interp = str  # 'bilinear' | 'bicubic' | 'nearest'
@@ -115,11 +129,12 @@ def prepare_inverse_coeffs(matrices: np.ndarray) -> np.ndarray:
 # Coordinates (plain PyTorch; K1 repeats this arithmetic per pixel)
 # ---------------------------------------------------------------------------
 
-def _displacements(coeffs: torch.Tensor, out_h: int, out_w: int):
-    """Per-pixel (dx, dy, safe) of shape (N, out_h, out_w)."""
+def _displacements(coeffs: torch.Tensor, out_h: int, out_w: int, row0: int = 0):
+    """Per-pixel (dx, dy, safe) of shape (N, out_h, out_w), for the output
+    rows [row0, row0 + out_h)."""
     dev = coeffs.device
     xx = torch.arange(out_w, device=dev, dtype=torch.float32)[None, None, :]
-    yy = torch.arange(out_h, device=dev, dtype=torch.float32)[None, :, None]
+    yy = torch.arange(row0, row0 + out_h, device=dev, dtype=torch.float32)[None, :, None]
     a, b, c, d, e, f, g, h = (coeffs[:, i, None, None] for i in range(8))
     denom = 1.0 + g * xx + h * yy
     qx = (a - 1.0) * xx + b * yy + c - (g * xx) * xx - (h * xx) * yy
@@ -129,12 +144,12 @@ def _displacements(coeffs: torch.Tensor, out_h: int, out_w: int):
     return qx * inv_d, qy * inv_d, safe
 
 
-def _split_coords(coeffs: torch.Tensor, out_h: int, out_w: int):
+def _split_coords(coeffs: torch.Tensor, out_h: int, out_w: int, row0: int = 0):
     """int32 (x0, y0) = floor(source) and float32 fractions (fx, fy)."""
-    dx, dy, safe = _displacements(coeffs, out_h, out_w)
+    dx, dy, safe = _displacements(coeffs, out_h, out_w, row0)
     dev = coeffs.device
     xi = torch.arange(out_w, device=dev, dtype=torch.int32)[None, None, :]
-    yi = torch.arange(out_h, device=dev, dtype=torch.int32)[None, :, None]
+    yi = torch.arange(row0, row0 + out_h, device=dev, dtype=torch.int32)[None, :, None]
     dx = torch.where(safe, dx.clamp(-_DISP_LIM, _DISP_LIM), -_DISP_LIM)
     dy = torch.where(safe, dy.clamp(-_DISP_LIM, _DISP_LIM), -_DISP_LIM)
     dxf = torch.floor(dx)
@@ -142,9 +157,9 @@ def _split_coords(coeffs: torch.Tensor, out_h: int, out_w: int):
     return xi + dxf.to(torch.int32), yi + dyf.to(torch.int32), dx - dxf, dy - dyf
 
 
-def _nearest_coords(coeffs: torch.Tensor, out_h: int, out_w: int):
+def _nearest_coords(coeffs: torch.Tensor, out_h: int, out_w: int, row0: int = 0):
     """Round-half-to-even integer source coords (cv2 INTER_NEAREST)."""
-    x0, y0, fx, fy = _split_coords(coeffs, out_h, out_w)
+    x0, y0, fx, fy = _split_coords(coeffs, out_h, out_w, row0)
 
     def rnd(base, frac):
         return base + torch.where(frac > 0.5, 1, torch.where(frac < 0.5, 0, base & 1))
@@ -171,8 +186,9 @@ def _cubic_weights(t: torch.Tensor):
 
 
 def warp_plain(frames: torch.Tensor, coeffs: torch.Tensor, border: torch.Tensor,
-               out_h: int, out_w: int, interp: Interp) -> torch.Tensor:
-    """Plain PyTorch version of K1 (same op order; gather based)."""
+               out_h: int, out_w: int, interp: Interp, row0: int = 0) -> torch.Tensor:
+    """Plain PyTorch version of K1 (same op order; gather based): the
+    output rows [row0, row0 + out_h) of the warp."""
     n, h, w, c = frames.shape
     border_vec = border.reshape(1, 1, 1, c)
 
@@ -181,10 +197,10 @@ def warp_plain(frames: torch.Tensor, coeffs: torch.Tensor, border: torch.Tensor,
         return torch.where(valid, _gather_taps(frames, ys, xs), border_vec)
 
     if interp == "nearest":
-        xn, yn = _nearest_coords(coeffs, out_h, out_w)
+        xn, yn = _nearest_coords(coeffs, out_h, out_w, row0)
         return tap(yn, xn)
 
-    x0, y0, fx, fy = _split_coords(coeffs, out_h, out_w)
+    x0, y0, fx, fy = _split_coords(coeffs, out_h, out_w, row0)
     acc = torch.zeros((n, out_h, out_w, c), dtype=torch.float32, device=frames.device)
     if interp == "bilinear":
         taps = (
@@ -221,16 +237,20 @@ def warp_blur_plain(frames: torch.Tensor, coeffs_s: torch.Tensor, border: torch.
 
 
 def warp_frames(frames: torch.Tensor, coeffs: torch.Tensor, border: torch.Tensor,
-                out_h: int, out_w: int, interp: Interp = "bilinear") -> torch.Tensor:
+                out_h: int, out_w: int, interp: Interp = "bilinear", row0: int = 0) -> torch.Tensor:
     """Warp (N,H,W,C) float32 frames by per-frame (N,8) inverse coeffs.
 
-    CUDA tensors launch K1 (raising if it cannot build or launch); CPU
-    tensors take :func:`warp_plain`.
+    The result holds the output rows [row0, row0 + out_h): the whole
+    canvas for row0 = 0, else one row band of it, each pixel as in the
+    whole canvas.  CUDA tensors launch K1 (raising if it cannot build or
+    launch); CPU tensors take :func:`warp_plain`.
     """
     if interp not in INTERP_CODES:
         raise ValueError(f"Unsupported interpolation {interp!r}.")
+    if row0 < 0:
+        raise ValueError(f"row0 must be >= 0, got {row0}")
     if frames.device.type == "cpu":
-        return warp_plain(frames, coeffs, border, out_h, out_w, interp)
+        return warp_plain(frames, coeffs, border, out_h, out_w, interp, row0)
     n, h, w, c = frames.shape
     cuda_build.require_cuda_tensor("frames", frames, torch.float32, 4)
     cuda_build.require_cuda_tensor("coeffs", coeffs, torch.float32, 2)
@@ -248,7 +268,7 @@ def warp_frames(frames: torch.Tensor, coeffs: torch.Tensor, border: torch.Tensor
         for s, e in cuda_build.frame_spans(n):
             err = cuda_build.library().cvst_warp(
                 frames[s:e].data_ptr(), coeffs[s:e].data_ptr(), border.data_ptr(), out[s:e].data_ptr(),
-                e - s, h, w, c, out_h, out_w, INTERP_CODES[interp],
+                e - s, h, w, c, out_h, out_w, row0, INTERP_CODES[interp],
                 cuda_build.current_stream(frames.device),
             )
             cuda_build.check_launch(err, "warp")
@@ -327,9 +347,9 @@ def _mask_chunk(out_h: int, out_w: int) -> int:
     return max(1, _MASK_CHUNK_PIXELS // max(out_h * out_w, 1))
 
 
-def _inside(coeffs: torch.Tensor, out_h: int, out_w: int, in_h: int, in_w: int) -> torch.Tensor:
+def _inside(coeffs: torch.Tensor, out_h: int, out_w: int, in_h: int, in_w: int, row0: int = 0) -> torch.Tensor:
     """Nearest coverage: True where the round-half-even source lies in the frame."""
-    xn, yn = _nearest_coords(coeffs, out_h, out_w)
+    xn, yn = _nearest_coords(coeffs, out_h, out_w, row0)
     return (xn >= 0) & (xn < in_w) & (yn >= 0) & (yn < in_h)
 
 
@@ -352,17 +372,66 @@ def padding_mask_stats(
     return padding_stats(coeffs, out_h, out_w, in_h, in_w)
 
 
+def _padding_counts(coeffs: torch.Tensor, out_h: int, out_w: int, in_h: int, in_w: int, row0: int = 0
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(padding masks (N, out_h, out_w), padded pixels per frame (N,) int64)
+    of the output rows [row0, row0 + out_h)."""
+    n = coeffs.shape[0]
+    mask = torch.empty((n, out_h, out_w), dtype=torch.float32, device=coeffs.device)
+    counts = torch.empty((n,), dtype=torch.int64, device=coeffs.device)
+    chunk = _mask_chunk(out_h, out_w)
+    for s in range(0, n, chunk):
+        inside = _inside(coeffs[s:s + chunk], out_h, out_w, in_h, in_w, row0)
+        mask[s:s + chunk] = 1.0 - inside.to(torch.float32)
+        counts[s:s + chunk] = out_h * out_w - inside.reshape(inside.shape[0], -1).sum(dim=1)
+    return mask, counts
+
+
+def _ratios(counts: torch.Tensor, area: int) -> torch.Tensor:
+    """Padded fraction per frame: the exact integer count over the canvas
+    area, one rounding (a float32 true division on every device; the
+    divisor is a tensor, as a CUDA division by a Python number multiplies
+    by its reciprocal).  So the ratio of a frame does not depend on how
+    its pixels or the clip's frames were split over devices, and equals
+    the mean of the binary mask wherever that sum is exact (below 2**24
+    pixels a frame)."""
+    return counts.to(torch.float32) / torch.full((), float(area), dtype=torch.float32, device=counts.device)
+
+
 def padding_stats(coeffs: torch.Tensor, out_h: int, out_w: int, in_h: int, in_w: int
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """:func:`padding_mask_stats` from (N, 8) float32 inverse coefficients
     already on the device (the fast path's, made there)."""
-    n = coeffs.shape[0]
-    mask = torch.empty((n, out_h, out_w), dtype=torch.float32, device=coeffs.device)
-    chunk = _mask_chunk(out_h, out_w)
-    for s in range(0, n, chunk):
-        inside = _inside(coeffs[s:s + chunk], out_h, out_w, in_h, in_w)
-        mask[s:s + chunk] = 1.0 - inside.to(torch.float32)
-    return mask, mask.reshape(n, -1).mean(dim=1)
+    mask, counts = _padding_counts(coeffs, out_h, out_w, in_h, in_w)
+    return mask, _ratios(counts, out_h * out_w)
+
+
+def padding_stats_sharded(coeffs: torch.Tensor, frames: FrameShards, out_h: int, out_w: int,
+                          in_h: int, in_w: int) -> Tuple[FrameShards, torch.Tensor]:
+    """:func:`padding_stats` on each frame shard's device, the counterpart of
+    the JAX package's ``_mesh_frame_axis`` constraint: each shard's rows
+    of ``coeffs`` (N, 8) go to its device and its masks stay there; the
+    ratios (N,) are gathered to ``coeffs``' device."""
+    masks, counts = [], []
+    for (s, e), dev in zip(frames.spans, frames.devices):
+        mask, cnt = _padding_counts(move(coeffs[s:e], dev, "scatter"), out_h, out_w, in_h, in_w)
+        masks.append(mask)
+        counts.append(move(cnt, coeffs.device, "gather"))
+    return FrameShards(masks), _ratios(torch.cat(counts), out_h * out_w)
+
+
+def warp_frames_sharded(frames: FrameShards, coeffs: torch.Tensor, border: torch.Tensor,
+                        out_h: int, out_w: int, interp: Interp = "bilinear") -> FrameShards:
+    """:func:`warp_frames` on each frame shard, the counterpart of the JAX
+    package's ``warp_pallas_sharded``: K1 runs once per shard, on the
+    shard's device, with that shard's rows of ``coeffs`` (N, 8); no frame
+    leaves its device."""
+    out = []
+    for (s, e), shard in zip(frames.spans, frames.shards):
+        dev = shard.device
+        out.append(warp_frames(shard, move(coeffs[s:e], dev, "scatter"), move(border, dev, "scatter"),
+                               out_h, out_w, interp))
+    return FrameShards(out)
 
 
 def padding_stats_bucket(coeffs: torch.Tensor, out_wh: torch.Tensor, out_h: int, out_w: int,
@@ -386,6 +455,21 @@ def padding_stats_bucket(coeffs: torch.Tensor, out_wh: torch.Tensor, out_h: int,
         mask[s:s + chunk] = part
         ratios[s:s + chunk] = torch.where(in_canvas[None], part, 0.0).reshape(part.shape[0], -1).sum(1) / area
     return mask, ratios
+
+
+def padding_stats_bucket_sharded(coeffs: torch.Tensor, out_wh: torch.Tensor, frames: FrameShards,
+                                 out_h: int, out_w: int, in_h: int, in_w: int
+                                 ) -> Tuple[FrameShards, torch.Tensor]:
+    """:func:`padding_stats_bucket` on each frame shard's device, as
+    :func:`padding_stats_sharded`; the ratios are gathered to ``coeffs``'
+    device."""
+    masks, ratios = [], []
+    for (s, e), dev in zip(frames.spans, frames.devices):
+        mask, r = padding_stats_bucket(move(coeffs[s:e], dev, "scatter"), move(out_wh, dev, "scatter"),
+                                       out_h, out_w, in_h, in_w)
+        masks.append(mask)
+        ratios.append(move(r, coeffs.device, "gather"))
+    return FrameShards(masks), torch.cat(ratios)
 
 
 def coverage_mask(
@@ -464,28 +548,105 @@ def _border_tensor(border: Sequence[float] | float, c: int, device: torch.device
     return torch.as_tensor(np.broadcast_to(np.asarray(border, np.float32), (c,)).copy(), device=device)
 
 
-def _stream_chunks(frames: torch.Tensor, chunk: int, device: torch.device, run, shapes):
-    """Time-chunk streaming: for each chunk of ``chunk`` frames, upload it
-    to ``device``, call ``run(frames_chunk, start, end)`` for a tuple of
-    device tensors and copy each into a host tensor of (N, *shape)."""
+def _stream_chunks(frames: torch.Tensor, chunk: int, devices, run, shapes):
+    """Time-chunk streaming: for each chunk of ``chunk`` frames, split it
+    evenly over ``devices`` (one device when no mesh is active), upload
+    each part to its device, call ``run(frames_part, start, end)`` for a
+    tuple of device tensors and copy each into a host tensor of
+    (N, *shape)."""
     n = frames.shape[0]
     outs = [torch.empty((n, *shape), dtype=torch.float32) for shape in shapes]
     for s in range(0, n, chunk):
         e = min(n, s + chunk)
-        parts = run(frames[s:e].to(device, torch.float32).contiguous(), s, e)
-        for out, part in zip(outs, parts):
-            out[s:e].copy_(part)
+        for (a, b), dev in zip(even_spans(e - s, len(devices)), devices):
+            if b == a:
+                continue
+            parts = run(frames[s + a:s + b].to(dev, torch.float32).contiguous(), s + a, s + b)
+            for out, part in zip(outs, parts):
+                out[s + a:s + b].copy_(part)
     return outs
 
 
+def _stream_devices(n: int, device: torch.device):
+    """Where a streamed clip's time chunks run: split over the active
+    mesh's data axis when it splits the clip evenly, else on ``device``."""
+    return data_devices(active_mesh()) if data_shards(n) else [device]
+
+
+def _warp_bands(frames: torch.Tensor, coeffs: np.ndarray, border, out_h: int, out_w: int, in_h: int, in_w: int,
+                interp: Interp, with_mask: bool, devices, ratio_device: torch.device):
+    """The "rows" outcome: the output canvas cut into one band of rows a
+    device; each band's device receives the source frames and runs K1
+    with the band's ``row0`` (and the band's padding stats), so every
+    pixel is the whole-canvas warp's.  A frame's padded count is the sum
+    of its bands' exact counts.  Returns the tuple of :func:`_warp_clip`
+    with row-band FrameShards (``axis=1``)."""
+    c = frames.shape[-1]
+    bands = [(span, dev) for span, dev in zip(even_spans(out_h, len(devices)), devices) if span[1] > span[0]]
+    coeffs_d = [torch.as_tensor(coeffs, device=dev) for _, dev in bands]
+    if with_mask:
+        masks, total = [], 0
+        for ((r0, r1), _), co in zip(bands, coeffs_d):
+            mask, cnt = _padding_counts(co, r1 - r0, out_w, in_h, in_w, row0=r0)
+            masks.append(mask)
+            total = total + move(cnt, ratio_device, "gather")
+    warped = FrameShards([
+        warp_frames(move(frames, dev, "scatter").to(torch.float32).contiguous(), co,
+                    _border_tensor(border, c, dev), r1 - r0, out_w, interp, row0=r0)
+        for ((r0, r1), dev), co in zip(bands, coeffs_d)
+    ], axis=1)
+    if not with_mask:
+        return (warped,)
+    return FrameShards(masks, axis=1), _ratios(total, out_h * out_w), warped
+
+
+def _warp_clip(frames, matrices: np.ndarray, out_size: Tuple[int, int], interp: Interp, border,
+               device, with_mask: bool):
+    """:func:`warp_clip` (``(frames,)``) and :func:`warp_clip_with_mask`
+    (``(masks, ratios, frames)``), by the clip's layout: streamed through
+    time chunks, by row band, or by frame shard (one shard when no mesh
+    splits the clip, the result then plain tensors).  The padding stats
+    are queued before the warp, so a fetch of the ratios waits for the
+    mask passes only."""
+    out_w, out_h = int(out_size[0]), int(out_size[1])
+    n, h, w, c = frames.shape
+    dev = lead_device(frames) if device is None else torch.device(device)
+    coeffs = prepare_inverse_coeffs(np.asarray(matrices, np.float64).reshape(n, 3, 3)).astype(np.float32)
+
+    def run(fr, s, e):
+        coeffs_t = torch.as_tensor(coeffs[s:e], device=fr.device)
+        warped = warp_frames(fr, coeffs_t, _border_tensor(border, c, fr.device), out_h, out_w, interp)
+        if not with_mask:
+            return (warped,)
+        masks, counts = _padding_counts(coeffs_t, out_h, out_w, h, w)
+        return masks, _ratios(counts, out_h * out_w), warped
+
+    chunk = _chunk_frames(n, h, w, out_h, out_w, c)
+    if chunk < n:
+        shapes = ([(out_h, out_w), ()] if with_mask else []) + [(out_h, out_w, c)]
+        return _stream_chunks(frames, chunk, _stream_devices(n, dev), run, shapes)
+    bands = row_band_devices(n, h)
+    if bands is not None:
+        return _warp_bands(frames, coeffs, border, out_h, out_w, h, w, interp, with_mask, bands, dev)
+    shards = frame_shards(frames)
+    whole = shards is None
+    if whole:
+        shards = FrameShards([frames.to(dev)])
+    shards = shards.map(lambda f: f.to(torch.float32).contiguous())
+    coeffs_t = torch.as_tensor(coeffs, device=dev)
+    out = list(padding_stats_sharded(coeffs_t, shards, out_h, out_w, h, w)) if with_mask else []
+    out.append(warp_frames_sharded(shards, coeffs_t, _border_tensor(border, c, dev), out_h, out_w, interp))
+    return tuple(x.shards[0] if whole and isinstance(x, FrameShards) else x for x in out)
+
+
 def warp_clip(
-    frames: torch.Tensor,
+    frames,
     matrices: np.ndarray,
     out_size: Tuple[int, int],
     interp: Interp = "bilinear",
     border: Sequence[float] | float = (0.0, 0.0, 0.0),
     device: torch.device | str | None = None,
-) -> torch.Tensor:
+):
     """Warp a whole clip: frames (N,H,W,C) by per-frame src->dst matrices.
 
     ``out_size`` is (width, height), the cv2 convention; matrices are
@@ -493,57 +654,42 @@ def warp_clip(
     own), where the result stays -- unless the clip's live set exceeds
     ``CHUNK_BUDGET_BYTES``: then it streams in time chunks and the
     result is a host (CPU) tensor.
+
+    Under an active mesh (utils/meshinfo.py) the warp splits over it as
+    the clip lies there (parallel/mesh.py::partition_spec): frame shards
+    (a FrameShards, or a clip the data axis splits evenly) warp on their
+    own devices, one K1 launch a shard; the "rows" outcome warps one band
+    of output rows a device; the result is then a FrameShards.  A
+    streamed clip keeps its rule (``will_stream`` on the whole clip) and
+    splits each time chunk over the data axis.
     """
     out_w, out_h = int(out_size[0]), int(out_size[1])
-    n, h, w, c = frames.shape
-    dev = frames.device if device is None else torch.device(device)
+    n, c = frames.shape[0], frames.shape[-1]
     if n == 0:
+        dev = lead_device(frames) if device is None else torch.device(device)
         return torch.zeros((0, out_h, out_w, c), dtype=torch.float32, device=dev)
-    coeffs = prepare_inverse_coeffs(matrices).astype(np.float32)
-    border_t = _border_tensor(border, c, dev)
-
-    def run(fr, s, e):
-        return (warp_frames(fr, torch.as_tensor(coeffs[s:e], device=dev), border_t, out_h, out_w, interp),)
-
-    chunk = _chunk_frames(n, h, w, out_h, out_w, c)
-    if chunk >= n:
-        return run(frames.to(dev, torch.float32).contiguous(), 0, n)[0]
-    return _stream_chunks(frames, chunk, dev, run, [(out_h, out_w, c)])[0]
+    return _warp_clip(frames, matrices, out_size, interp, border, device, with_mask=False)[0]
 
 
 def warp_clip_with_mask(
-    frames: torch.Tensor,
+    frames,
     matrices: np.ndarray,
     out_size: Tuple[int, int],
     interp: Interp = "bilinear",
     border: Sequence[float] | float = (0.0, 0.0, 0.0),
     device: torch.device | str | None = None,
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+):
     """:func:`warp_clip` with the padding masks and their per-frame ratios
     (:func:`padding_mask_stats`): ``(frames, masks, ratios)``.
 
     Unstreamed, all three stay on ``device`` and the masks are queued
     before the frame warp, so a caller that fetches the ratios waits for
     the mask pass only.  Streamed, each time chunk's masks and ratios are
-    computed beside its frames and all three are host tensors.
+    computed beside its frames and all three are host tensors.  Under an
+    active mesh the frames and masks split as in :func:`warp_clip`, each
+    mask beside its frames, and the ratios are gathered to ``device``.
     """
-    out_w, out_h = int(out_size[0]), int(out_size[1])
-    n, h, w, c = frames.shape
-    dev = frames.device if device is None else torch.device(device)
-    coeffs = prepare_inverse_coeffs(matrices).astype(np.float32)
-    border_t = _border_tensor(border, c, dev)
-    mats = np.asarray(matrices, np.float64).reshape(n, 3, 3)
-
-    def run(fr, s, e):
-        masks, ratios = padding_mask_stats(mats[s:e], (w, h), (out_w, out_h), dev)
-        coeffs_t = torch.as_tensor(coeffs[s:e], device=dev)
-        return masks, ratios, warp_frames(fr, coeffs_t, border_t, out_h, out_w, interp)
-
-    chunk = _chunk_frames(n, h, w, out_h, out_w, c)
-    if chunk >= n:
-        masks, ratios, warped = run(frames.to(dev, torch.float32).contiguous(), 0, n)
-    else:
-        masks, ratios, warped = _stream_chunks(frames, chunk, dev, run, [(out_h, out_w), (), (out_h, out_w, c)])
+    masks, ratios, warped = _warp_clip(frames, matrices, out_size, interp, border, device, with_mask=True)
     return warped, masks, ratios
 
 
@@ -590,5 +736,5 @@ def warp_clip_blur(
         parts = run(frames.to(dev, torch.float32).contiguous(), 0, n)
     else:
         shapes = [(out_h, out_w, c)] + ([(out_h, out_w)] if with_mask else [])
-        parts = _stream_chunks(frames, chunk, dev, run, shapes)
+        parts = _stream_chunks(frames, chunk, [dev], run, shapes)
     return parts[0], (parts[1] if with_mask else None)

@@ -16,6 +16,11 @@ host, and the engines upload it chunk by chunk.
 At the node boundary the output is what the JAX package emits: a
 contiguous float32 BHWC CPU tensor (the dict template refilled) and
 (N, H, W) float32 CPU masks.
+
+A context may hold frame shards (parallel/mesh.py::FrameShards, made by
+parallel/production.py::sharded_video_context), and a result on a mesh
+of more than one shard holds them too; :func:`reconstruct_video` and
+:func:`convert_masks_for_output` gather them to the host.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ import numpy as np
 import torch
 
 from ..ops.warp import will_stream
+from ..parallel.mesh import FrameShards
 from .device import resolve_device
 
 _FRAME_KEYS = ("frames", "images", "video")
@@ -45,9 +51,10 @@ class FrameAdapter:
 
 @dataclass
 class VideoContext:
-    """Normalized clip: frames is a float32 (N, H, W, 3) RGB 0..1 tensor."""
+    """Normalized clip: frames is a float32 (N, H, W, 3) RGB 0..1 tensor,
+    or its frame shards on a mesh."""
 
-    frames: torch.Tensor
+    frames: torch.Tensor | FrameShards
     adapter: FrameAdapter
     width: int
     height: int
@@ -191,6 +198,8 @@ def normalize_video_input(value: Any, device: str | torch.device = "cuda") -> Vi
 
 
 def _to_cpu_f32(x: Any) -> torch.Tensor:
+    if isinstance(x, FrameShards):
+        x = x.gather("cpu")
     t = x if isinstance(x, torch.Tensor) else torch.from_numpy(np.asarray(x))
     return t.detach().to("cpu", torch.float32).contiguous()
 

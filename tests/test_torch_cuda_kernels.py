@@ -622,3 +622,102 @@ def test_dense_dis_flow_on_cuda_matches_cpu(cuda):
     d = (flow.cpu() - cpu_flow).abs()
     assert float(d.median()) <= 1e-4 and float(torch.quantile(d.flatten(), 0.99)) <= 1e-2
     assert float((conf.cpu() - cpu_conf).abs().median()) <= 1e-4
+
+
+@pytest.mark.parametrize("interp", ["bilinear", "bicubic", "nearest"])
+@pytest.mark.parametrize("bands", [2, 3, 4])
+def test_warp_kernel_row_bands_bitwise(cuda, interp, bands):
+    """K1 with ``row0``: each band of output rows is bitwise its plain
+    version and the same rows of the whole-canvas launch; row0 = 0 is the
+    whole canvas."""
+    n, h, w = 3, 97, 161
+    frames = torch.rand((n, h, w, 3), generator=torch.Generator().manual_seed(4)).to(cuda)
+    coeffs = torch.as_tensor(W.prepare_inverse_coeffs(_mats(n, 5, persp=1e-4)).astype(np.float32), device=cuda)
+    border = torch.tensor([0.2, 0.5, 0.8], device=cuda)
+    whole = W.warp_frames(frames, coeffs, border, h + 5, w - 7, interp)
+    assert torch.equal(W.warp_frames(frames, coeffs, border, h + 5, w - 7, interp, row0=0), whole)
+    bounds = [(h + 5) * i // bands for i in range(bands + 1)]
+    for r0, r1 in zip(bounds[:-1], bounds[1:]):
+        band = W.warp_frames(frames, coeffs, border, r1 - r0, w - 7, interp, row0=r0)
+        ref = W.warp_plain(frames, coeffs, border, r1 - r0, w - 7, interp, row0=r0)
+        torch.cuda.synchronize()
+        assert torch.equal(band, ref) and torch.equal(band, whole[:, r0:r1])
+
+
+@pytest.mark.parametrize("engine", ["flow", "classic"])
+@pytest.mark.parametrize("spatial", [1, 2])
+@pytest.mark.parametrize("n", [8, 9])
+def test_sharded_on_one_card_equals_unsharded(cuda, monkeypatch, engine, spatial, n):
+    """The production engines on four shards of one card
+    (``make_mesh(devices=["cuda:0"] * 4)``) against the unsharded call on
+    the card: torch.equal in frames, masks and the meta.  An even clip
+    runs the fast path by shard (the reference runs it eagerly,
+    ``CVST_FUSED=0``); an uneven one defers to the host engine (the
+    reference too, ``CVST_FASTPATH=0``), in bands of rows with a spatial
+    axis of 2.  K2 (Flow) or K4-K6 (Classic) and K1 launch on every
+    shard; no copy is made between the shards of one card."""
+    from comfyui_video_stabilizer_tpu_torch.models.classic import stabilize_classic
+    from comfyui_video_stabilizer_tpu_torch.models.flow import stabilize_flow
+    from comfyui_video_stabilizer_tpu_torch.parallel import mesh as PM
+    from comfyui_video_stabilizer_tpu_torch.parallel import production as PR
+    from comfyui_video_stabilizer_tpu_torch.utils.video_io import normalize_video_input
+
+    monkeypatch.setenv("CVST_FASTPATH_STRICT", "1")
+    monkeypatch.setenv("CVST_FUSED", "0")
+    if n % 4:
+        monkeypatch.setenv("CVST_FASTPATH", "0")
+    frames = _small_clip(21, n=n).cpu().numpy()
+    sharded_fn, ref_fn = ((PR.stabilize_flow_sharded, stabilize_flow) if engine == "flow"
+                          else (PR.stabilize_classic_sharded, stabilize_classic))
+    ref = ref_fn(normalize_video_input(torch.from_numpy(frames), device=cuda), "crop_and_pad", "similarity",
+                 False, 0.9, 0.6, 0.6, (127, 127, 127), 16.0, device=cuda)
+    PM.reset_transfers()
+    cuda_build.reset_launches()
+    ours = sharded_fn(frames, PM.make_mesh(devices=["cuda:0"] * 4, spatial=spatial))
+    torch.cuda.synchronize()
+    if n % 4 == 0:
+        assert isinstance(ours.frames, PM.FrameShards) and len(ours.frames.shards) == 4 // spatial
+        assert cuda_build.LAUNCHES["warp"] == 4 // spatial
+        kernel = "cost_volume" if engine == "flow" else "gftt"
+        assert cuda_build.LAUNCHES[kernel] >= 4 // spatial
+    elif spatial == 2:
+        assert isinstance(ours.frames, PM.FrameShards) and ours.frames.axis == 1
+        assert cuda_build.LAUNCHES["warp"] == 2
+    assert PM.TRANSFERS == {"halo": 0, "gather": 0, "scatter": 0}
+    gather = (lambda x: x.gather()) if isinstance(ours.frames, PM.FrameShards) else (lambda x: x)
+    assert torch.equal(gather(ours.frames), ref.frames) and torch.equal(gather(ours.masks), ref.masks)
+    assert ours.meta == ref.meta
+
+
+def test_graph_cache_keys_one_card_once(cuda, monkeypatch):
+    """Frames on "cuda" and on "cuda:0" are one device: the Flow graph is
+    captured once and replayed for both."""
+    monkeypatch.setenv("CVST_FASTPATH_STRICT", "1")
+    frames = _small_clip(15)
+    FP.clear_graph_cache()
+    captures = FP.GRAPH_STATS["captures"]
+    a = _fast_call(frames, torch.device("cuda"))
+    b = _fast_call(frames, torch.device("cuda", 0))
+    torch.cuda.synchronize()
+    assert FP.GRAPH_STATS["captures"] == captures + 1
+    assert torch.equal(a.frames, b.frames)
+
+
+@pytest.mark.parametrize("batch", [1, 4, 19, 20])
+def test_similarity_fit_is_batch_invariant_on_cuda(cuda, batch):
+    """The dense similarity fit of a pair does not depend on the pairs
+    beside it (its sums are fixed-order pairwise trees; a library
+    reduction adds in another order for another batch): the first
+    ``batch`` pairs fitted alone equal the same rows of a 79-pair fit, at
+    a coarse (33 x 60) and the finest (270 x 480) level of the 1080p
+    slice."""
+    from comfyui_video_stabilizer_tpu_torch.ops import flow_dis as FD
+
+    gen = torch.Generator().manual_seed(batch)
+    for h, w in ((33, 60), (270, 480)):
+        flow = (torch.randn((79, h, w, 2), generator=gen) * 2).to(cuda)
+        conf = torch.rand((79, h, w), generator=gen).to(cuda)
+        whole = FD._fit_similarity_dense(flow, conf, 4)
+        part = FD._fit_similarity_dense(flow[:batch].contiguous(), conf[:batch].contiguous(), 4)
+        torch.cuda.synchronize()
+        assert torch.equal(part, whole[:batch])

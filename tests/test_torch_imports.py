@@ -99,6 +99,18 @@ _CPU_SLICE = textwrap.dedent(
     assert tuple(out[0].shape) == (5, 64, 96, 3) and out[2]["motion_apply"]["motion_blur_samples"] == 5
     out = nodes.VideoStabilizerInverse.execute(out[0], stab_meta, "#7F7F7F", device="cpu")
     assert "inverse_stabilization" in out[2]
+    from comfyui_video_stabilizer_tpu_torch import parallel
+    from comfyui_video_stabilizer_tpu_torch.parallel import mesh as pmesh, pipeline, production
+    from comfyui_video_stabilizer_tpu_torch.utils import meshinfo
+    mesh = pmesh.make_mesh(devices=["cpu"] * 4)
+    clip4 = np.ascontiguousarray(frames[:4], np.float32)
+    for entry in (production.stabilize_flow_sharded, production.stabilize_classic_sharded):
+        res = entry(clip4, mesh)
+        assert isinstance(res.frames, pmesh.FrameShards) and res.frames.shape == (4, 64, 96, 3)
+    for entry in (pipeline.sharded_stabilize, pipeline.sharded_stabilize_similarity):
+        warped, masks, _ = entry(clip4, mesh)
+        assert warped.shape == (4, 64, 96, 3) and masks.shape == (4, 64, 96)
+    assert not meshinfo.mesh_active() and parallel.make_mesh is pmesh.make_mesh
     assert all(v == 0 for v in cuda_build.LAUNCHES.values()), cuda_build.LAUNCHES
     assert "warp_blur" in cuda_build.LAUNCHES
     assert "jax" not in sys.modules, sorted(m for m in sys.modules if m.startswith("jax"))
