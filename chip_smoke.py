@@ -20,17 +20,27 @@ Phases (any failure raises and the script exits non-zero):
   6. the Flow node on a CPU tensor of 16 frames at 1080p
   7. K4 (GFTT scores from the gray) against its plain version on the
      Classic slice's grays, (79, 540, 960), bitwise, beside the plain
-     Sobel and products it replaces
+     Sobel and products it replaces; then K7 (the corner greedy) on
+     those grays' (79, 2048) candidates from _topk_packed and on
+     clustered candidates that fill max_corners = 23, torch.equal to its
+     plain version and to the native greedy, timed beside the plain
+     version, with its byte and operation counts
   8. K6 (window extraction) against its plain version at (79, 400, 49)
      and (79, 400, 36) on the level-0 stack with the real GFTT corners
   9. K5 (LK Gauss-Newton) against its plain version: one level-0 solve
      on the real clip's windows, with the iteration histogram
- 10. the Classic slice: stabilize_classic (its fast path, not captured)
-     on the same 1080p x 80 clip,
-     with launch counts, output checks, the warm frames/s, the peak
-     device memory, the device events of one call under torch.profiler,
-     a stage split (K4 apart from the threshold and sort), and BASELINE
-     config 1 (854x480, 64 frames) once
+ 10. the Classic slice: stabilize_classic (its fast path, the estimation
+     from one CUDA graph) on the same 1080p x 80 clip: the first call's
+     launches (warm-up, capture, replay), then a warm call's (the
+     kernels line's), output checks, the warm frames/s, the peak device
+     memory, the device events of one call under torch.profiler, an
+     eager stage split (K4, the threshold and sort, K7 apart), and
+     BASELINE config 1 (854x480, 64 frames) once; then the Classic graph
+     as phase 26 takes Flow's (the whole meta equal to CVST_FUSED=0, and
+     no device-to-host copy before K1) and its split as phase 27; then
+     the graph cache shared by Flow and Classic: four static keys in
+     three rounds (captures, ms, the memory the four graphs keep), and
+     five keys cycled through the four entries (a capture every call)
  11. Classic, CUDA path against CPU path on a small clip; the Classic
      node on a CPU tensor of 16 frames at 1080p
  12. the Motion Apply slice, BASELINE config 4: apply_motion (bicubic,
@@ -82,7 +92,8 @@ Phases (any failure raises and the script exits non-zero):
      and busy share under torch.profiler
  23. K2's launch refused (error 9), through the fast path (the graph
      captured anew) and through the host engine: stabilize_flow raises
-     KernelError and no fallback tier runs
+     KernelError and no fallback tier runs; then K7's: stabilize_classic
+     raises KernelError and the native greedy never runs
  24. the host engine's (CVST_FASTPATH=0) 1080p x 80 Flow call's time
      split: the device stages with a synchronize after each, the host
      trajectory + meta between the fits' fetch and K1's launch, the tail
@@ -90,10 +101,13 @@ Phases (any failure raises and the script exits non-zero):
      torch.profiler
  25. the 1080p x 80 Flow call through the host engine against the fast
      path, to the docs/parity.md contract, and the warm calls of both
- 26. the fused graph: the first call (warm-up + capture) apart from warm
-     calls, the replay alone, bitwise equality with CVST_FUSED=0, the
-     launches of a warm call, its device events under torch.profiler
-     (and the replay's alone)
+ 26. the fused Flow graph: the first call (warm-up + capture) apart from
+     warm calls, the replay alone, bitwise equality with CVST_FUSED=0
+     (the whole meta too), the launches of a warm call, its device
+     events under torch.profiler (and the replay's alone) and its
+     device-to-host copies (none before K1), the device memory the
+     cached graph keeps, and the host time the estimation holds the
+     calling thread, from the graph and eagerly
  27. the fast path's Flow split: gray, graph replay, padding stats, K1
      and the fetch, a synchronize after each
  28. the multi-device layer on four shards of one card
@@ -103,7 +117,8 @@ Phases (any failure raises and the script exits non-zero):
      matrices, K2 launched 4 x its unsharded count and K1 once a shard,
      no copy between the shards of one card, five warm calls in turns
      with the unsharded graph call; Classic through
-     stabilize_classic_sharded against the unsharded call, K4-K6 by shard;
+     stabilize_classic_sharded against the unsharded eager call, K4-K7 by
+     shard;
      79 frames on a (2, 2) mesh (the rows outcome: two bands, K1 with
      row0) against the unsharded host engine, and K1 with row0 bitwise
      its plain version at 1080p; both sidecars at 1080p x 80 and, on a
@@ -685,6 +700,92 @@ def phase_k4(grays):
     return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms, **b, "library_ms": None}
 
 
+def greedy_tests(top_idx, w: int, max_corners: int, min_distance: float) -> int:
+    """The distance tests K7 makes on these candidates: each valid
+    candidate it walks is tested against every corner accepted before it;
+    the walk ends at max_corners (computed on the host from the plain
+    greedy's acceptances, replayed in order)."""
+    import torch
+
+    from comfyui_video_stabilizer_tpu_torch.ops import greedy_cuda as GR
+
+    top = top_idx.cpu()
+    pts, counts = GR.greedy_plain(top, w, max_corners, min_distance)
+    total = 0
+    for f in range(top.shape[0]):
+        n = int(counts[f])
+        acc = set((pts[f, :n, 1].long() * w + pts[f, :n, 0].long()).tolist())
+        taken = 0
+        for idx in top[f].tolist():
+            if taken >= max_corners:
+                break
+            if idx < 0:
+                continue
+            total += taken
+            taken += idx in acc
+    return total
+
+
+def clustered_candidates(b: int, h: int, w: int, k: int, seed: int):
+    """(b, k) int32 candidates on an h x w frame: every pixel within 5 px
+    of 40 random centres, shuffled; most lie closer than 7 px to an
+    earlier one."""
+    rng = np.random.default_rng(seed)
+    rows = []
+    dy, dx = np.meshgrid(np.arange(-5, 6), np.arange(-5, 6), indexing="ij")
+    for _ in range(b):
+        cy, cx = rng.integers(5, h - 5, 40), rng.integers(5, w - 5, 40)
+        idx = np.unique(((cy[:, None] + dy.ravel()) * w + cx[:, None] + dx.ravel()).ravel())
+        rows.append(rng.permutation(idx)[:k])
+    return np.stack(rows).astype(np.int32)
+
+
+def phase_k7(grays):
+    """K7 (the corner greedy) on the Classic slice's (79, 2048) candidates
+    from _topk_packed: torch.equal to its plain version and to the native
+    greedy; then on clustered candidates with max_corners 23, so every
+    frame's walk ends partway through its candidates; timed in turns
+    with the plain version."""
+    import torch
+
+    from comfyui_video_stabilizer_tpu_torch.ops import greedy_cuda as GR
+    from comfyui_video_stabilizer_tpu_torch.ops import lk as LK
+
+    g = grays[:-1]
+    B, H, W_ = g.shape
+    top = LK._topk_packed(g, LK.TOP_K)
+    cases = [("the slice's candidates", top, LK.MAX_CORNERS),
+             ("clustered, max_corners 23", torch.from_numpy(clustered_candidates(B, H, W_, LK.TOP_K, 7)).to(g.device),
+              23)]
+    for name, t, maxc in cases:
+        pts, counts = GR.greedy_min_distance(t, W_, maxc, LK.MIN_DISTANCE)
+        ref_pts, ref_counts = GR.greedy_plain(t, W_, maxc, LK.MIN_DISTANCE)
+        host_pts, host_counts = LK.greedy_host(t.cpu().numpy(), H, W_, maxc)
+        torch.cuda.synchronize()
+        eq_plain = bool(torch.equal(pts, ref_pts)) and bool(torch.equal(counts, ref_counts))
+        eq_host = bool(np.array_equal(pts.cpu().numpy(), host_pts)) and bool(
+            np.array_equal(counts.cpu().numpy(), host_counts))
+        log(f"[K7] {name} {tuple(t.shape)}: torch.equal to the plain version {eq_plain}, to the native greedy "
+            f"{eq_host}; corners a frame min {int(counts.min())}, median {float(counts.float().median()):.0f}, "
+            f"max {int(counts.max())}")
+        check(eq_plain and eq_host, f"K7 ({name}): the corners differ from the plain version or the native greedy")
+    check(int(cases[1][1].shape[1]) == LK.TOP_K and bool((counts == 23).all()),
+          "K7: the clustered case did not fill max_corners")
+    ms, plain_ms, tk, tp = timed_pair(lambda: GR.greedy_min_distance(top, W_, LK.MAX_CORNERS, LK.MIN_DISTANCE),
+                                      lambda: GR.greedy_plain(top, W_, LK.MAX_CORNERS, LK.MIN_DISTANCE), 50, 1)
+    # bytes: the candidates in, the corners and counts out; operations:
+    # this run's distance tests, 6 each (two subtractions, two products,
+    # an add, a compare)
+    nbytes = 4 * top.numel() + 8 * B * LK.MAX_CORNERS + 4 * B
+    tests = greedy_tests(top, W_, LK.MAX_CORNERS, LK.MIN_DISTANCE)
+    b = bound(nbytes, 6 * tests)
+    log(f"[K7] {tuple(top.shape)}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (runs {tk}, {tp}); "
+        f"{nbytes} bytes ({1e3 * nbytes / PEAK_BYTES:.6f} ms at the memory rate), {tests} distance tests; "
+        f"bound {b['bound_ms']:.6f} ms ({b['bound_by']}); the kernel waits on {LK.TOP_K} dependent steps a frame; "
+        "no single PyTorch call computes it")
+    return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, **b, "library_ms": None}
+
+
 def phase_k6(grays):
     import torch
 
@@ -789,11 +890,13 @@ def phase_k5(grays):
 
 
 def classic_stage_split(frames, device):
-    """One Classic estimation stage by stage, a synchronize after each (ms)."""
+    """One Classic estimation run eagerly stage by stage, a synchronize
+    after each (ms)."""
     import torch
 
     from comfyui_video_stabilizer_tpu_torch.models import classic as CL
     from comfyui_video_stabilizer_tpu_torch.ops import gftt_cuda as GF
+    from comfyui_video_stabilizer_tpu_torch.ops import greedy_cuda as GR
     from comfyui_video_stabilizer_tpu_torch.ops import lk as LK
     from comfyui_video_stabilizer_tpu_torch.ops import lk_cuda as LKC
     from comfyui_video_stabilizer_tpu_torch.ops import ransac as RS
@@ -811,12 +914,10 @@ def classic_stage_split(frames, device):
 
     grays = stage("gray", lambda: classic_grays(frames))
     raw = stage("K4 (gray -> scores)", lambda: GF.gftt_scores_gray(grays[:-1]))
-    stage("threshold + sort", lambda: LK._top_candidates(raw, LK.TOP_K))
+    top = stage("threshold + sort", lambda: LK._top_candidates(raw, LK.TOP_K))
     del raw
-    pts, counts = stage("gftt_batch", lambda: LK.gftt_batch(grays[:-1]))
-    # gftt_batch = K4 + threshold + sort, then the (B, 2048) fetch and the host greedy
-    ms["greedy fetch + host greedy"] = (ms.pop("gftt_batch") - ms["K4 (gray -> scores)"]
-                                        - ms["threshold + sort"])
+    pts, counts = stage("K7 (greedy)", lambda: GR.greedy_min_distance(top, grays.shape[2], LK.MAX_CORNERS,
+                                                                      LK.MIN_DISTANCE))
     pyr = stage("pyramid", lambda: LK.gaussian_pyramid(grays))
     F = pts.shape[1]
     valid = torch.arange(F, device=device)[None, :] < counts[:, None]
@@ -832,7 +933,8 @@ def classic_stage_split(frames, device):
         if lvl > 0:
             g = g * 2.0
         valid = valid & status
-    stage("fits + host fetch", lambda: CL._fused_classic_fits(pts, g, valid, 0, False, RS.DEFAULT_HYPOTHESES))
+    fits = stage("fits", lambda: CL._fused_classic_fits_device(pts, g, valid, 0, False, RS.DEFAULT_HYPOTHESES))
+    stage("fetch", lambda: CL._fetch_fits(counts, fits, False))
     mats = np.tile(np.eye(3, dtype=np.float32), (frames.shape[0], 1, 1))
     stage("padding mask", lambda: W.padding_mask_stats(mats, (WIDTH, HEIGHT), (WIDTH, HEIGHT), device)[1].cpu())
     stage("warp (K1)", lambda: W.warp_clip(frames, mats, (WIDTH, HEIGHT), "bilinear", (0.5, 0.5, 0.5)))
@@ -843,7 +945,8 @@ LAST_PROFILE_NAMES: list = []  # the distinct device event names of profile_call
 
 # each hand kernel's __global__ function, as the profiler names its launches
 KERNEL_SYMBOLS = {"warp": "warp_kernel", "warp_blur": "warp_blur_kernel", "cost_volume": "cost_volume_kernel",
-                  "gftt": "gftt_gray_kernel", "lk_gn": "lk_gn_kernel", "extract_windows": "extract_kernel"}
+                  "gftt": "gftt_gray_kernel", "lk_gn": "lk_gn_kernel", "extract_windows": "extract_kernel",
+                  "greedy": "greedy_kernel"}
 
 
 def device_events(fn):
@@ -884,17 +987,29 @@ def profile_call(fn):
 def phase_classic(device, frames):
     import torch
 
+    from comfyui_video_stabilizer_tpu_torch.models import fastpath as FP
     from comfyui_video_stabilizer_tpu_torch.ops import cuda_build
 
     ctx = make_context(frames)
     torch.cuda.synchronize()
+    captures = FP.GRAPH_STATS["captures"]
+    cuda_build.reset_launches()
+    with served("classic", 1, "the Classic slice's first call"):
+        run_classic(ctx, device)
+    torch.cuda.synchronize()
+    log(f"[classic] launches in the first stabilize_classic call (the graph's eager warm-up, its capture and one "
+        f"replay): {dict(cuda_build.LAUNCHES)}")
+    check(FP.GRAPH_STATS["captures"] == captures + 1, "the Classic slice's first call did not capture its CUDA graph")
+    replays = FP.GRAPH_STATS["replays"]
     cuda_build.reset_launches()
     with served("classic", 1, "the Classic slice"):
         res = run_classic(ctx, device)
     torch.cuda.synchronize()
     launches = dict(cuda_build.LAUNCHES)
-    log(f"[classic] launches in one stabilize_classic call (the fast path): {launches}")
+    log(f"[classic] launches in one warm stabilize_classic call (one graph replay): {launches}")
+    check(FP.GRAPH_STATS["replays"] == replays + 1, "the Classic estimation did not run from its CUDA graph")
     check(launches["gftt"] >= 1, "K4 was not launched by the Classic slice")
+    check(launches["greedy"] >= 1, "K7 was not launched by the Classic slice")
     check(launches["lk_gn"] >= 4, "K5 was launched fewer than 4 times by the Classic slice")
     check(launches["extract_windows"] >= 8, "K6 was launched fewer than 8 times by the Classic slice")
     check(launches["warp"] >= 1, "K1 was not launched by the Classic slice")
@@ -939,7 +1054,7 @@ def phase_classic(device, frames):
         f"of {wall:.1f} ms wall (busy share {busy / wall:.2f} under the profiler); "
         f"{len(LAST_PROFILE_NAMES)} kernel and copy names")
     split = [classic_stage_split(frames, device) for _ in range(3)]
-    log("[classic] stage split, ms (median of 3, synchronize after each stage): " + ", ".join(
+    log("[classic] eager stage split, ms (median of 3, synchronize after each stage): " + ", ".join(
         f"{k} {float(np.median([s[k] for s in split])):.2f}" for k in split[0]))
 
     n, h, w = BASELINE1
@@ -1667,8 +1782,10 @@ def phase_fallback_tiers(device, frames):
 def phase_kernel_error(device, frames):
     """K2's launch refused (the library entry stubbed to return error 9,
     cudaErrorInvalidConfiguration): stabilize_flow must raise KernelError
-    before any fallback tier runs."""
+    before any fallback tier runs; then K7's: stabilize_classic must
+    raise KernelError and no native greedy run in its place."""
     from comfyui_video_stabilizer_tpu_torch.ops import cuda_build
+    from comfyui_video_stabilizer_tpu_torch.ops import lk as LK
     from comfyui_video_stabilizer_tpu_torch.ops import tvl1 as TV
 
     from comfyui_video_stabilizer_tpu_torch.models import fastpath as FP
@@ -1693,6 +1810,27 @@ def phase_kernel_error(device, frames):
             f"{raised}; fallback tiers run: {tiers}")
         check(raised is not None, f"{engine}: a refused K2 launch did not make stabilize_flow raise KernelError")
         check(not tiers, f"{engine}: a fallback tier ran after a kernel failure")
+
+    real_k7, real_native = lib.cvst_greedy, LK._native.greedy_min_distance
+    for engine, flag in (("fast path", "1"), ("host engine", "0")):
+        native = []
+        FP.clear_graph_cache()  # the Classic graph's capture launches K7 through the stub
+        lib.cvst_greedy = lambda *_a: 9
+        LK._native.greedy_min_distance = lambda *a: native.append(1) or real_native(*a)
+        try:
+            with env(CVST_FASTPATH=flag):
+                run_classic(make_context(frames), device)
+        except cuda_build.KernelError as exc:
+            raised = exc
+        else:
+            raised = None
+        finally:
+            lib.cvst_greedy, LK._native.greedy_min_distance = real_k7, real_native
+        log(f"[kernel error] {engine}: K7 launch refused: stabilize_classic raised {type(raised).__name__}: "
+            f"{raised}; native greedy calls: {len(native)}")
+        check(raised is not None and "greedy" in str(raised),
+              f"{engine}: a refused K7 launch did not make stabilize_classic raise KernelError")
+        check(not native, f"{engine}: the native greedy ran after a K7 failure")
 
 
 def phase_flow_split(device, frames):
@@ -1811,83 +1949,220 @@ def phase_fast_vs_host(device, frames):
     return med
 
 
-def phase_fused(device, frames):
-    """The fused Flow graph at 1080p x 80: the first call after the cache is
-    cleared (eager warm-up, capture, replay) timed apart from warm calls;
-    the graph's replay alone (CUDA events); the call bitwise equal to the
-    eager fast path (CVST_FUSED=0) in frames, masks and every meta matrix;
-    the launches of a warm call; the device events of one call under
-    torch.profiler, and those of the replay alone."""
+def dtoh_copies(events) -> tuple:
+    """(device-to-host copies before K1's first launch, in all) among a
+    call's profiled device events."""
+    k1 = min((e.time_range.start for e in events if re.search(r"(?:^|[\s:])warp_kernel[<(]", e.name)),
+             default=float("inf"))
+    dtoh = [e for e in events if "DtoH" in e.name]
+    return sum(1 for e in dtoh if e.time_range.start < k1), len(dtoh)
+
+
+def phase_fused(device, frames, kind="flow"):
+    """``kind``'s fused graph at 1080p x 80 ('flow' or 'classic'): the
+    first call after the cache is cleared (eager warm-up, capture, replay)
+    timed apart from warm calls; the graph's replay alone (CUDA events);
+    the call bitwise equal to the eager fast path (CVST_FUSED=0) in
+    frames, masks and the whole meta; the launches of a warm call; the
+    device events of one call under torch.profiler, those of the replay
+    alone, and the device-to-host copies (none before K1); the device
+    memory the cached graph keeps after its call (its private pool and its
+    static tensors); the host time the estimation holds the calling
+    thread, the graph against eager, in turns."""
     import torch
 
     from comfyui_video_stabilizer_tpu_torch.models import fastpath as FP
     from comfyui_video_stabilizer_tpu_torch.ops import cuda_build
 
+    run = run_slice if kind == "flow" else run_classic
+    tag = "fused" if kind == "flow" else "classic graph"
     ctx = make_context(frames)
     FP.clear_graph_cache()
+    reserved0, allocated0 = cache_memory()
     captures = FP.GRAPH_STATS["captures"]
-    with served("flow", 1, "fused: the first call"):
-        first_ms = timed_calls(lambda: run_slice(ctx, device), 1)[0]
-    check(FP.GRAPH_STATS["captures"] == captures + 1, "the first call did not capture a graph")
-    torch.cuda.synchronize()
+    with served(kind, 1, f"{tag}: the first call"):
+        first_ms = timed_calls(lambda: run(ctx, device), 1)[0]
+    check(FP.GRAPH_STATS["captures"] == captures + 1, f"{tag}: the first call did not capture a graph")
+    reserved1, allocated1 = cache_memory()
+    kept = {"reserved_gib": (reserved1 - reserved0) / 2**30, "allocated_gib": (allocated1 - allocated0) / 2**30}
     cuda_build.reset_launches()
-    with served("flow", 1, "fused: a warm call"):
-        fused = run_slice(ctx, device)
+    with served(kind, 1, f"{tag}: a warm call"):
+        fused = run(ctx, device)
     torch.cuda.synchronize()
     launches = dict(cuda_build.LAUNCHES)
-    check(launches["cost_volume"] >= 4 and launches["warp"] == 1, f"fused: launches {launches}")
-    with env(CVST_FUSED="0"), served("flow", 1, "fused: CVST_FUSED=0"):
+    if kind == "flow":
+        check(launches["cost_volume"] >= 4 and launches["warp"] == 1, f"{tag}: launches {launches}")
+    else:
+        check(launches["gftt"] == 1 and launches["greedy"] == 1 and launches["lk_gn"] == 4
+              and launches["extract_windows"] == 8 and launches["warp"] == 1, f"{tag}: launches {launches}")
+    with env(CVST_FUSED="0"), served(kind, 1, f"{tag}: CVST_FUSED=0"):
         replays = FP.GRAPH_STATS["replays"]
-        eager = run_slice(ctx, device)
-        check(FP.GRAPH_STATS["replays"] == replays, "CVST_FUSED=0 replayed the graph")
+        eager = run(ctx, device)
+        check(FP.GRAPH_STATS["replays"] == replays, f"{tag}: CVST_FUSED=0 replayed the graph")
     equal = {"frames": bool(torch.equal(fused.frames, eager.frames)),
              "masks": bool(torch.equal(fused.masks, eager.masks))}
     for key in ("path", "target_path", "target_path_effective", "per_transition"):
         equal[key] = fused.meta["estimated_motion"][key] == eager.meta["estimated_motion"][key]
     equal["applied"] = fused.meta["stabilization_warp"] == eager.meta["stabilization_warp"]
+    equal["meta"] = fused.meta == eager.meta
     del fused, eager
-    check(all(equal.values()), f"the fused graph differs from the eager fast path: {equal}")
+    check(all(equal.values()), f"{tag}: the graph call differs from the eager fast path: {equal}")
     times = {"fused": [], "eager": []}
     for which in ("eager", "fused", "fused", "eager"):
         with env(CVST_FUSED="1" if which == "fused" else "0"):
-            times[which] += timed_calls(lambda: run_slice(ctx, device), 2)
+            times[which] += timed_calls(lambda: run(ctx, device), 2)
+    issue = host_issue_ms(kind, lambda: run(ctx, device))
     entry = next(reversed(FP._GRAPHS.values()))
     replay_ms = cuda_ms(entry.graph.replay, 10)
-    n_events, busy, wall = profile_call(lambda: run_slice(ctx, device))
+    n_events, busy, wall = profile_call(lambda: run(ctx, device))
     graph_events, _ = device_events(entry.graph.replay)
     outside = n_events - len(graph_events)
+    call_events, _ = device_events(lambda: run(ctx, device))
+    dtoh_before, dtoh_all = dtoh_copies(call_events)
+    check(dtoh_before == 0, f"{tag}: {dtoh_before} device-to-host copies before K1")
     med = {k: float(np.median(v)) for k, v in times.items()}
-    log(f"[fused] 1080p x {CLIP_FRAMES} Flow crop_and_pad similarity: bitwise equal to CVST_FUSED=0 {equal}; "
+    log(f"[{tag}] 1080p x {CLIP_FRAMES} {kind} crop_and_pad similarity: bitwise equal to CVST_FUSED=0 {equal}; "
         f"first call (eager warm-up + capture + replay) {first_ms:.1f} ms; warm calls (eager, fused, fused, eager "
         f"turns) fused {[round(t, 1) for t in times['fused']]} ms, eager {[round(t, 1) for t in times['eager']]} ms; "
         f"medians fused {med['fused']:.1f} ms ({CLIP_FRAMES / med['fused'] * 1e3:.1f} f/s), eager {med['eager']:.1f} ms "
         f"({CLIP_FRAMES / med['eager'] * 1e3:.1f} f/s); the replay alone {replay_ms:.2f} ms (CUDA events); "
         f"launches of a warm call {launches}")
-    log(f"[fused] torch.profiler over one call: {n_events} device events ({len(graph_events)} in the replay "
+    log(f"[{tag}] the cached graph keeps {kept['reserved_gib']:.3f} GiB reserved ({kept['allocated_gib']:.3f} GiB "
+        f"allocated) after its call; the host time the estimation holds the calling thread, ms (graph, eager, "
+        f"eager, graph turns, 2 calls each): graph {[round(t, 2) for t in issue['graph']]}, eager "
+        f"{[round(t, 2) for t in issue['eager']]}")
+    log(f"[{tag}] torch.profiler over one call: {n_events} device events ({len(graph_events)} in the replay "
         f"alone, {outside} outside it), busy {busy:.1f} ms of {wall:.1f} ms wall (busy share {busy / wall:.2f} "
-        "under the profiler)")
+        f"under the profiler); device-to-host copies before K1 {dtoh_before}, in the call {dtoh_all}")
     return {"first_ms": first_ms, "fused_ms": med["fused"], "eager_ms": med["eager"], "replay_ms": replay_ms,
-            "events": n_events, "graph_events": len(graph_events), "launches": launches}
+            "events": n_events, "graph_events": len(graph_events), "launches": launches,
+            "dtoh_before_k1": dtoh_before, "dtoh": dtoh_all, "kept": kept,
+            "issue_ms": {k: float(np.median(v)) for k, v in issue.items()}}
 
 
-def phase_fast_split(device, frames):
-    """The fast path's 1080p x 80 Flow call stage by stage, a synchronize
+def cache_memory() -> tuple:
+    """(reserved, allocated) device bytes once the caching allocator has
+    let go of every block it can: what is left beyond a baseline is held
+    by live tensors and by the captured graphs' private pools."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_reserved(), torch.cuda.memory_allocated()
+
+
+def host_issue_ms(kind: str, call) -> dict:
+    """The host ms the estimation of a warm ``call`` holds the calling
+    thread, from its CUDA graph and eagerly (CVST_FUSED=0), in turns
+    (graph, eager, eager, graph; 2 calls each): the time to return from
+    the fast path's estimation function, with no synchronize inside it,
+    so it is the time to issue the work (or to wait on a full launch
+    queue), not the device's."""
+    from comfyui_video_stabilizer_tpu_torch.models import fastpath as FP
+
+    names = {"graph": "_fused_estimate", "eager": f"_{kind}_estimate"}
+    saved = {which: getattr(FP, name) for which, name in names.items()}
+    times = {"graph": [], "eager": []}
+
+    def timed(which):
+        def wrapper(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = saved[which](*args, **kwargs)
+            times[which].append(1e3 * (time.perf_counter() - t0))
+            return out
+        return wrapper
+
+    try:
+        for which, name in names.items():
+            setattr(FP, name, timed(which))
+        for which in ("graph", "eager", "eager", "graph"):
+            with env(CVST_FUSED="1" if which == "graph" else "0"), served(kind, 2, f"host issue, {which}"):
+                timed_calls(call, 2)
+    finally:
+        for which, name in names.items():
+            setattr(FP, name, saved[which])
+    check(len(times["graph"]) == 4 and len(times["eager"]) == 4, f"host issue: calls timed {times}")
+    return times
+
+
+def phase_graph_cache(device, frames):
+    """Flow and Classic graphs sharing the cache (GRAPH_CACHE_SIZE = 4
+    entries, least recently used out): four static keys (Flow 1080p at
+    smooth 0.6 and 0.3, Classic 1080p at 0.6, Classic at BASELINE config
+    1's 854x480 x 64) in three rounds, the captures and ms of each call,
+    and the device memory the four cached graphs keep; then a fifth key
+    (Classic 1080p at smooth 0.3) in the cycle for two rounds, where each
+    call evicts the graph the next one needs."""
+    import torch
+
+    from comfyui_video_stabilizer_tpu_torch.models import fastpath as FP
+    from comfyui_video_stabilizer_tpu_torch.models.classic import stabilize_classic
+    from comfyui_video_stabilizer_tpu_torch.models.flow import stabilize_flow
+
+    check(FP.GRAPH_CACHE_SIZE == 4, f"GRAPH_CACHE_SIZE {FP.GRAPH_CACHE_SIZE}, the phase assumes 4")
+    n, h, w = BASELINE1
+    ctx = make_context(frames)
+    sctx = make_context(synth_clip(n, h, w, seed=1, device=device))
+
+    def call(fn, c, smooth):
+        return lambda: fn(c, "crop_and_pad", "similarity", False, 0.8, smooth, 0.6, (127, 127, 127), 30.0,
+                          device=device)
+
+    keys = {"flow 1080p s0.6": call(stabilize_flow, ctx, 0.6), "classic 1080p s0.6": call(stabilize_classic, ctx, 0.6),
+            "flow 1080p s0.3": call(stabilize_flow, ctx, 0.3), "classic 480p s0.6": call(stabilize_classic, sctx, 0.6)}
+    fifth = {"classic 1080p s0.3": call(stabilize_classic, ctx, 0.3)}
+
+    def rounds(calls, n_rounds):
+        out = []
+        for r in range(n_rounds):
+            for name, fn in calls.items():
+                before = FP.GRAPH_STATS["captures"]
+                ms = timed_calls(fn, 1)[0]
+                out.append((r, name, FP.GRAPH_STATS["captures"] - before, round(ms, 1)))
+        return out
+
+    FP.clear_graph_cache()
+    reserved0, allocated0 = cache_memory()
+    four = rounds(keys, 3)
+    reserved1, allocated1 = cache_memory()
+    check([c for _, _, c, _ in four] == [1] * 4 + [0] * 8,
+          f"four keys in a cache of four: captures {[(r, k, c) for r, k, c, _ in four]}")
+    FP.clear_graph_cache()
+    five = rounds({**keys, **fifth}, 2)
+    check(all(c == 1 for _, _, c, _ in five), f"five keys cycled through a cache of four: {five}")
+    FP.clear_graph_cache()
+    kept = (reserved1 - reserved0) / 2**30
+    log(f"[graph cache] four keys, three rounds (round, key, captures, ms): {four}; the four cached graphs keep "
+        f"{kept:.3f} GiB reserved ({(allocated1 - allocated0) / 2**30:.3f} GiB allocated)")
+    log(f"[graph cache] five keys cycled, two rounds (round, key, captures, ms): {five}")
+    return {"four": four, "five": five, "kept_gib": kept}
+
+
+def phase_fast_split(device, frames, kind="flow"):
+    """The fast path's 1080p x 80 ``kind`` call stage by stage, a synchronize
     after each (median of 3): the gray, the graph replay (with the copy of
     the grays in and of the outputs out), the padding stats, K1 and the
     one diagnostics fetch; the whole warm call beside them."""
     import torch
 
     from comfyui_video_stabilizer_tpu_torch.models import fastpath as FP
+    from comfyui_video_stabilizer_tpu_torch.models.classic import classic_estimator
     from comfyui_video_stabilizer_tpu_torch.models.flow import flow_estimator
     from comfyui_video_stabilizer_tpu_torch.models.stabilize import estimation_plan
     from comfyui_video_stabilizer_tpu_torch.ops import resize as R
     from comfyui_video_stabilizer_tpu_torch.ops import warp as W
+    from comfyui_video_stabilizer_tpu_torch.utils.device import fetch_packed
 
-    working, dec = estimation_plan(WIDTH, HEIGHT, flow_estimator)
+    working, dec = estimation_plan(WIDTH, HEIGHT, flow_estimator if kind == "flow" else classic_estimator)
     strength, _, keep_fov, window, scale_xy = FP._trajectory_args(0.8, 0.6, 30.0, False, 0.6, WIDTH, HEIGHT,
                                                                    working)
-    kw = dict(decimation=dec, seed=0, mode="similarity", camera_lock=False, window=window, width=WIDTH,
-              height=HEIGHT, scale_xy=scale_xy)
+    kw = dict(seed=0, mode="similarity", camera_lock=False, window=window, width=WIDTH, height=HEIGHT,
+              scale_xy=scale_xy)
+    if kind == "flow":
+        kw["decimation"] = dec
     border = torch.full((3,), 127 / 255.0, device=device)
     splits = []
     for _ in range(3):
@@ -1903,17 +2178,17 @@ def phase_fast_split(device, frames):
 
         grays = stage("gray", lambda: R.gray_for_estimation(frames, working, decimation=dec))
         captures = FP.GRAPH_STATS["captures"]
-        out = stage("graph replay", lambda: FP._fused_flow_estimate(grays, strength, keep_fov, kw))
+        out = stage("graph replay", lambda: FP._fused_estimate(kind, grays, strength, keep_fov, kw))
         check(FP.GRAPH_STATS["captures"] == captures, "the split captured a new graph")
         masks, ratios = stage("padding stats", lambda: W.padding_stats(out["coeffs"], HEIGHT, WIDTH, HEIGHT, WIDTH))
         stage("K1", lambda: W.warp_frames(frames, out["coeffs"], border, HEIGHT, WIDTH, "bilinear"))
-        stage("fetch", lambda: FP._fetch({**{k: out[k] for k in FP.DIAG_KEYS}, "ratios": ratios}))
+        stage("fetch", lambda: fetch_packed({**{k: out[k] for k in FP.DIAG_KEYS}, "ratios": ratios}))
         splits.append(ms)
         del grays, out, masks, ratios
     ctx = make_context(frames)
-    whole = timed_calls(lambda: run_slice(ctx, device), 3)
+    whole = timed_calls(lambda: (run_slice if kind == "flow" else run_classic)(ctx, device), 3)
     med = {k: float(np.median([s[k] for s in splits])) for k in splits[0]}
-    log(f"[fast split] 1080p x {CLIP_FRAMES} Flow crop_and_pad, the fast path, ms (median of 3, synchronize after "
+    log(f"[fast split] 1080p x {CLIP_FRAMES} {kind} crop_and_pad, the fast path, ms (median of 3, synchronize after "
         "each stage): " + ", ".join(f"{k} {v:.2f}" for k, v in med.items())
         + f"; sum {sum(med.values()):.2f}; whole warm call {[round(t, 1) for t in whole]}, median "
         f"{float(np.median(whole)):.1f}")
@@ -2240,9 +2515,10 @@ def phase_mesh(device):
         f"medians {float(np.median(times['sharded'])):.1f} / {float(np.median(times['graph'])):.1f} ms")
     del ctx_sh
 
-    # Classic
+    # Classic: against the unsharded call run eagerly (equal to its graph
+    # call, phase 10), so its launch counts are one call's
     cuda_build.reset_launches()
-    with served("classic", 1, "mesh: the unsharded Classic call"):
+    with env(CVST_FUSED="0"), served("classic", 1, "mesh: the unsharded Classic call"):
         ref = run_classic(make_context(frames), device)
     torch.cuda.synchronize()
     ref_launches = dict(cuda_build.LAUNCHES)
@@ -2251,7 +2527,7 @@ def phase_mesh(device):
         res = PR.stabilize_classic_sharded(host, mesh, **kw)
     torch.cuda.synchronize()
     classic_launches = dict(cuda_build.LAUNCHES)
-    for name in ("gftt", "lk_gn", "extract_windows"):
+    for name in ("gftt", "greedy", "lk_gn", "extract_windows"):
         check(classic_launches[name] == MESH_SHARDS * ref_launches[name],
               f"{name} launches {classic_launches[name]} by shard, not {MESH_SHARDS} x {ref_launches[name]}")
     check(classic_launches["warp"] == MESH_SHARDS, f"Classic K1 launches {classic_launches['warp']}")
@@ -2389,10 +2665,14 @@ def main() -> int:
     grays = classic_grays(frames)
     torch.cuda.synchronize()
     k4 = timed_phase("K4", phase_k4, grays)
+    k7 = timed_phase("K7", phase_k7, grays)
     k6 = timed_phase("K6", phase_k6, grays)
     k5 = timed_phase("K5", phase_k5, grays)
     del grays
     classic_launches, _ = timed_phase("Classic slice", phase_classic, device, frames)
+    classic_graph = timed_phase("Classic graph", phase_fused, device, frames, "classic")
+    classic_split = timed_phase("Classic fast split", phase_fast_split, device, frames, "classic")
+    graph_cache = timed_phase("graph cache", phase_graph_cache, device, frames)
     timed_phase("Classic reference", phase_small_reference, device, run_classic, "classic reference")
     timed_phase("Classic node", phase_node, frames[:16].cpu(), "VideoStabilizerClassic")
     timed_phase("crop", phase_crop, device, frames)
@@ -2432,6 +2712,17 @@ def main() -> int:
         f"{fast_host['host']:.1f} ms; first call with the capture {fused['first_ms']:.1f} ms; the replay alone "
         f"{fused['replay_ms']:.2f} ms; {fused['events']} device events a call ({fused['graph_events']} in the graph); "
         f"launches {fused['launches']}; split {fast_split}")
+    log(f"[summary] {smi}: fast path, Classic 1080p x {CLIP_FRAMES} crop_and_pad: from its CUDA graph "
+        f"{classic_graph['fused_ms']:.1f} ms ({CLIP_FRAMES / classic_graph['fused_ms'] * 1e3:.1f} f/s), eager "
+        f"{classic_graph['eager_ms']:.1f} ms; first call with the capture {classic_graph['first_ms']:.1f} ms; the "
+        f"replay alone {classic_graph['replay_ms']:.2f} ms; {classic_graph['events']} device events a call "
+        f"({classic_graph['graph_events']} in the graph); device-to-host copies before K1 "
+        f"{classic_graph['dtoh_before_k1']}, in the call {classic_graph['dtoh']}; split {classic_split}")
+    log(f"[summary] {smi}: graph cache: the Classic graph keeps {classic_graph['kept']['reserved_gib']:.3f} GiB, "
+        f"Flow's {fused['kept']['reserved_gib']:.3f} GiB, four cached graphs {graph_cache['kept_gib']:.3f} GiB; "
+        f"host issue medians, ms, graph / eager: Classic {classic_graph['issue_ms']['graph']:.2f} / "
+        f"{classic_graph['issue_ms']['eager']:.2f}, Flow {fused['issue_ms']['graph']:.2f} / "
+        f"{fused['issue_ms']['eager']:.2f}")
     log(f"[summary] {smi}: mesh, {MESH_SHARDS} shards of one card, Flow 1080p x {CLIP_FRAMES} crop_and_pad: "
         f"sharded {float(np.median(mesh['times']['sharded'])):.1f} ms, unsharded from its graph "
         f"{float(np.median(mesh['times']['graph'])):.1f} ms (medians of 5 in turns); sharded Flow, Classic and "
@@ -2466,6 +2757,11 @@ def main() -> int:
          "source": "comfyui_video_stabilizer_tpu_torch/csrc/extract.cu",
          "replaces": "comfyui_video_stabilizer_tpu/ops/extract_pallas.py:133",
          "launches": classic_launches["extract_windows"], **k6},
+        {"name": "greedy", "route": "cuda",
+         "source": "comfyui_video_stabilizer_tpu_torch/csrc/greedy.cu",
+         "replaces": "comfyui_video_stabilizer_tpu/ops/lk.py:162",
+         "note": "the JAX package runs this stage as an XLA lax.scan (_greedy_device), not a pallas_call",
+         "launches": classic_launches["greedy"], **k7},
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -12,18 +12,23 @@ Acceptance contract (the reference's thresholds):
   similarity:  >=3 points, RANSAC inlier ratio >= 0.1
   translation: always accepted; confidence = survivors / detected
 
+GFTT (K4, then K7 for the corner greedy), the pyramid, LK (K6, K5) and
+the fits run on the grays' device with no host read in between, as the
+JAX package's ``_classic_estimate_fused`` does; ``classic_estimator``
+then brings the detected counts and the fits to the host in one copy.
+
 On the card (and on the CPU with ``CVST_FASTPATH=1``) the engine first
 offers crop, crop_and_pad and expand calls to the zero-sync fast path
 (``classic_estimator.fast_path``, models/fastpath.py): the same tracks
-and fits, the trajectory on the device.  Its one host read before the
-warp is the corner greedy's (ops/lk.py::gftt_batch).
+and fits, the trajectory on the device, crop_and_pad's estimation
+replayed from one CUDA graph.
 
 Under an active mesh the engine hands the estimator frame-sharded grays
-(parallel/mesh.py::FrameShards): GFTT (K4, with the host greedy of each
-shard's candidates), the pyramids and LK (K6, K5) run over each shard's
-pairs on the shard's device, with a one-frame halo for the pair that
-crosses into the next shard (parallel/mesh.py::sharded_pairs); the tracks
-are gathered to the lead device, where the fits run as without a mesh.
+(parallel/mesh.py::FrameShards): GFTT (K4, K7), the pyramids and LK
+(K6, K5) run over each shard's pairs on the shard's device, with a
+one-frame halo for the pair that crosses into the next shard
+(parallel/mesh.py::sharded_pairs); the tracks are gathered to the lead
+device, where the fits run as without a mesh.
 """
 
 from __future__ import annotations
@@ -37,6 +42,7 @@ from ..ops import lk as LK
 from ..ops import prng
 from ..ops import ransac as RS
 from ..parallel.mesh import FrameShards, sharded_pairs
+from ..utils.device import fetch_packed
 from ..utils.video_io import VideoContext
 from . import geometry as G
 from .stabilize import PairFits, StabilizationResult, estimation_chunk_spans, stabilize_clip
@@ -72,14 +78,6 @@ def _fused_classic_fits_device(pts, tracked, status, seed: int, want_persp: bool
     return tuple(out)
 
 
-def _fused_classic_fits(pts, tracked, status, seed: int, want_persp: bool, n_hyp: int) -> Dict[str, np.ndarray]:
-    """:func:`_fused_classic_fits_device`; one fetch brings them to the
-    host as numpy arrays keyed surv, [H, nH, vH,] S, nS, vS, T."""
-    names = ("surv",) + (("H", "nH", "vH") if want_persp else ()) + ("S", "nS", "vS", "T")
-    fits = _fused_classic_fits_device(pts, tracked, status, seed, want_persp, n_hyp)
-    return {k: v.cpu().numpy() for k, v in zip(names, fits)}
-
-
 def _tracks(grays: torch.Tensor):
     """GFTT on the leading frames, the clip pyramid, LK over all pairs."""
     pts, det_counts = LK.gftt_batch(grays[:-1])
@@ -109,6 +107,31 @@ def _lk_tracks_chunked(grays: torch.Tensor, tick_pairs):
     return tuple(torch.cat(xs, dim=0) for xs in zip(*parts))
 
 
+def _tracks_and_fits(grays, tick_pairs, seed: int, want_persp: bool,
+                     n_hyp: int = RS.DEFAULT_HYPOTHESES):
+    """((pts, det_counts, tracked, status), fits) on the device, with no
+    host read: the tracks (:func:`_lk_tracks_chunked`), then the fits of
+    :func:`_fused_classic_fits_device`."""
+    pts, det_counts, tracked, status = _lk_tracks_chunked(grays, tick_pairs)
+    fits = _fused_classic_fits_device(pts, tracked, status, seed, want_persp, n_hyp)
+    return (pts, det_counts, tracked, status), fits
+
+
+def _classic_estimate_fused(grays: torch.Tensor, seed: int, want_persp: bool, n_hyp: int):
+    """The JAX package's whole-clip program under its name: (pts,
+    det_counts, tracked, status) + the fits, with no observer."""
+    tracks, fits = _tracks_and_fits(grays, None, seed, want_persp, n_hyp)
+    return tracks + fits
+
+
+def _fetch_fits(det_counts: torch.Tensor, fits, want_persp: bool) -> Dict[str, np.ndarray]:
+    """The detected counts and the fits to the host in ONE copy, as numpy
+    arrays keyed det, surv, [H, nH, vH,] S, nS, vS, T (the host engine's
+    one read of the estimation)."""
+    names = ("det", "surv") + (("H", "nH", "vH") if want_persp else ()) + ("S", "nS", "vS", "T")
+    return fetch_packed(dict(zip(names, (det_counts,) + tuple(fits))))
+
+
 def classic_estimator(grays: torch.Tensor, requested_mode: str, *, seed: int = 0,
                       decimation: int = 1, tick_pairs=None) -> PairFits:
     """Per-pair fits from GFTT + LK tracks; grays (N, h, w) on the working device.
@@ -119,10 +142,10 @@ def classic_estimator(grays: torch.Tensor, requested_mode: str, *, seed: int = 0
     if decimation != 1:
         raise ValueError(f"the Classic estimator takes no gray decimation, got {decimation}")
     b = grays.shape[0] - 1
-    pts, det_counts, tracked, status = _lk_tracks_chunked(grays, tick_pairs)
-    fused = _fused_classic_fits(pts, tracked, status, seed, requested_mode == "perspective",
-                                RS.DEFAULT_HYPOTHESES)
-    det_counts = det_counts.cpu().numpy()
+    want_persp = requested_mode == "perspective"
+    (_, det_counts, _, _), fits = _tracks_and_fits(grays, tick_pairs, seed, want_persp)
+    fused = _fetch_fits(det_counts, fits, want_persp)
+    det_counts = fused["det"]
     surv = fused["surv"]
     matrices: Dict[str, np.ndarray] = {}
     confidences: Dict[str, np.ndarray] = {}

@@ -24,26 +24,27 @@ the trajectory kept.  Crop runs the keep_fov search and the no-padding
 refine on the device, then, after the fetch, makes its masks and warp
 from the fetched matrices as the host engine does.
 
-The Flow crop_and_pad call with integer pool factors and no progress
-observer runs its estimation (DIS, the fits, the trajectory and the
-inverse coefficients) from one CUDA graph, the counterpart of the JAX
-package's ``_flow_fused_program``: captured once per static shape and
-replayed on a copy of the working-resolution grays.  The gray, the
-padding stats and K1 run eagerly after the replay.  Perspective is not
-captured: its refit's ``torch.linalg.eigh`` checks its result on the
-host, so perspective runs the same program eagerly.  Classic is not
-captured either: its corner greedy fetches the candidates to the host
-(native/rectangle.cpp) in the middle of the estimation.
+The crop_and_pad call with no progress observer runs its estimation
+from one CUDA graph, the counterpart of the JAX package's fused
+programs: for Flow (with integer pool factors, as the JAX package's
+``_flow_fused_program`` requires) DIS, the fits, the trajectory and the
+inverse coefficients; for Classic (``models/classic.py::
+_tracks_and_fits``) GFTT with K4 and the corner greedy K7, the
+pyramid, LK with K6 and K5, the fits, the trajectory and the inverse
+coefficients.  Each is captured once per static shape and replayed on a
+copy of the working-resolution grays.  The gray, the padding stats and
+K1 run eagerly after the replay.  Perspective is not captured: its
+refit's ``torch.linalg.eigh`` checks its result on the host, so
+perspective runs the same program eagerly.
 
 Under an active mesh (utils/meshinfo.py) the fast path runs by shard, the
 counterpart of the JAX package's ``_mesh_defer`` branch: a clip the
 mesh's data axis splits evenly (parallel/mesh.py::FrameShards) makes its
-grays and runs its estimation on each shard (K2, or K4-K6 with the host
-greedy), the fits and the trajectory program run eagerly on the lead
-device, each shard's rows of the warp coefficients go back to it, and
-the padding stats and K1 run there.  The graph stays single-device: it
-is not used under a mesh of more than one shard (a static choice, as for
-perspective).  An uneven clip (the "rows" or "replicated" outcome) and
+grays and runs its estimation on each shard (K2, or K4-K7), the fits and
+the trajectory program run eagerly on the lead device, each shard's rows
+of the warp coefficients go back to it, and the padding stats and K1 run
+there.  The graph stays single-device: it is not used under a mesh of
+more than one shard (a static choice, as for perspective).  An uneven clip (the "rows" or "replicated" outcome) and
 crop framing defer to the host engine, as in the JAX package.
 
 The JAX package's speculative Pallas plan, its tile-span guard and
@@ -71,7 +72,7 @@ from ..ops import ransac as RS
 from ..ops import resize as R
 from ..ops import warp as W
 from ..parallel.mesh import FrameShards, frame_shards, lead_device
-from ..utils.device import device_constant
+from ..utils.device import device_constant, fetch_packed
 from ..utils.meshinfo import active_mesh, data_shards
 from . import classic as CL
 from . import flow as FL
@@ -90,7 +91,7 @@ _MODE_NAMES = ("perspective", "similarity", "translation")
 # makes (tens of px); a larger canvas re-warps at its exact size
 EXPAND_MARGIN_PX = 64
 
-# captured Flow estimation graphs kept at once (each holds its memory pool)
+# captured estimation graphs kept at once (each holds its memory pool)
 GRAPH_CACHE_SIZE = 4
 
 # graph captures and replays since import (chip_smoke.py and the tests
@@ -681,12 +682,12 @@ def _scalar(v: float, device) -> torch.Tensor:
     return torch.full((), v, dtype=_F32, device=device)
 
 
-def _fused_enabled(framing: str, factors, tick_pairs, want_persp: bool, frames) -> bool:
-    """The fused Flow graph's conditions: crop_and_pad, integer pool
-    factors, no progress observer, not perspective, one CUDA device (not
-    frame shards: the graph stays single-device), and ``CVST_FUSED`` not
-    0."""
-    return (framing == "crop_and_pad" and factors is not None and tick_pairs is None
+def _fused_enabled(framing: str, tick_pairs, want_persp: bool, frames) -> bool:
+    """The fused graph's conditions: crop_and_pad, no progress observer,
+    not perspective, one CUDA device (not frame shards: the graph stays
+    single-device), and ``CVST_FUSED`` not 0.  Flow also needs integer
+    pool factors (its caller checks them)."""
+    return (framing == "crop_and_pad" and tick_pairs is None
             and not want_persp and not isinstance(frames, FrameShards) and frames.device.type == "cuda"
             and os.environ.get("CVST_FUSED", "1") not in ("0", "false"))
 
@@ -717,13 +718,33 @@ def _flow_estimate(grays, strength, keep_fov, *, decimation, seed, mode, camera_
     )
 
 
-class _FusedFlowGraph:
-    """One captured Flow estimation: static grays, strength and keep_fov in,
-    the trajectory program's tensors out, and the kernel launches the
-    capture recorded, added to ``cuda_build.LAUNCHES`` on every replay."""
+def _classic_estimate(grays, strength, keep_fov, *, seed, mode, camera_lock, window, width, height, scale_xy,
+                      tick_pairs=None, framing="crop_and_pad", bucket=None):
+    """GFTT, LK and the fits (models/classic.py::_tracks_and_fits), then
+    the trajectory program: the whole Classic estimation, with no host
+    read.  With no ``tick_pairs`` it is what the fused graph captures."""
+    want_persp = mode == "perspective"
+    (_, det_counts, _, _), fits = CL._tracks_and_fits(grays, tick_pairs, seed, want_persp)
+    return _traj_program(
+        strength, keep_fov, det_counts, *fits,
+        kind="classic", mode=mode, want_persp=want_persp, camera_lock=camera_lock, window=window,
+        width=width, height=height, scale_xy=scale_xy, total_pts=1, framing=framing, bucket=bucket,
+    )
 
-    def __init__(self, grays: torch.Tensor, kw: dict):
+
+# the estimation program each kind's graph captures
+_PROGRAMS = {"flow": _flow_estimate, "classic": _classic_estimate}
+
+
+class _FusedGraph:
+    """One captured estimation (``kind`` 'flow' or 'classic'): static grays,
+    strength and keep_fov in, the trajectory program's tensors out, and
+    the kernel launches the capture recorded, added to
+    ``cuda_build.LAUNCHES`` on every replay."""
+
+    def __init__(self, kind: str, grays: torch.Tensor, kw: dict):
         dev = grays.device
+        self.program = _PROGRAMS[kind]
         self.grays = grays.clone()
         self.strength = torch.zeros((), dtype=_F32, device=dev)
         self.keep_fov = torch.zeros((), dtype=_F32, device=dev)
@@ -742,13 +763,13 @@ class _FusedFlowGraph:
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
-            _flow_estimate(self.grays, self.strength, self.keep_fov, **self.kw)
+            self.program(self.grays, self.strength, self.keep_fov, **self.kw)
         torch.cuda.current_stream(dev).wait_stream(side)
         graph = torch.cuda.CUDAGraph()
         before = dict(cuda_build.LAUNCHES)
         _CAPTURE.open = True
         with torch.cuda.device(dev), torch.cuda.graph(graph):
-            out = _flow_estimate(self.grays, self.strength, self.keep_fov, **self.kw)
+            out = self.program(self.grays, self.strength, self.keep_fov, **self.kw)
         _CAPTURE.open = False
         # the wrappers counted the captured launches, which ran nothing
         self.launches = {k: cuda_build.LAUNCHES[k] - before[k] for k in before}
@@ -770,7 +791,7 @@ class _FusedFlowGraph:
         return {k: v.clone() for k, v in self.out.items()}
 
 
-_GRAPHS: "OrderedDict[tuple, _FusedFlowGraph]" = OrderedDict()
+_GRAPHS: "OrderedDict[tuple, _FusedGraph]" = OrderedDict()
 
 
 def clear_graph_cache() -> None:
@@ -778,13 +799,14 @@ def clear_graph_cache() -> None:
     _GRAPHS.clear()
 
 
-def _fused_flow_estimate(grays, strength: float, keep_fov: float, kw: dict) -> Dict[str, torch.Tensor]:
-    """The Flow estimation from its CUDA graph, captured at the first call
-    of each static key (the shapes, every static argument, the device)."""
-    key = (tuple(grays.shape), str(grays.device)) + tuple(sorted(kw.items()))
+def _fused_estimate(kind: str, grays, strength: float, keep_fov: float, kw: dict) -> Dict[str, torch.Tensor]:
+    """``kind``'s estimation from its CUDA graph, captured at the first call
+    of each static key (the kind, the shapes, every static argument, the
+    device)."""
+    key = (kind, tuple(grays.shape), str(grays.device)) + tuple(sorted(kw.items()))
     entry = _GRAPHS.get(key)
     if entry is None:
-        entry = _FusedFlowGraph(grays, kw)
+        entry = _FusedGraph(kind, grays, kw)
         entry.capture(strength, keep_fov)
         _GRAPHS[key] = entry
         while len(_GRAPHS) > GRAPH_CACHE_SIZE:
@@ -826,8 +848,8 @@ def run_flow_fast(
     kw = dict(decimation=decimation, seed=seed, mode=transform_mode, camera_lock=camera_lock,
               window=window, width=width, height=height, scale_xy=scale_xy)
     factors = _gray_pool_factors(width, height, working_size, decimation)
-    if _fused_enabled(framing, factors, tick_pairs, want_persp, frames):
-        out = _fused_flow_estimate(grays, strength_c, keep_fov_c, kw)
+    if factors is not None and _fused_enabled(framing, tick_pairs, want_persp, frames):
+        out = _fused_estimate("flow", grays, strength_c, keep_fov_c, kw)
     else:
         out = _flow_estimate(grays, _scalar(strength_c, dev), _scalar(keep_fov_c, dev),
                              tick_pairs=tick_pairs, framing=framing, bucket=(out_h_b, out_w_b), **kw)
@@ -857,8 +879,9 @@ def run_classic_fast(
     keep_fov: float = 1.0,
 ) -> Dict | None:
     """Classic counterpart of :func:`run_flow_fast`: GFTT, pyramidal LK and
-    the device fits feed the same trajectory program.  The corner greedy's
-    fetch of the (B, 2048) candidates is the one host read before K1."""
+    the device fits feed the same trajectory program, with no host read
+    before K1; crop_and_pad under :func:`_fused_enabled` replays the
+    estimation from its CUDA graph."""
     gated = _gates(frames, framing, size, keep_fov)
     if gated is None:
         return None
@@ -869,15 +892,14 @@ def run_classic_fast(
     strength_c, smooth_c, keep_fov_c, window, scale_xy = _trajectory_args(
         strength, smooth, fps, camera_lock, keep_fov, width, height, working_size)
     grays = R.gray_for_estimation(frames, working_size, decimation=decimation)
-    pts, det_counts, tracked, status = CL._lk_tracks_chunked(grays, tick_pairs)
+    kw = dict(seed=seed, mode=transform_mode, camera_lock=camera_lock, window=window, width=width,
+              height=height, scale_xy=scale_xy)
+    if _fused_enabled(framing, tick_pairs, want_persp, frames):
+        out = _fused_estimate("classic", grays, strength_c, keep_fov_c, kw)
+    else:
+        out = _classic_estimate(grays, _scalar(strength_c, dev), _scalar(keep_fov_c, dev),
+                                tick_pairs=tick_pairs, framing=framing, bucket=(out_h_b, out_w_b), **kw)
     del grays
-    fits = CL._fused_classic_fits_device(pts, tracked, status, seed, want_persp, RS.DEFAULT_HYPOTHESES)
-    out = _traj_program(
-        _scalar(strength_c, dev), _scalar(keep_fov_c, dev), det_counts, *fits,
-        kind="classic", mode=transform_mode, want_persp=want_persp, camera_lock=camera_lock,
-        window=window, width=width, height=height, scale_xy=scale_xy, total_pts=1,
-        framing=framing, bucket=(out_h_b, out_w_b),
-    )
     return _dispatch_and_collect(
         frames, out, width, height, padding_rgb, extra_meta={}, strength_c=strength_c,
         smooth_c=smooth_c, has_resid=False, framing=framing, out_dims=(out_h_b, out_w_b),
@@ -888,23 +910,6 @@ def run_classic_fast(
 # the trajectory program's outputs the diagnostics fetch brings to the host
 DIAG_KEYS = ("fit", "out_wh", "chosen", "conf", "resid", "matrices", "path", "target", "diffs",
              "apply", "final", "mins", "maxs", "offsets", "degenerate")
-
-
-def _fetch(tensors: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
-    """Every tensor to the host in ONE copy: flattened into one float64
-    vector on the device (exact for float32 values, bools and integers
-    below 2**53), copied, and split back into numpy arrays of the
-    original shapes and dtypes."""
-    names = list(tensors)
-    flat = torch.cat([tensors[k].reshape(-1).to(torch.float64) for k in names]).cpu().numpy()
-    out, pos = {}, 0
-    for k in names:
-        t = tensors[k]
-        size = t.numel()
-        dtype = {torch.bool: np.bool_, torch.float32: np.float32}.get(t.dtype, np.int64)
-        out[k] = flat[pos:pos + size].astype(dtype).reshape(tuple(t.shape))
-        pos += size
-    return out
 
 
 def _dispatch_and_collect(
@@ -952,7 +957,7 @@ def _dispatch_and_collect(
                                            "crop_best_scale", "crop_s_star")})
         bundle.update(ratio_final=crop_fin["ratio_final"], refine_ok=crop_fin["refine_ok"],
                       rect=crop_fin["rect"])
-    diag = _fetch(bundle)
+    diag = fetch_packed(bundle)
     final = diag["final"]
     if not np.isfinite(final).all():
         return None  # the engine re-runs the host path

@@ -35,7 +35,7 @@ import torch
 
 PACKAGE_DIR = pathlib.Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
-SOURCES = ("warp.cu", "cost_volume.cu", "gftt.cu", "lk.cu", "extract.cu")
+SOURCES = ("warp.cu", "cost_volume.cu", "gftt.cu", "lk.cu", "extract.cu", "greedy.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-fmad=false",
@@ -65,7 +65,8 @@ class KernelTypeError(KernelError, TypeError):
     """A kernel's wrapper refused a tensor of the wrong dtype."""
 
 
-LAUNCHES = {"warp": 0, "warp_blur": 0, "cost_volume": 0, "gftt": 0, "lk_gn": 0, "extract_windows": 0}
+LAUNCHES = {"warp": 0, "warp_blur": 0, "cost_volume": 0, "gftt": 0, "lk_gn": 0, "extract_windows": 0,
+            "greedy": 0}
 
 
 def reset_launches() -> None:
@@ -189,6 +190,8 @@ def library() -> ctypes.CDLL:
     lib.cvst_lk_gn.restype = i32
     lib.cvst_extract_windows.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr]
     lib.cvst_extract_windows.restype = i32
+    lib.cvst_greedy.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, ctypes.c_float, ptr]
+    lib.cvst_greedy.restype = i32
     lib.cvst_error_string.argtypes = [i32]
     lib.cvst_error_string.restype = ctypes.c_char_p
     return lib

@@ -6,11 +6,12 @@ product path:
 * ``gftt_batch``: the score map straight from the gray (K4,
   ops/gftt_cuda.py, which forms the Sobel gradients of ``_conv2`` and
   their products itself), the quality threshold and the top 2048
-  candidates on the device; the score-descending min-distance-7 greedy
-  runs on the host in the port's native C++ helper
-  (``native/rectangle.py``, a copy of the JAX package's), the sequential oracle the JAX package
-  holds its device scan to.  One (B, 2048) int32 array leaves the
-  device per call.
+  candidates, then the score-descending min-distance-7 greedy (K7,
+  ops/greedy_cuda.py, the JAX package's ``_greedy_device``), all on the
+  grays' device: nothing leaves it.  ``gftt_batch_host`` runs the greedy
+  on the host in the port's native C++ helper (``native/rectangle.py``,
+  a copy of the JAX package's), the sequential oracle the tests hold K7
+  and its plain version to; it is not on any product path.
 * ``lk_track``: a 4-level Gaussian pyramid, then per level ``_lk_prep``
   (window extraction, K6, ops/extract_cuda.py; Scharr gradients;
   template sampling; the 2x2 normal equations), the Gauss-Newton loop
@@ -18,8 +19,8 @@ product path:
 
 Reflect-101 borders come from one index map (ops/pad.py) that accepts
 pads as wide as the axis, as jnp.pad does.  The XLA iteration backend
-of the JAX package (``_lk_level_all``, used under a sharding mesh) and
-its blocked device greedy are not ported (ROADMAP.md).
+of the JAX package (``_lk_level_all``, used under a sharding mesh) is
+not ported (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ import torch
 from ..native import rectangle as _native
 from . import extract_cuda as EX
 from . import gftt_cuda as GF
+from . import greedy_cuda as GR
 from . import lk_cuda as LKC
 from .conv import _SOBEL_X, _SOBEL_Y, _conv2  # noqa: F401  (re-exported)
 from .pad import reflect_pad
@@ -74,21 +76,37 @@ def _top_candidates(raw: torch.Tensor, k: int) -> torch.Tensor:
 
 def gftt_batch(grays: torch.Tensor, max_corners: int = MAX_CORNERS) -> Tuple[torch.Tensor, torch.Tensor]:
     """(B, H, W) -> (pts (B, max_corners, 2) float32 (x, y), counts (B,) int32),
-    on the grays' device; unused slots hold (0, 0).
-
-    The greedy is the native helper; when it cannot be built or loaded
-    this raises (there is no Python fallback).
-    """
+    on the grays' device with no host copy; unused slots hold (0, 0)."""
     B, H, W = grays.shape
-    top_idx = _topk_packed(grays, min(TOP_K, H * W)).cpu().numpy()
+    return GR.greedy_min_distance(_topk_packed(grays, min(TOP_K, H * W)), W, max_corners, MIN_DISTANCE)
+
+
+def greedy_host(top_idx: np.ndarray, height: int, width: int,
+                max_corners: int = MAX_CORNERS) -> Tuple[np.ndarray, np.ndarray]:
+    """The native greedy of each row of (B, K) candidates (the valid ones
+    first, -1 after): (pts (B, max_corners, 2) float32, counts (B,) int32)
+    as numpy arrays.  Raises when the helper cannot be built or loaded."""
+    B = top_idx.shape[0]
     pts = np.zeros((B, max_corners, 2), np.float32)
     counts = np.zeros(B, np.int32)
     for b in range(B):
         row = top_idx[b]
         idxs = row[: int((row != -1).sum())]   # the valid candidates sort first
-        accepted = _native.greedy_min_distance(idxs // W, idxs % W, H, W, MIN_DISTANCE, max_corners)
+        accepted = _native.greedy_min_distance(idxs // width, idxs % width, height, width, MIN_DISTANCE,
+                                               max_corners)
         pts[b, : accepted.shape[0]] = accepted.astype(np.float32)
         counts[b] = accepted.shape[0]
+    return pts, counts
+
+
+def gftt_batch_host(grays: torch.Tensor, max_corners: int = MAX_CORNERS) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`gftt_batch` with the greedy on the host (:func:`greedy_host`):
+    the (B, 2048) candidates are copied to the host and the corners back
+    to the grays' device.  The sequential oracle of K7; only the tests
+    call it."""
+    B, H, W = grays.shape
+    top_idx = _topk_packed(grays, min(TOP_K, H * W)).cpu().numpy()
+    pts, counts = greedy_host(top_idx, H, W, max_corners)
     return torch.from_numpy(pts).to(grays.device), torch.from_numpy(counts).to(grays.device)
 
 

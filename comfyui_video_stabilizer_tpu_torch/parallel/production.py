@@ -7,7 +7,7 @@ clip lies on the mesh as :func:`input_partition_spec` says:
 
 * frames -- n divides the data axis: the clip is cut into frame shards
   (parallel/mesh.py::FrameShards), one a data-axis device.  Each shard
-  makes its grays and runs its pairs' estimation (K2, or K4-K6) on its
+  makes its grays and runs its pairs' estimation (K2, or K4-K7) on its
   device, with a one-frame gray halo for the pair that crosses into the
   next shard; the per-pair samples or tracks are gathered to the lead
   device, where the fits and the trajectory run; each shard's warp

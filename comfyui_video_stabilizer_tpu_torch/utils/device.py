@@ -9,8 +9,9 @@ and then every kernel wrapper takes its plain PyTorch version.
 from __future__ import annotations
 
 import math
-from typing import Sequence
+from typing import Dict, Sequence
 
+import numpy as np
 import torch
 
 DEFAULT_DEVICE = "cuda"
@@ -56,3 +57,20 @@ def device_constant(values: Sequence, device: torch.device | str, dtype: torch.d
         if v != 0 or math.copysign(1.0, v) < 0:
             out[i].fill_(v)
     return out if shape is None else out.reshape(tuple(shape))
+
+
+def fetch_packed(tensors: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """Every tensor to the host in ONE copy: flattened into one float64
+    vector on the device (exact for float32 values, bools and integers
+    below 2**53), copied, and split back into numpy arrays of the
+    original shapes and dtypes."""
+    names = list(tensors)
+    flat = torch.cat([tensors[k].reshape(-1).to(torch.float64) for k in names]).cpu().numpy()
+    out, pos = {}, 0
+    for k in names:
+        t = tensors[k]
+        size = t.numel()
+        dtype = {torch.bool: np.bool_, torch.float32: np.float32}.get(t.dtype, np.int64)
+        out[k] = flat[pos:pos + size].astype(dtype).reshape(tuple(t.shape))
+        pos += size
+    return out

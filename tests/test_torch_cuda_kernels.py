@@ -261,12 +261,15 @@ def test_classic_slice_on_cuda_launches_kernels_and_matches_cpu(cuda, monkeypatc
     args = ("crop_and_pad", "similarity", False, 0.8, 0.6, 0.6, (127, 127, 127), 30.0)
     monkeypatch.setenv("CVST_FASTPATH", "1")    # the CPU takes the fast path too
     cpu = stabilize_classic(normalize_video_input(frames, device="cpu"), *args, device="cpu")
+    # the first call on the card captures the estimation's graph (its eager
+    # warm-up launches every kernel once more); the second replays it
+    stabilize_classic(normalize_video_input(frames, device=cuda), *args, device=cuda)
     cuda_build.reset_launches()
     gpu = stabilize_classic(normalize_video_input(frames, device=cuda), *args, device=cuda)
     torch.cuda.synchronize()
     launches = dict(cuda_build.LAUNCHES)
-    assert launches["gftt"] == 1 and launches["lk_gn"] == 4 and launches["extract_windows"] == 8
-    assert launches["warp"] == 1 and launches["cost_volume"] == 0
+    assert launches["gftt"] == 1 and launches["greedy"] == 1 and launches["lk_gn"] == 4
+    assert launches["extract_windows"] == 8 and launches["warp"] == 1 and launches["cost_volume"] == 0
     tc, tg = cpu.meta["estimated_motion"]["per_transition"], gpu.meta["estimated_motion"]["per_transition"]
     assert [t["mode"] for t in tg] == [t["mode"] for t in tc]
     assert np.abs(np.array([t["matrix"] for t in tg]) - np.array([t["matrix"] for t in tc])).max() <= 1e-3
@@ -520,26 +523,24 @@ def _meta_matrices(meta):
             np.array(em["target_path"]), np.array([e["applied_matrix"] for e in meta["stabilization_warp"]["per_frame"]])]
 
 
-def test_fused_graph_equals_eager_fast_path(cuda, monkeypatch):
-    """The Flow crop_and_pad call from its CUDA graph against the same fast
-    path run eagerly (CVST_FUSED=0): the same kernels in the same order,
-    so frames, masks and every meta matrix are bitwise equal.  The graph
-    replays once a call and the launch counts still count the call's K2
-    launches."""
+def _graph_equals_eager(run, monkeypatch, frames, cuda, kernel: str):
+    """``run`` (a crop_and_pad call) from its CUDA graph against the same
+    fast path run eagerly (CVST_FUSED=0): bitwise equal frames, masks and
+    meta matrices, one replay a call, the same launch counts, ``kernel``
+    among them."""
     monkeypatch.setenv("CVST_FASTPATH_STRICT", "1")
-    frames = _small_clip(15)
     FP.clear_graph_cache()
-    first = _fast_call(frames, cuda)                    # warm-up and capture
+    first = run(frames, cuda)                           # warm-up and capture
     replays = FP.GRAPH_STATS["replays"]
     cuda_build.reset_launches()
-    fused = _fast_call(frames, cuda)
+    fused = run(frames, cuda)
     torch.cuda.synchronize()
     launches = dict(cuda_build.LAUNCHES)
     assert FP.GRAPH_STATS["replays"] == replays + 1
-    assert launches["cost_volume"] >= 4 and launches["warp"] == 1
+    assert launches[kernel] >= 1 and launches["warp"] == 1
     monkeypatch.setenv("CVST_FUSED", "0")
     cuda_build.reset_launches()
-    eager = _fast_call(frames, cuda)
+    eager = run(frames, cuda)
     torch.cuda.synchronize()
     assert FP.GRAPH_STATS["replays"] == replays + 1
     assert dict(cuda_build.LAUNCHES) == launches
@@ -548,6 +549,52 @@ def test_fused_graph_equals_eager_fast_path(cuda, monkeypatch):
         for a, b in zip(_meta_matrices(res.meta), _meta_matrices(eager.meta)):
             assert np.array_equal(a, b)
         assert res.meta["padding_fraction_mean"] == eager.meta["padding_fraction_mean"]
+    return launches
+
+
+def test_fused_graph_equals_eager_fast_path(cuda, monkeypatch):
+    """The Flow crop_and_pad call from its CUDA graph against the same fast
+    path run eagerly (CVST_FUSED=0): the same kernels in the same order,
+    so frames, masks and every meta matrix are bitwise equal.  The graph
+    replays once a call and the launch counts still count the call's K2
+    launches."""
+    launches = _graph_equals_eager(_fast_call, monkeypatch, _small_clip(15), cuda, "cost_volume")
+    assert launches["cost_volume"] >= 4
+
+
+def _classic_call(frames, device, strength=0.8):
+    from comfyui_video_stabilizer_tpu_torch.models.classic import stabilize_classic
+    from comfyui_video_stabilizer_tpu_torch.utils.video_io import normalize_video_input
+
+    return stabilize_classic(normalize_video_input(frames, device=device), "crop_and_pad", "similarity", False,
+                             strength, 0.6, 0.6, (127, 127, 127), 24.0, device=device)
+
+
+def test_classic_fused_graph_equals_eager_fast_path(cuda, monkeypatch):
+    """The Classic crop_and_pad call from its CUDA graph (K4, K7, K6, K5
+    replayed) against the same fast path run eagerly: bitwise equal."""
+    launches = _graph_equals_eager(_classic_call, monkeypatch, _small_clip(16), cuda, "greedy")
+    assert (launches["gftt"], launches["greedy"], launches["lk_gn"], launches["extract_windows"]) == (1, 1, 4, 8)
+
+
+def test_kernel_error_at_k7_launch_is_not_degraded(cuda, monkeypatch):
+    """K7's launch refused (error 9): a Classic call raises KernelError,
+    through the fast path (the graph captured anew) and the host engine,
+    and no native greedy runs in its place."""
+    called = []
+    monkeypatch.setattr(LK._native, "greedy_min_distance", lambda *a: called.append(1))
+    lib = cuda_build.library()
+    real = lib.cvst_greedy
+    for flag in ("1", "0"):
+        monkeypatch.setenv("CVST_FASTPATH", flag)
+        FP.clear_graph_cache()   # so the graph's capture launches K7 through the stub
+        lib.cvst_greedy = lambda *a: 9
+        try:
+            with pytest.raises(cuda_build.KernelError, match="greedy"):
+                _classic_call(_small_clip(11), cuda)
+        finally:
+            lib.cvst_greedy = real
+    assert called == []
 
 
 def test_fused_graph_results_are_not_aliased(cuda, monkeypatch):
@@ -654,7 +701,7 @@ def test_sharded_on_one_card_equals_unsharded(cuda, monkeypatch, engine, spatial
     runs the fast path by shard (the reference runs it eagerly,
     ``CVST_FUSED=0``); an uneven one defers to the host engine (the
     reference too, ``CVST_FASTPATH=0``), in bands of rows with a spatial
-    axis of 2.  K2 (Flow) or K4-K6 (Classic) and K1 launch on every
+    axis of 2.  K2 (Flow) or K4-K7 (Classic) and K1 launch on every
     shard; no copy is made between the shards of one card."""
     from comfyui_video_stabilizer_tpu_torch.models.classic import stabilize_classic
     from comfyui_video_stabilizer_tpu_torch.models.flow import stabilize_flow
@@ -678,8 +725,8 @@ def test_sharded_on_one_card_equals_unsharded(cuda, monkeypatch, engine, spatial
     if n % 4 == 0:
         assert isinstance(ours.frames, PM.FrameShards) and len(ours.frames.shards) == 4 // spatial
         assert cuda_build.LAUNCHES["warp"] == 4 // spatial
-        kernel = "cost_volume" if engine == "flow" else "gftt"
-        assert cuda_build.LAUNCHES[kernel] >= 4 // spatial
+        for kernel in (("cost_volume",) if engine == "flow" else ("gftt", "greedy")):
+            assert cuda_build.LAUNCHES[kernel] >= 4 // spatial
     elif spatial == 2:
         assert isinstance(ours.frames, PM.FrameShards) and ours.frames.axis == 1
         assert cuda_build.LAUNCHES["warp"] == 2

@@ -55,6 +55,7 @@ from comfyui_video_stabilizer_tpu_torch.ops import cuda_build  # noqa: E402
 from comfyui_video_stabilizer_tpu_torch.ops import flow_dis as TFD  # noqa: E402
 from comfyui_video_stabilizer_tpu_torch.ops import lk as TLK  # noqa: E402
 from comfyui_video_stabilizer_tpu_torch.ops import warp as TW  # noqa: E402
+from comfyui_video_stabilizer_tpu_torch.utils.device import fetch_packed  # noqa: E402
 from comfyui_video_stabilizer_tpu_torch.utils import video_io as TIO  # noqa: E402
 from test_classic import _shaken_clip as _classic_clip  # noqa: E402
 from test_fastpath import _shaken_clip as _flow_clip  # noqa: E402
@@ -333,6 +334,42 @@ def test_fast_path_matches_jax_fast_path(taken, flow_clip, classic_clip, kind, f
     assert p99 <= 1e-3 and mx <= 1e-2, (p99, mx)
 
 
+def test_classic_fused_program_matches_jax_fast_path(taken, classic_clip):
+    """The program the Classic graph captures (``_classic_estimate``, run
+    eagerly on the CPU) against the JAX fast path's Classic estimation
+    (``_tracks_and_fits``, then ``_traj_program``) on the same working
+    grays at 1080p scale: ``chosen`` and ``degenerate`` identical, the
+    matrices, path, target, final and applied matrices <= 1e-3 (the
+    ``_traj_program`` tolerances above); then the whole crop_and_pad call
+    of both fast paths."""
+    from comfyui_video_stabilizer_tpu.ops import resize as JR
+
+    width, height = 1920, 1080
+    grays = np.array(JR.gray_for_estimation(jnp.asarray(classic_clip), None), np.float32)
+    strength, smooth, keep_fov, window, scale_xy = TFP._trajectory_args(0.8, 0.6, 24.0, False, 0.6, width, height,
+                                                                         (W, H))
+    static = dict(mode="similarity", camera_lock=False, window=window, width=width, height=height,
+                  scale_xy=scale_xy)
+    (_, det, _, _), fits = JCL._tracks_and_fits(jnp.asarray(grays), None, 0, False)
+    p = JFP._speculative_plan(height, width, height, width, affine=True)
+    plan = (p["k"], p["th"], p["tw"], p["n_th"], p["n_tw"], p["sub"], p["margin"], p["extra"])
+    ref = JFP._traj_program(jnp.float32(strength), jnp.float32(keep_fov), det, *fits, kind="classic",
+                            want_persp=False, total_pts=1, plan=plan, framing="crop_and_pad",
+                            bucket=(height, width), **static)
+    ours = TFP._classic_estimate(torch.from_numpy(grays), torch.tensor(strength), torch.tensor(keep_fov),
+                                 seed=0, **static)
+    ref = {k: np.asarray(v) for k, v in ref.items()}
+    ours = {k: v.numpy() for k, v in ours.items()}
+    np.testing.assert_array_equal(ours["chosen"], ref["chosen"])
+    np.testing.assert_array_equal(ours["degenerate"], ref["degenerate"])
+    assert not ours["degenerate"].any()
+    for key in ("matrices", "path", "target", "final", "apply"):
+        assert np.abs(ours[key] - ref[key]).max() <= 1e-3, key
+    jm, tm = _stabilize("jax", "classic", classic_clip).meta, _stabilize("torch", "classic", classic_clip).meta
+    assert taken[("jax", "run_classic_fast")] == 1 and taken[("torch", "run_classic_fast")] == 1
+    assert _modes(tm) == _modes(jm) and np.abs(_applied(tm) - _applied(jm)).max() <= 1e-3
+
+
 # ---------------------------------------------------------------------------
 # (e) port fast path against the port's host engine (docs/parity.md)
 # ---------------------------------------------------------------------------
@@ -415,9 +452,10 @@ def test_expand_bucket_miss_rewarps_exact(taken, monkeypatch, flow_clip):
 
 
 def _host_spies(monkeypatch):
-    """Calls of the host engine's Flow and Classic fits and the TV-L1 tier."""
+    """Calls of the host engine's Flow fits, its Classic fits fetch and the
+    TV-L1 tier."""
     calls = []
-    for mod, name in ((TFL, "_fused_fits_sampled"), (TCL, "_fused_classic_fits"), (TFL.TV, "tvl1_flow")):
+    for mod, name in ((TFL, "_fused_fits_sampled"), (TCL, "_fetch_fits"), (TFL.TV, "tvl1_flow")):
         real = getattr(mod, name)
         monkeypatch.setattr(mod, name, lambda *a, _r=real, _n=name, **k: calls.append(_n) or _r(*a, **k))
     return calls
@@ -453,7 +491,7 @@ def test_other_failures_fall_back_to_host_engine(monkeypatch, flow_clip, kind):
     monkeypatch.setattr(TFP, "_traj_program", broken)
     host = _host_spies(monkeypatch)
     out = _stabilize("torch", kind, flow_clip[:4])
-    assert entered == [1] and host[:1] == ["_fused_fits_sampled" if kind == "flow" else "_fused_classic_fits"]
+    assert entered == [1] and host[:1] == ["_fused_fits_sampled" if kind == "flow" else "_fetch_fits"]
     assert torch.equal(out.frames, ref.frames) and out.meta["estimated_motion"] == ref.meta["estimated_motion"]
     monkeypatch.setenv("CVST_FASTPATH_STRICT", "1")
     with pytest.raises(RuntimeError, match="synthetic fast-path failure"):
@@ -519,7 +557,7 @@ def test_progress_ticks_match_host_engine(taken, monkeypatch, flow_clip):
 def test_fetch_is_one_exact_copy():
     t = {"a": torch.tensor([1.5, -2.25], dtype=torch.float32), "b": torch.tensor([[3, 2**40]]),
          "c": torch.tensor(True), "d": torch.tensor([7, 9], dtype=torch.int32)}
-    out = TFP._fetch(t)
+    out = fetch_packed(t)
     for k, v in t.items():
         assert out[k].shape == tuple(v.shape) and (out[k] == v.numpy()).all(), k
     assert out["a"].dtype == np.float32 and out["c"].dtype == np.bool_

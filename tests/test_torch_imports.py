@@ -32,7 +32,8 @@ _CPU_SLICE = textwrap.dedent(
     import comfyui_video_stabilizer_tpu_torch
     from comfyui_video_stabilizer_tpu_torch import nodes
     from comfyui_video_stabilizer_tpu_torch.ops import cuda_build, cv_cuda, flow_dis, prng, ransac, resize, warp
-    from comfyui_video_stabilizer_tpu_torch.ops import extract_cuda, gftt_cuda, lk, lk_cuda, morphology, pad
+    from comfyui_video_stabilizer_tpu_torch.ops import extract_cuda, gftt_cuda, greedy_cuda, lk, lk_cuda, morphology
+    from comfyui_video_stabilizer_tpu_torch.ops import pad
     from comfyui_video_stabilizer_tpu_torch.ops import phase_corr, tvl1
     from comfyui_video_stabilizer_tpu_torch.models import classic, fastpath, flow, framing, geometry, inverse
     from comfyui_video_stabilizer_tpu_torch.models import motion_apply
@@ -216,7 +217,8 @@ def test_cuda_request_without_card_raises(monkeypatch):
 
 def test_cpu_tensor_takes_plain_versions_without_launching():
     """A CPU tensor never reaches the kernel library (no build, no launch)."""
-    from comfyui_video_stabilizer_tpu_torch.ops import cuda_build, cv_cuda, extract_cuda, gftt_cuda, lk_cuda, warp
+    from comfyui_video_stabilizer_tpu_torch.ops import (cuda_build, cv_cuda, extract_cuda, gftt_cuda, greedy_cuda,
+                                                        lk_cuda, warp)
 
     cuda_build.reset_launches()
     frames = torch.rand((1, 8, 8, 3))
@@ -243,6 +245,9 @@ def test_cpu_tensor_takes_plain_versions_without_launching():
     assert torch.equal(blur, ref) and torch.equal(mask, ref_mask)
     with pytest.raises(ValueError, match="bilinear or bicubic"):
         warp.warp_blur_frames(frames, coeffs_s, torch.zeros(3), 8, 8, "nearest")
+    top = torch.tensor([[5, 60, 40, -1], [-1, -1, -1, -1]], dtype=torch.int32)
+    pts, counts = greedy_cuda.greedy_min_distance(top, 12, 3)
+    assert torch.equal(pts, greedy_cuda.greedy_plain(top, 12, 3)[0]) and counts.tolist() == [2, 0]
     assert set(cuda_build.LAUNCHES) == {"warp", "warp_blur", "cost_volume", "gftt", "lk_gn",
-                                        "extract_windows"}
+                                        "extract_windows", "greedy"}
     assert all(v == 0 for v in cuda_build.LAUNCHES.values()), cuda_build.LAUNCHES

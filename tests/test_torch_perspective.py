@@ -227,8 +227,9 @@ def test_classic_fused_perspective_fits_match():
     tracked = np.nan_to_num(q).astype(np.float32)
     ref = [np.asarray(x) for x in JCL._fused_classic_fits(jnp.asarray(p), jnp.asarray(tracked), jnp.asarray(status),
                                                           0, True, 512)]
-    ours = TCL._fused_classic_fits(torch.from_numpy(p), torch.from_numpy(tracked), torch.from_numpy(status),
-                                   0, True, 512)
+    names = ("surv", "H", "nH", "vH", "S", "nS", "vS", "T")
+    ours = {k: v.numpy() for k, v in zip(names, TCL._fused_classic_fits_device(
+        torch.from_numpy(p), torch.from_numpy(tracked), torch.from_numpy(status), 0, True, 512))}
     surv, H, nH, vH = ref[:4]
     np.testing.assert_array_equal(ours["surv"], surv)
     np.testing.assert_array_equal(ours["vH"], vH)
