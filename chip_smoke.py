@@ -37,10 +37,7 @@ Phases (any failure raises and the script exits non-zero):
      eager stage split (K4, the threshold and sort, K7 apart), and
      BASELINE config 1 (854x480, 64 frames) once; then the Classic graph
      as phase 26 takes Flow's (the whole meta equal to CVST_FUSED=0, and
-     no device-to-host copy before K1) and its split as phase 27; then
-     the graph cache shared by Flow and Classic: four static keys in
-     three rounds (captures, ms, the memory the four graphs keep), and
-     five keys cycled through the four entries (a capture every call)
+     no device-to-host copy before K1) and its split as phase 27
  11. Classic, CUDA path against CPU path on a small clip; the Classic
      node on a CPU tensor of 16 frames at 1080p
  12. the Motion Apply slice, BASELINE config 4: apply_motion (bicubic,
@@ -109,7 +106,25 @@ Phases (any failure raises and the script exits non-zero):
      cached graph keeps, and the host time the estimation holds the
      calling thread, from the graph and eagerly
  27. the fast path's Flow split: gray, graph replay, padding stats, K1
-     and the fetch, a synchronize after each
+     and the fetch, a synchronize after each; then, after every profiled
+     phase (torch.profiler has lost a later call's device events once
+     these phases' many graph captures had run ahead of it):
+     normalize: a uint8 clip and a 0..255 float clip (1080p x 80, from a
+     seed) normalized on the card, torch.equal to the CPU normalization
+     with equal 960x540 grays, and the values and gray pixels the
+     unrepaired division by the Python number 255.0 would move;
+     the graph cache shared by Flow and Classic, its graphs in one
+     memory pool: what each key's graph keeps alone, four static keys in
+     three rounds (captures, pool rebuilds, ms, the bytes each key adds
+     and the four keep, at most the largest alone + 0.5 GiB), the four
+     replayed interleaved (each torch.equal to CVST_FUSED=0), the memory
+     after clear_graph_cache() (the baseline within 0.05 GiB), and five
+     keys cycled through the four entries (a capture every call);
+     host fits: fit_model_batch, median_translation_batch and
+     reprojection_residuals on the card at Classic's (79 x 400) and
+     Flow's (79 x 8160) shapes against device="cpu", timed;
+     rectangle: the largest all-ones rectangle of the Flow call's closed
+     1080p content mask, native and numpy, equal, timed
  28. the multi-device layer on four shards of one card
      (``make_mesh(devices=["cuda:0"] * 4)``): the 1080p x 80 Flow slice
      through stabilize_flow_sharded (the fast path's mesh branch), torch.equal
@@ -165,6 +180,12 @@ CLIP_FRAMES = 80
 HEIGHT, WIDTH = 1080, 1920
 SMALL_MAT_TOL = 1e-3    # CUDA path vs CPU path on the small clip
 SMALL_FRAME_P99 = 1e-3
+# perspective fits, card vs CPU at the 1080p shapes: the frame corners'
+# projections (px).  The DLT refit's A^T A sums 2P float32 rows in another
+# order on the card and cuSOLVER's eigh is not LAPACK's, so the
+# translations differ by a few 1e-3 px at P = 8160 (SMALL_MAT_TOL holds
+# for the similarity fits)
+PERSP_FIT_TOL_PX = 0.05
 BASELINE1 = (64, 480, 854)  # BASELINE.json config 1: Classic 480p / 64 frames
 BASELINE2 = (80, 720, 1280)  # BASELINE.json config 2: shake -> Motion Apply 720p, bilinear
 BASELINE3 = (128, 720, 1280)  # BASELINE.json config 3: Flow 720p / 128, perspective + camera_lock
@@ -645,6 +666,53 @@ def phase_node(frames_cpu, node_name="VideoStabilizerFlow"):
     check(bool(torch.isfinite(video).all()), "node frames not finite")
     log(f"[node] {node_name}.execute on a CPU tensor ({n}, {HEIGHT}, {WIDTH}, 3): "
         f"{secs:.3f} s, mode {meta['transform_mode_applied']}")
+
+
+def phase_normalize(device):
+    """uint8 and 0..255 float payloads normalized on the card: a uint8 clip
+    of random levels and a 0..255 float clip (the shaken 1080p clip's
+    levels), both 1080p x 80 from a seed.  Each is torch.equal to the CPU
+    normalization and its estimation grays (960x540) to the CPU grays.
+    The count of values, full-size gray pixels and working grays that the
+    unrepaired normalization (a division by the Python number 255.0,
+    which the card makes a multiply by the reciprocal) would change is
+    computed here, inline."""
+    import torch
+
+    from comfyui_video_stabilizer_tpu_torch.ops import resize as R
+    from comfyui_video_stabilizer_tpu_torch.utils.video_io import normalize_video_input
+
+    rng = np.random.default_rng(5)
+    clips = {"uint8": torch.from_numpy(rng.integers(0, 256, (CLIP_FRAMES, HEIGHT, WIDTH, 3), dtype=np.uint8))}
+    shaken = synth_clip(CLIP_FRAMES, HEIGHT, WIDTH, seed=4, device=device)
+    clips["float 0..255"] = torch.round(shaken * 255.0).cpu()
+    del shaken
+    out = {}
+    for name, clip in clips.items():
+        cpu = normalize_video_input(clip, device="cpu").frames
+        t0 = time.perf_counter()
+        gpu = normalize_video_input(clip, device=device).frames
+        torch.cuda.synchronize()
+        norm_ms = 1e3 * (time.perf_counter() - t0)
+        frames_equal = bool(torch.equal(gpu.cpu(), cpu))
+        gray_gpu = R.gray_for_estimation(gpu, (960, 540))
+        grays_equal = bool(torch.equal(gray_gpu.cpu(), R.gray_for_estimation(cpu, (960, 540))))
+        del cpu
+        unrepaired = clip.to(device).to(torch.float32) / 255.0
+        moved = {"values": int((unrepaired != gpu).sum()), "gray pixels": 0,
+                 "working gray pixels": int((R.gray_for_estimation(unrepaired, (960, 540)) != gray_gpu).sum())}
+        for s in range(0, CLIP_FRAMES, 16):
+            moved["gray pixels"] += int((R.make_gray(unrepaired[s:s + 16]) != R.make_gray(gpu[s:s + 16])).sum())
+        del unrepaired, gpu, gray_gpu
+        torch.cuda.empty_cache()
+        log(f"[normalize] {name} clip ({CLIP_FRAMES}, {HEIGHT}, {WIDTH}, 3) on the card: frames torch.equal to the "
+            f"CPU normalization {frames_equal}, 960x540 grays torch.equal {grays_equal}; {norm_ms:.1f} ms with the "
+            f"upload; the unrepaired multiply would move {moved['values']} of {clip.numel()} values, "
+            f"{moved['gray pixels']} full-size gray pixels ({moved['gray pixels'] / CLIP_FRAMES:.1f} a frame) and "
+            f"{moved['working gray pixels']} working gray pixels")
+        check(frames_equal and grays_equal, f"normalize, {name}: the card's normalization differs from the CPU's")
+        out[name] = moved
+    return out
 
 
 def classic_grays(frames):
@@ -2090,12 +2158,21 @@ def host_issue_ms(kind: str, call) -> dict:
 
 def phase_graph_cache(device, frames):
     """Flow and Classic graphs sharing the cache (GRAPH_CACHE_SIZE = 4
-    entries, least recently used out): four static keys (Flow 1080p at
-    smooth 0.6 and 0.3, Classic 1080p at 0.6, Classic at BASELINE config
-    1's 854x480 x 64) in three rounds, the captures and ms of each call,
-    and the device memory the four cached graphs keep; then a fifth key
-    (Classic 1080p at smooth 0.3) in the cycle for two rounds, where each
-    call evicts the graph the next one needs."""
+    entries, least recently used out) and one memory pool: four static
+    keys (Flow 1080p at smooth 0.6 and 0.3, Classic 1080p at 0.6, Classic
+    at BASELINE config 1's 854x480 x 64).  The device memory each key's
+    graph keeps alone (the cache cleared between), then the four in three
+    rounds: the captures, pool rebuilds (a capture that grows the pool by
+    more than fastpath.POOL_REBUILD_BYTES recaptures every cached graph
+    into a new pool, the new one first; GRAPH_STATS counts those apart,
+    as recaptures) and ms of each call, the bytes each
+    key adds as it is captured and those the four keep, at most the
+    largest single graph's plus 0.5 GiB; the four replayed in an interleaved order
+    (Flow s0.6, Classic, Flow s0.3, Classic 480p, then reversed), each
+    call's frames, masks and meta torch.equal to CVST_FUSED=0; the memory
+    after clear_graph_cache(), within 0.05 GiB of the baseline.  Then a
+    fifth key (Classic 1080p at smooth 0.3) in the cycle for two rounds,
+    where each call evicts the graph the next one needs."""
     import torch
 
     from comfyui_video_stabilizer_tpu_torch.models import fastpath as FP
@@ -2106,6 +2183,7 @@ def phase_graph_cache(device, frames):
     n, h, w = BASELINE1
     ctx = make_context(frames)
     sctx = make_context(synth_clip(n, h, w, seed=1, device=device))
+    gib = 2.0 ** 30
 
     def call(fn, c, smooth):
         return lambda: fn(c, "crop_and_pad", "similarity", False, 0.8, smooth, 0.6, (127, 127, 127), 30.0,
@@ -2115,30 +2193,185 @@ def phase_graph_cache(device, frames):
             "flow 1080p s0.3": call(stabilize_flow, ctx, 0.3), "classic 480p s0.6": call(stabilize_classic, sctx, 0.6)}
     fifth = {"classic 1080p s0.3": call(stabilize_classic, ctx, 0.3)}
 
-    def rounds(calls, n_rounds):
+    def rounds(calls, n_rounds, added=None):
+        """(round, key, captures, pool rebuilds, ms) of each call; fails
+        unless a rebuild recaptured every cached graph once."""
         out = []
         for r in range(n_rounds):
             for name, fn in calls.items():
-                before = FP.GRAPH_STATS["captures"]
+                before = dict(FP.GRAPH_STATS)
+                reserved = cache_memory()[0] if added is not None and r == 0 else None
                 ms = timed_calls(fn, 1)[0]
-                out.append((r, name, FP.GRAPH_STATS["captures"] - before, round(ms, 1)))
+                c, rb, rc = (FP.GRAPH_STATS[k] - before[k] for k in ("captures", "rebuilds", "recaptures"))
+                check(rb in (0, 1) and rc == rb * len(FP._GRAPHS),
+                      f"graph cache, {name}: {rb} rebuilds, {rc} recaptures, {len(FP._GRAPHS)} cached")
+                out.append((r, name, c, rb, round(ms, 1)))
+                if reserved is not None:
+                    added[name] = (cache_memory()[0] - reserved) / gib
         return out
 
     FP.clear_graph_cache()
     reserved0, allocated0 = cache_memory()
-    four = rounds(keys, 3)
+    single = {}
+    for name, fn in keys.items():
+        fn()
+        single[name] = (cache_memory()[0] - reserved0) / gib
+        FP.clear_graph_cache()
+    check(cache_memory()[0] - reserved0 <= 0.05 * gib, "the single graphs' memory was not returned")
+    added = {}
+    four = rounds(keys, 3, added)
     reserved1, allocated1 = cache_memory()
-    check([c for _, _, c, _ in four] == [1] * 4 + [0] * 8,
-          f"four keys in a cache of four: captures {[(r, k, c) for r, k, c, _ in four]}")
+    check([c for _, _, c, _, _ in four] == [1] * 4 + [0] * 8,
+          f"four keys in a cache of four: captures {[(r, k, c) for r, k, c, _, _ in four]}")
+    check(len(FP._POOLS) == 1, f"graph pools {FP._POOLS}")
+    kept = (reserved1 - reserved0) / gib
+    largest = max(single.values())
+    log(f"[graph cache] four keys, three rounds (round, key, captures, pool rebuilds, ms): {four}; GiB reserved "
+        f"each key's graph "
+        f"keeps alone {({k: round(v, 3) for k, v in single.items()})}; GiB each key adds as it is captured into "
+        f"the shared pool {({k: round(v, 3) for k, v in added.items()})}; the four cached graphs keep {kept:.3f} "
+        f"GiB reserved ({(allocated1 - allocated0) / gib:.3f} GiB allocated), the largest alone {largest:.3f}")
+    check(kept <= largest + 0.5, f"four cached graphs keep {kept:.3f} GiB, past the largest single graph's "
+          f"{largest:.3f} + 0.5")
+
+    order = list(keys) + list(reversed(keys))
+    with env(CVST_FUSED="0"):
+        eager = {name: fn() for name, fn in keys.items()}
+    equal, captures = [], FP.GRAPH_STATS["captures"]
+    for name in order:
+        res = keys[name]()
+        ref = eager[name]
+        equal.append((name, bool(torch.equal(res.frames, ref.frames)), bool(torch.equal(res.masks, ref.masks)),
+                      res.meta == ref.meta))
+        del res
+    del eager, ref
+    check(FP.GRAPH_STATS["captures"] == captures, "the interleaved replays captured a graph")
+    log(f"[graph cache] interleaved replays (key, frames, masks, meta torch.equal to CVST_FUSED=0): {equal}")
+    check(all(all(e[1:]) for e in equal), f"an interleaved replay differs from CVST_FUSED=0: {equal}")
+
     FP.clear_graph_cache()
+    reserved2, allocated2 = cache_memory()
+    cleared = (reserved2 - reserved0) / gib
+    log(f"[graph cache] after clear_graph_cache(): {cleared:.3f} GiB reserved past the baseline "
+        f"({(allocated2 - allocated0) / gib:.3f} GiB allocated)")
+    check(abs(cleared) <= 0.05, f"clear_graph_cache() left {cleared:.3f} GiB")
     five = rounds({**keys, **fifth}, 2)
-    check(all(c == 1 for _, _, c, _ in five), f"five keys cycled through a cache of four: {five}")
+    check(all(c == 1 for _, _, c, _, _ in five), f"five keys cycled through a cache of four: {five}")
     FP.clear_graph_cache()
-    kept = (reserved1 - reserved0) / 2**30
-    log(f"[graph cache] four keys, three rounds (round, key, captures, ms): {four}; the four cached graphs keep "
-        f"{kept:.3f} GiB reserved ({(allocated1 - allocated0) / 2**30:.3f} GiB allocated)")
-    log(f"[graph cache] five keys cycled, two rounds (round, key, captures, ms): {five}")
-    return {"four": four, "five": five, "kept_gib": kept}
+    log(f"[graph cache] five keys cycled, two rounds (round, key, captures, pool rebuilds, ms): {five}")
+    return {"four": four, "five": five, "kept_gib": kept, "single_gib": single, "added_gib": added,
+            "cleared_gib": cleared}
+
+
+def fit_points(b: int, p: int, seed: int, model: str):
+    """(b, p, 2) point pairs of a shaken clip's fits: a similarity (or a
+    homography) per pair with 0.3 px noise, 30 % gross outliers and 20 %
+    invalid slots, made from ``seed``."""
+    rng = np.random.default_rng(seed)
+    prev = rng.uniform(8, [952, 532], (b, p, 2)).astype(np.float32)
+    curr = np.empty_like(prev)
+    for i in range(b):
+        th, sc = rng.uniform(-0.01, 0.01), np.exp(rng.uniform(-0.005, 0.005))
+        m = np.array([[sc * np.cos(th), -sc * np.sin(th), rng.uniform(-6, 6)],
+                      [sc * np.sin(th), sc * np.cos(th), rng.uniform(-6, 6)], [0, 0, 1.0]])
+        if model == "perspective":
+            m[2, :2] = rng.uniform(-2e-5, 2e-5, 2)
+        hom = np.concatenate([prev[i], np.ones((p, 1), np.float32)], axis=1) @ m.T
+        curr[i] = hom[:, :2] / hom[:, 2:] + rng.normal(0, 0.3, (p, 2))
+        out = rng.random(p) < 0.3
+        curr[i, out] += rng.uniform(30, 80, (int(out.sum()), 2)) * rng.choice([-1, 1], (int(out.sum()), 2))
+    return prev, curr.astype(np.float32), rng.random((b, p)) >= 0.2
+
+
+def phase_host_fits(device):
+    """The batched RANSAC host calls (ops/ransac.py: fit_model_batch,
+    median_translation_batch, reprojection_residuals) on the card at the
+    main paths' shapes, Classic 1080p (79 pairs x 400 corners) and Flow
+    1080p (79 pairs x the 960x540 fit grid's points), against the same
+    calls with device="cpu": inlier and valid counts equal, similarity and
+    median matrices within SMALL_MAT_TOL, residuals within 1e-4 px, the
+    perspective fits' frame corners within PERSP_FIT_TOL_PX (their
+    elementwise max|d| printed beside); the ms of each call
+    (host clock, upload and fetch included; the median of 3 on the card
+    after one warm call, one on the CPU)."""
+    from comfyui_video_stabilizer_tpu_torch.ops import ransac as RS
+
+    step = 8
+    grid_pts = ((540 + step - 1) // step) * ((960 + step - 1) // step)
+    out = {}
+    for path, p in (("classic", 400), ("flow", grid_pts)):
+        for model in ("similarity", "perspective"):
+            prev, curr, valid = fit_points(CLIP_FRAMES - 1, p, seed=7 if path == "classic" else 8, model=model)
+            calls = {"fit": lambda d: RS.fit_model_batch(prev, curr, valid, model, seed=0, device=d),
+                     "median": lambda d: RS.median_translation_batch(prev, curr, valid, device=d),
+                     "residuals": lambda d: RS.reprojection_residuals(mats, prev, curr, valid, device=d)}
+            mats = RS.fit_model_batch(prev, curr, valid, model, device="cpu")[0]
+            for name, fn in calls.items():
+                if name != "fit" and model == "perspective":
+                    continue
+                t0 = time.perf_counter()
+                ref = fn("cpu")
+                cpu_ms = 1e3 * (time.perf_counter() - t0)
+                gpu = fn(device)
+                gpu_ms = float(np.median(timed_calls(lambda: fn(device), 3)))
+                ref = ref if isinstance(ref, tuple) else (ref,)
+                gpu = gpu if isinstance(gpu, tuple) else (gpu,)
+                err = float(np.abs(gpu[0] - ref[0]).max())
+                row = {"shape": (CLIP_FRAMES - 1, p), "max_abs_err": err, "ms": gpu_ms, "cpu_ms": cpu_ms}
+                if name == "fit":
+                    row["corner_px"] = max(float(np.abs(corner_projection(a) - corner_projection(b)).max())
+                                           for a, b in zip(gpu[0], ref[0]))
+                out[f"{path} {model} {name}"] = row
+                if model == "perspective":
+                    check(row["corner_px"] <= PERSP_FIT_TOL_PX,
+                          f"host fits, {path} {model} {name}: card vs CPU corners {row['corner_px']} px")
+                else:
+                    tol = 1e-4 if name == "residuals" else SMALL_MAT_TOL
+                    check(err <= tol, f"host fits, {path} {model} {name}: card vs CPU max|d| {err}")
+                for a, b in zip(gpu[1:], ref[1:]):
+                    check(a.dtype == b.dtype and np.array_equal(a, b), f"host fits, {path} {model} {name}: counts "
+                          f"differ on {int((a != b).sum())} pairs")
+    log(f"[host fits] card vs device='cpu' (counts equal; similarity matrices within {SMALL_MAT_TOL}, residuals "
+        f"1e-4, perspective corners {PERSP_FIT_TOL_PX} px): "
+        + "; ".join(f"{k} {v['shape']}: max|d| {v['max_abs_err']:.2e}"
+                    + (f", corners {v['corner_px']:.2e} px" if "corner_px" in v else "")
+                    + f", {v['ms']:.2f} ms on the card, {v['cpu_ms']:.1f} ms on the CPU" for k, v in out.items()))
+    return out
+
+
+def corner_projection(m) -> np.ndarray:
+    """The 960x540 working frame's corners and centre through ``m``, in px."""
+    pts = np.array([[0, 0], [960, 0], [0, 540], [960, 540], [480, 270]], np.float64)
+    h = np.concatenate([pts, np.ones((len(pts), 1))], axis=1) @ np.asarray(m, np.float64).T
+    return h[:, :2] / h[:, 2:3]
+
+
+def phase_rectangle(device, frames):
+    """The largest all-ones rectangle (ops/morphology.py), native and its
+    numpy body, on the 1080p Flow call's closed content mask (the padding
+    masks inverted, closed 3x3 on the card as crop framing closes them,
+    and intersected over the 80 frames): equal tuples, the ms of each."""
+    import torch
+
+    from comfyui_video_stabilizer_tpu_torch.ops import morphology as M
+
+    res = run_slice(make_context(frames), device)
+    valid = M.erode(M.dilate(1.0 - res.masks, 1), 1) > 0.5
+    mask = valid.all(dim=0).cpu().numpy()
+    del res, valid
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    native = M.largest_axis_aligned_rectangle(mask)
+    native_ms = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    plain = M.largest_axis_aligned_rectangle_plain(mask)
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    x0, y0, w, h = native
+    log(f"[rectangle] {mask.shape[1]}x{mask.shape[0]} closed content mask ({int(mask.sum())} valid pixels): native "
+        f"{native} in {native_ms:.2f} ms, numpy {plain} in {plain_ms:.1f} ms")
+    check(native == plain, f"rectangle: native {native} != numpy {plain}")
+    check(w * h > 0 and bool(mask[y0:y0 + h, x0:x0 + w].all()), f"rectangle {native} is not all valid")
+    return {"native_ms": native_ms, "plain_ms": plain_ms, "rect": native}
 
 
 def phase_fast_split(device, frames, kind="flow"):
@@ -2672,7 +2905,6 @@ def main() -> int:
     classic_launches, _ = timed_phase("Classic slice", phase_classic, device, frames)
     classic_graph = timed_phase("Classic graph", phase_fused, device, frames, "classic")
     classic_split = timed_phase("Classic fast split", phase_fast_split, device, frames, "classic")
-    graph_cache = timed_phase("graph cache", phase_graph_cache, device, frames)
     timed_phase("Classic reference", phase_small_reference, device, run_classic, "classic reference")
     timed_phase("Classic node", phase_node, frames[:16].cpu(), "VideoStabilizerClassic")
     timed_phase("crop", phase_crop, device, frames)
@@ -2691,6 +2923,11 @@ def main() -> int:
     fast_host = timed_phase("fast vs host", phase_fast_vs_host, device, frames)
     fused = timed_phase("fused graph", phase_fused, device, frames)
     fast_split = timed_phase("fast split", phase_fast_split, device, frames)
+    # after every profiled phase: see the docstring's phase 27
+    normalize = timed_phase("normalize", phase_normalize, device)
+    graph_cache = timed_phase("graph cache", phase_graph_cache, device, frames)
+    host_fits = timed_phase("host fits", phase_host_fits, device)
+    rectangle = timed_phase("rectangle", phase_rectangle, device, frames)
     k3 = timed_phase("K3", phase_k3, device, frames, meta4)
     timed_phase("config 2", phase_config2, device)
     timed_phase("Motion Apply reference", phase_apply_reference, device)
@@ -2718,11 +2955,17 @@ def main() -> int:
         f"replay alone {classic_graph['replay_ms']:.2f} ms; {classic_graph['events']} device events a call "
         f"({classic_graph['graph_events']} in the graph); device-to-host copies before K1 "
         f"{classic_graph['dtoh_before_k1']}, in the call {classic_graph['dtoh']}; split {classic_split}")
-    log(f"[summary] {smi}: graph cache: the Classic graph keeps {classic_graph['kept']['reserved_gib']:.3f} GiB, "
-        f"Flow's {fused['kept']['reserved_gib']:.3f} GiB, four cached graphs {graph_cache['kept_gib']:.3f} GiB; "
+    log(f"[summary] {smi}: graph cache (one shared pool): the Classic graph keeps "
+        f"{classic_graph['kept']['reserved_gib']:.3f} GiB, Flow's {fused['kept']['reserved_gib']:.3f} GiB, four cached "
+        f"graphs {graph_cache['kept_gib']:.3f} GiB (the largest alone {max(graph_cache['single_gib'].values()):.3f}), "
+        f"{graph_cache['cleared_gib']:.3f} GiB after clear_graph_cache(); "
         f"host issue medians, ms, graph / eager: Classic {classic_graph['issue_ms']['graph']:.2f} / "
         f"{classic_graph['issue_ms']['eager']:.2f}, Flow {fused['issue_ms']['graph']:.2f} / "
         f"{fused['issue_ms']['eager']:.2f}")
+    log(f"[summary] {smi}: the unrepaired uint8 / 0..255 normalization would move full-size gray pixels: "
+        f"{({k: v['gray pixels'] for k, v in normalize.items()})}; host fits on the card, ms: "
+        f"{({k: round(v['ms'], 2) for k, v in host_fits.items()})}; the largest rectangle native "
+        f"{rectangle['native_ms']:.2f} ms, numpy {rectangle['plain_ms']:.1f} ms")
     log(f"[summary] {smi}: mesh, {MESH_SHARDS} shards of one card, Flow 1080p x {CLIP_FRAMES} crop_and_pad: "
         f"sharded {float(np.median(mesh['times']['sharded'])):.1f} ms, unsharded from its graph "
         f"{float(np.median(mesh['times']['graph'])):.1f} ms (medians of 5 in turns); sharded Flow, Classic and "

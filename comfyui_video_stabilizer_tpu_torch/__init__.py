@@ -4,10 +4,13 @@ The JAX package ``comfyui_video_stabilizer_tpu`` beside it is the
 reference this package is held against.  The layers mirror it:
 ``ops/`` (kernel wrappers and tensor ops), ``models/`` (engines),
 ``nodes/`` (ComfyUI shells), ``meta/`` (motion_meta v2), ``native/``
-(the host corner greedy), ``utils/`` (I/O, device policy, timing) and
-``csrc/`` (the hand-written CUDA kernels).  The JAX package's host-only
-modules (``meta.motion_meta``, ``models.geometry``, ``models.shake``,
-``utils.color`` and the native greedy) are copied, not imported.
+(the host largest rectangle and corner greedy), ``utils/`` (I/O, device
+policy, timing) and ``csrc/`` (the hand-written CUDA kernels).  The JAX
+package's host-only modules (``meta.motion_meta``, ``models.geometry``,
+``models.shake``, ``utils.color`` and ``native/rectangle.cpp``) are
+copied, not imported.  Each ``__init__`` exports the public names of its
+JAX counterpart; this one loads only the motion_meta copy (numpy), no
+engine and no torch.
 
 Device policy: engine entry points take ``device`` and default to
 ``"cuda"``; asking for CUDA without a card raises.  Ops follow the
@@ -27,6 +30,18 @@ whole-clip sidecar steps).
 """
 
 from __future__ import annotations
+
+__version__ = "0.1.0"
+
+from .meta.motion_meta import (  # noqa: F401
+    FrameTransform,
+    MotionMeta,
+    applied_motion_meta_from_stabilization_warp,
+    build_motion_meta_v2,
+    motion_meta_from_stabilization_warp,
+    resolve_motion_meta,
+    validate_motion_meta,
+)
 
 
 def apply_inverse_stabilization(*args, **kwargs):

@@ -1,1 +1,7 @@
-"""Engines: the stabilization pipeline and the Flow estimator."""
+"""Engines: the stabilization pipeline, the estimators, Motion Apply.
+
+Exports the JAX package's ``models`` names: the ``geometry`` and
+``shake`` submodules (numpy copies; no torch).
+"""
+
+from . import geometry, shake  # noqa: F401

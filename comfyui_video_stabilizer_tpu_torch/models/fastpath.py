@@ -91,12 +91,19 @@ _MODE_NAMES = ("perspective", "similarity", "translation")
 # makes (tens of px); a larger canvas re-warps at its exact size
 EXPAND_MARGIN_PX = 64
 
-# captured estimation graphs kept at once (each holds its memory pool)
+# captured estimation graphs kept at once (all of a device's share one
+# memory pool: _FusedGraph.capture)
 GRAPH_CACHE_SIZE = 4
 
-# graph captures and replays since import (chip_smoke.py and the tests
-# read them to show which calls ran from a graph)
-GRAPH_STATS = {"captures": 0, "replays": 0}
+# a capture that grows the shared pool by more than this rebuilds the pool
+# with the new graph first (_rebuild_pool)
+POOL_REBUILD_BYTES = 256 * 2**20
+
+# since import: graphs captured for a new key, pool rebuilds, cached
+# graphs recaptured by a rebuild (its new key's included) and replays
+# (chip_smoke.py and the tests read them to show which calls ran from a
+# graph)
+GRAPH_STATS = {"captures": 0, "rebuilds": 0, "recaptures": 0, "replays": 0}
 
 # calls each estimator's fast path served (returned a result rather than
 # leaving the call to the host engine), and of those the ones that ran by
@@ -752,6 +759,7 @@ class _FusedGraph:
         self.graph = None
         self.out = None
         self.launches = {}
+        self.pool_growth = 0
 
     def capture(self, strength: float, keep_fov: float) -> None:
         """Run the program once eagerly on a side stream (so cuSOLVER /
@@ -765,17 +773,41 @@ class _FusedGraph:
         with torch.cuda.stream(side):
             self.program(self.grays, self.strength, self.keep_fov, **self.kw)
         torch.cuda.current_stream(dev).wait_stream(side)
+        self.record()
+        GRAPH_STATS["captures"] += 1
+
+    def record(self) -> None:
+        """Capture the program into the device's shared pool (a recapture
+        calls this alone).  ``pool_growth`` is what the capture added to
+        the device's reserved bytes: the pool's new segments."""
+        dev = self.grays.device
+        # torch.cuda.graph empties the allocator's cache as it begins (the
+        # segments of a pool no graph uses go too); count from there
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(dev)
         graph = torch.cuda.CUDAGraph()
         before = dict(cuda_build.LAUNCHES)
         _CAPTURE.open = True
-        with torch.cuda.device(dev), torch.cuda.graph(graph):
+        # Every cached graph of a device records into one shared pool, so
+        # the cache keeps about the largest graph's pool, not the sum.
+        # Sharing is safe here: the graphs replay one at a time on one
+        # stream; the static inputs (grays, strength, keep_fov) were
+        # allocated before the capture, outside the pool; and replay()
+        # clones every output at once, so a later replay of another graph
+        # that reuses this one's output blocks as scratch harms no result.
+        with torch.cuda.device(dev), torch.cuda.graph(graph, pool=_graph_pool(dev)):
             out = self.program(self.grays, self.strength, self.keep_fov, **self.kw)
         _CAPTURE.open = False
         # the wrappers counted the captured launches, which ran nothing
         self.launches = {k: cuda_build.LAUNCHES[k] - before[k] for k in before}
         cuda_build.LAUNCHES.update(before)
         self.graph, self.out = graph, out
-        GRAPH_STATS["captures"] += 1
+        self.pool_growth = torch.cuda.memory_reserved(dev) - reserved
+
+    def release(self) -> None:
+        """Drop the captured graph and its outputs (its share of the pool)."""
+        self.graph = self.out = None
 
     def replay(self, grays: torch.Tensor, strength: float, keep_fov: float) -> Dict[str, torch.Tensor]:
         """The program on these inputs; every output copied out of the
@@ -793,10 +825,61 @@ class _FusedGraph:
 
 _GRAPHS: "OrderedDict[tuple, _FusedGraph]" = OrderedDict()
 
+# the pool handle each device's graphs share, while one of them lives
+_POOLS: Dict[str, tuple] = {}
+
+
+def _graph_pool(dev: torch.device) -> tuple:
+    """The memory pool handle the cached graphs of ``dev`` share."""
+    key = str(dev)
+    if key not in _POOLS:
+        _POOLS[key] = torch.cuda.graph_pool_handle()
+    return _POOLS[key]
+
+
+def _drop_unused_pools() -> None:
+    """Forget the handle of a device that has no cached graph left.  Its
+    pool is then free for ``torch.cuda.empty_cache()`` to return, and the
+    next capture opens a new one: the allocator refuses to reuse the
+    handle of a pool whose last graph is gone."""
+    live = {str(entry.grays.device) for entry in _GRAPHS.values()}
+    for key in [k for k in _POOLS if k not in live]:
+        del _POOLS[key]
+
 
 def clear_graph_cache() -> None:
-    """Drop every captured graph (and its memory pool)."""
+    """Drop every captured graph and the pool they share."""
     _GRAPHS.clear()
+    _drop_unused_pools()
+
+
+def _rebuild_pool(key: tuple) -> None:
+    """Recapture the cached graphs of ``key``'s device into a new pool,
+    ``key``'s graph first.
+
+    A pool in use never shrinks, and a graph captured after smaller ones
+    reuses little of their scratch (its blocks are larger than theirs):
+    a Flow graph then a Classic one kept about the sum of their pools.
+    Captured first, the largest graph leaves free blocks the smaller ones
+    fit in, so the cache keeps about the largest graph's pool.  The old
+    pool, used by no graph once they are released, is returned by the
+    cache emptying the first recapture begins with."""
+    dev = _GRAPHS[key].grays.device
+    keys = [key] + [k for k, e in _GRAPHS.items() if k != key and e.grays.device == dev]
+    entries = {k: _GRAPHS.pop(k) for k in keys}
+    for entry in entries.values():
+        entry.release()
+    _drop_unused_pools()
+    GRAPH_STATS["rebuilds"] += 1
+    try:
+        for k in keys:
+            entries[k].record()
+            GRAPH_STATS["recaptures"] += 1
+            _GRAPHS[k] = entries[k]
+    except BaseException:
+        _drop_unused_pools()
+        raise
+    _GRAPHS.move_to_end(key)
 
 
 def _fused_estimate(kind: str, grays, strength: float, keep_fov: float, kw: dict) -> Dict[str, torch.Tensor]:
@@ -807,10 +890,18 @@ def _fused_estimate(kind: str, grays, strength: float, keep_fov: float, kw: dict
     entry = _GRAPHS.get(key)
     if entry is None:
         entry = _FusedGraph(kind, grays, kw)
-        entry.capture(strength, keep_fov)
+        try:
+            entry.capture(strength, keep_fov)
+        except BaseException:
+            _drop_unused_pools()
+            raise
         _GRAPHS[key] = entry
         while len(_GRAPHS) > GRAPH_CACHE_SIZE:
             _GRAPHS.popitem(last=False)
+        _drop_unused_pools()
+        others = sum(e.grays.device == entry.grays.device for e in _GRAPHS.values()) > 1
+        if others and entry.pool_growth > POOL_REBUILD_BYTES:
+            _rebuild_pool(key)
     else:
         _GRAPHS.move_to_end(key)
     return entry.replay(grays, strength, keep_fov)

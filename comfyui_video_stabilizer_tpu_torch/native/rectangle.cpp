@@ -1,9 +1,10 @@
-// Greedy min-distance corner selection, the host stage of GFTT.
+// The host helpers of crop framing and GFTT: the largest all-ones
+// rectangle and the greedy min-distance corner selection.
 //
-// A copy of greedy_min_distance from the JAX package's
-// native/rectangle.cpp (the same code; tests/test_torch_host_copies.py
-// holds the two equal).  The largest-rectangle helper of that file serves
-// crop framing, which the port does not have yet, so it is not copied.
+// A copy of the JAX package's native/rectangle.cpp (the same two
+// functions; tests/test_torch_host_copies.py holds them equal).  The
+// rectangle is ops/morphology.py::largest_axis_aligned_rectangle's
+// native half; the greedy is the oracle of the corner greedy kernel.
 //
 // Exposed as a tiny C ABI consumed through ctypes.
 
@@ -11,6 +12,43 @@
 #include <vector>
 
 extern "C" {
+
+// mask: row-major H*W uint8 (nonzero = valid).  out: int64[4] = x0,y0,w,h.
+void largest_rectangle(const uint8_t* mask, int64_t height, int64_t width,
+                       int64_t* out) {
+    std::vector<int64_t> heights(width + 1, 0);
+    std::vector<int64_t> stack;
+    stack.reserve(width + 1);
+
+    int64_t best_area = 0;
+    out[0] = 0; out[1] = 0; out[2] = width; out[3] = height;
+
+    for (int64_t y = 0; y < height; ++y) {
+        const uint8_t* row = mask + y * width;
+        for (int64_t x = 0; x < width; ++x) {
+            heights[x] = row[x] ? heights[x] + 1 : 0;
+        }
+        stack.clear();
+        for (int64_t x = 0; x <= width; ++x) {
+            const int64_t curr = heights[x];
+            while (!stack.empty() && heights[stack.back()] > curr) {
+                const int64_t top = stack.back();
+                stack.pop_back();
+                const int64_t h = heights[top];
+                const int64_t left = stack.empty() ? 0 : stack.back() + 1;
+                const int64_t area = h * (x - left);
+                if (area > best_area) {
+                    best_area = area;
+                    out[0] = left;
+                    out[1] = y - h + 1;
+                    out[2] = x - left;
+                    out[3] = h;
+                }
+            }
+            stack.push_back(x);
+        }
+    }
+}
 
 // Batched greedy min-distance suppression for GFTT corner selection:
 // candidates arrive score-descending; accept while farther than

@@ -1,7 +1,8 @@
-"""ctypes binding of the port's native corner greedy (``rectangle.cpp``).
+"""ctypes binding of the port's native host helpers (``rectangle.cpp``):
+the largest all-ones rectangle and the corner greedy.
 
-A copy of the greedy half of ``comfyui_video_stabilizer_tpu/native/
-rectangle.py``.  The shared library is built with ``g++`` at first use
+A copy of ``comfyui_video_stabilizer_tpu/native/rectangle.py``.  The
+shared library is built with ``g++`` at first use
 into ``ops/cuda_build.py::build_dir`` (a checkout's git-ignored
 ``build/``, an installed package's user cache), beside the CUDA kernel
 library, named by a hash of the source and flags; it is never written
@@ -17,6 +18,7 @@ import hashlib
 import os
 import pathlib
 import subprocess
+from typing import Tuple
 
 import numpy as np
 
@@ -45,6 +47,11 @@ def _load() -> ctypes.CDLL:
         finally:
             tmp.unlink(missing_ok=True)
     lib = ctypes.CDLL(str(path))
+    lib.largest_rectangle.argtypes = [
+        ctypes.POINTER(ctypes.c_uint8), ctypes.c_int64, ctypes.c_int64,
+        ctypes.POINTER(ctypes.c_int64),
+    ]
+    lib.largest_rectangle.restype = None
     lib.greedy_min_distance.argtypes = [
         ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int64),
         ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
@@ -52,6 +59,21 @@ def _load() -> ctypes.CDLL:
     ]
     lib.greedy_min_distance.restype = ctypes.c_int64
     return lib
+
+
+def largest_axis_aligned_rectangle(binary_mask: np.ndarray) -> Tuple[int, int, int, int]:
+    """Largest all-ones axis-aligned rectangle of a 2-D mask (nonzero =
+    valid) -> (x0, y0, w, h); (0, 0, W, H) when the mask has no one."""
+    lib = _load()
+    mask = np.ascontiguousarray(binary_mask > 0, dtype=np.uint8)
+    h, w = mask.shape
+    out = np.zeros(4, np.int64)
+    lib.largest_rectangle(
+        mask.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+        ctypes.c_int64(h), ctypes.c_int64(w),
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+    )
+    return int(out[0]), int(out[1]), int(out[2]), int(out[3])
 
 
 def greedy_min_distance(

@@ -19,7 +19,7 @@ from ..utils.video_io import (
     normalize_video_input,
     reconstruct_video,
 )
-from .comfy_compat import ProgressBar, check_interrupt, io
+from .comfy_compat import ComfyExtension, ProgressBar, check_interrupt, io
 
 JSONType = io.Custom("JSON")
 
@@ -215,3 +215,13 @@ class VideoStabilizerFlow(io.ComfyNode):
             stabilize_flow, frames, frame_rate, framing_mode, transform_mode,
             camera_lock, strength, smooth, keep_fov, padding_color, device,
         )
+
+
+class VideoStabilizerClassicExtension(ComfyExtension):
+    async def get_node_list(self) -> list:
+        return [VideoStabilizerClassic]
+
+
+class VideoStabilizerFlowExtension(ComfyExtension):
+    async def get_node_list(self) -> list:
+        return [VideoStabilizerFlow]

@@ -8,8 +8,11 @@ the max pool of the negation), which is ``reduce_window`` "SAME" with
 ``content_bboxes`` runs on the masks' device and brings only the
 per-frame boxes to the host.  ``integral_image`` and
 ``largest_aspect_ratio_rectangle`` are numpy copies (host code there
-too).  ``largest_axis_aligned_rectangle`` is not ported: the framing
-code does not call it.
+too).  ``largest_axis_aligned_rectangle`` runs the native histogram-stack
+search (native/rectangle.cpp, built at first use; a failed build
+raises, where the JAX package falls back quietly), and
+``largest_axis_aligned_rectangle_plain`` is its numpy body, the plain
+version the tests hold it to.
 """
 
 from __future__ import annotations
@@ -19,6 +22,8 @@ from typing import Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from ..native import rectangle as native_rectangle
 
 
 def dilate(stack: torch.Tensor, radius: int = 1) -> torch.Tensor:
@@ -56,6 +61,37 @@ def integral_image(mask: np.ndarray) -> np.ndarray:
     out = np.zeros((h + 1, w + 1), np.float64)
     np.cumsum(np.cumsum(mask.astype(np.float64), axis=0), axis=1, out=out[1:, 1:])
     return out
+
+
+def largest_axis_aligned_rectangle(binary_mask: np.ndarray) -> Tuple[int, int, int, int]:
+    """Largest all-ones axis-aligned rectangle, histogram-stack algorithm,
+    natively.  Returns (x0, y0, w, h); (0, 0, W, H) for an all-zero mask."""
+    return native_rectangle.largest_axis_aligned_rectangle(binary_mask)
+
+
+def largest_axis_aligned_rectangle_plain(binary_mask: np.ndarray) -> Tuple[int, int, int, int]:
+    """:func:`largest_axis_aligned_rectangle` in numpy: the same walk of the
+    same histogram stack, so the same tuple."""
+    height, width = binary_mask.shape
+    heights = np.zeros(width + 1, dtype=np.int64)
+    best_area = 0
+    best_rect = (0, 0, width, height)
+    row_pos = binary_mask > 0
+    for y in range(height):
+        heights[:width] = (heights[:width] + 1) * row_pos[y]
+        stack: list[int] = []
+        for x in range(width + 1):
+            curr = heights[x]
+            while stack and heights[stack[-1]] > curr:
+                top = stack.pop()
+                h = int(heights[top])
+                left = stack[-1] + 1 if stack else 0
+                area = h * (x - left)
+                if area > best_area:
+                    best_area = area
+                    best_rect = (left, y - h + 1, x - left, h)
+            stack.append(x)
+    return best_rect
 
 
 def largest_aspect_ratio_rectangle(

@@ -22,12 +22,22 @@ raises on a singular system, as ``torch.linalg.solve`` would, nor syncs
 the card to check.  On the card the batched solve and ``eigh`` go
 through cuSOLVER, not LAPACK, so hypotheses and refits agree with the
 CPU to rounding, not bitwise.
+
+``fit_model_batch``, ``median_translation_batch`` and
+``reprojection_residuals`` are the JAX package's host entry points:
+numpy in and out, the work on ``device`` (the card by default) through
+``ransac_fit``, ``masked_median_shift`` and ``residuals``, with one
+copy back.  The engines call the device halves directly.
 """
 
 from __future__ import annotations
 
+from typing import Tuple
+
+import numpy as np
 import torch
 
+from ..utils.device import fetch_packed, resolve_device
 from . import prng
 
 SIM_THRESH = 2.0     # px reprojection, estimateAffinePartial2D default in reference
@@ -275,3 +285,65 @@ def residuals(matrices: torch.Tensor, prev_pts: torch.Tensor, curr_pts: torch.Te
     total = (torch.abs(proj_x - curr_pts[..., 0]) * w).sum(1) + (torch.abs(proj_y - curr_pts[..., 1]) * w).sum(1)
     count = torch.clamp(w.sum(1), min=1.0)
     return torch.where(valid.any(1), total / count, 0.0)
+
+
+def _upload(x, dtype, dev: torch.device) -> torch.Tensor:
+    """A host array (numpy, or read-only like a JAX array's view) as a
+    tensor on ``dev``, from a copy the caller does not share."""
+    return torch.from_numpy(np.array(x, dtype)).to(dev)
+
+
+def _points(dev: torch.device, prev_pts, curr_pts, valid):
+    """The host arrays as (p, q) float32 and a bool mask on ``dev``."""
+    return _upload(prev_pts, np.float32, dev), _upload(curr_pts, np.float32, dev), _upload(valid, bool, dev)
+
+
+def fit_model_batch(
+    prev_pts: np.ndarray,
+    curr_pts: np.ndarray,
+    valid: np.ndarray,
+    model: str,
+    *,
+    n_hypotheses: int = DEFAULT_HYPOTHESES,
+    seed: int = 0,
+    device: str | torch.device = "cuda",
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """RANSAC-fit every pair in the batch, pair i with the key
+    ``fold_in(PRNGKey(seed), i)``.
+
+    prev_pts/curr_pts: (B, P, 2) float32, valid: (B, P) bool.
+    Returns (matrices (B,3,3) f32, inlier_counts (B,), valid_counts (B,)).
+    """
+    B = prev_pts.shape[0]
+    if B == 0:
+        return np.zeros((0, 3, 3), np.float32), np.zeros(0), np.zeros(0)
+    dev = resolve_device(device)
+    thresh = SIM_THRESH if model == "similarity" else PERSP_THRESH
+    keys = prng.fold_in(prng.PRNGKey(seed, device=dev), torch.arange(B, device=dev))
+    H, n_in, n_valid = ransac_fit(keys, *_points(dev, prev_pts, curr_pts, valid), model, int(n_hypotheses),
+                                  float(thresh))
+    out = fetch_packed({"H": H, "n_in": n_in, "n_valid": n_valid})
+    return out["H"], out["n_in"].astype(np.int32), out["n_valid"].astype(np.int32)
+
+
+def median_translation_batch(prev_pts, curr_pts, valid, device: str | torch.device = "cuda") -> np.ndarray:
+    """Median point shift per pair -> (B, 3, 3) translation matrices;
+    only the (B, 2) medians come back to the host."""
+    B = prev_pts.shape[0]
+    out = np.tile(np.eye(3, dtype=np.float32), (B, 1, 1))
+    if B == 0:
+        return out
+    med = masked_median_shift(*_points(resolve_device(device), prev_pts, curr_pts, valid)).cpu().numpy()
+    out[:, 0, 2] = med[:, 0]
+    out[:, 1, 2] = med[:, 1]
+    return out
+
+
+def reprojection_residuals(matrices, prev_pts, curr_pts, valid, device: str | torch.device = "cuda") -> np.ndarray:
+    """Mean |affine-projected prev - curr| per pair (the flow residual
+    metric: the affine part only, as the reference's), as float64."""
+    if matrices.shape[0] == 0:
+        return np.zeros(0)
+    dev = resolve_device(device)
+    m = _upload(matrices, np.float32, dev)
+    return residuals(m, *_points(dev, prev_pts, curr_pts, valid)).cpu().numpy().astype(np.float64)

@@ -74,8 +74,14 @@ def make_gray(frames: torch.Tensor, quantize: bool = True) -> torch.Tensor:
 
 
 def box_pool(stack: torch.Tensor, fy: int, fx: int) -> torch.Tensor:
+    """fy x fx mean pool as the reference's XLA mean computes it: the sum
+    times the float32 reciprocal of fy * fx.  ``Tensor.mean`` divides on
+    the CPU and multiplies on the card, so for a factor that is not a
+    power of two the two devices would differ by an ulp; the factor is a
+    0-dim tensor on the stack's device, so both multiply."""
     n, h, w = stack.shape
-    return stack.reshape(n, h // fy, fy, w // fx, fx).mean(dim=(2, 4))
+    inv = torch.full((), float(np.float32(1.0) / np.float32(fy * fx)), dtype=torch.float32, device=stack.device)
+    return stack.reshape(n, h // fy, fy, w // fx, fx).sum(dim=(2, 4)) * inv
 
 
 def _area_matrices(h: int, w: int, out_w: int, out_h: int, device: torch.device):

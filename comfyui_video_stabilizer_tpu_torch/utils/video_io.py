@@ -75,6 +75,15 @@ def resolve_fps(context: VideoContext, frame_rate: float, default: float = 16.0)
     return float(default)
 
 
+def _level_count(device: torch.device) -> torch.Tensor:
+    """255 as a 0-dim float32 tensor on ``device``: the divisor of the
+    0..255 -> 0..1 scaling.  The reference divides in numpy; on the card
+    a tensor divided by a Python number (or by a CPU scalar tensor) is
+    multiplied by the reciprocal instead, which puts about half of the
+    256 uint8 levels one ulp off, so the divisor lives on the device."""
+    return torch.full((), 255.0, dtype=torch.float32, device=device)
+
+
 def _normalize_batch(arr: torch.Tensor, origin: str, detect_chw: bool = True):
     """4-D batch -> (float32 RGB batch, FrameAdapter), on arr's device."""
     first = arr[0]
@@ -84,7 +93,7 @@ def _normalize_batch(arr: torch.Tensor, origin: str, detect_chw: bool = True):
     squeeze_last_dim = arr.shape[-1] == 1
     src_dtype = arr.dtype
     if src_dtype == torch.uint8:
-        batch = arr.to(torch.float32) / 255.0
+        batch = arr.to(torch.float32) / _level_count(arr.device)
         value_range = "0_255"
     else:
         batch = arr.to(torch.float32)
@@ -92,7 +101,7 @@ def _normalize_batch(arr: torch.Tensor, origin: str, detect_chw: bool = True):
         if batch.numel():
             needs_scale = batch.reshape(batch.shape[0], -1).amax(dim=1) > 1.5
             if bool(needs_scale.any()):
-                batch = torch.where(needs_scale[:, None, None, None], batch / 255.0, batch)
+                batch = torch.where(needs_scale[:, None, None, None], batch / _level_count(batch.device), batch)
                 value_range = "0_255" if bool(needs_scale[0]) else "0_1"
     channels = batch.shape[-1]
     if channels == 1:

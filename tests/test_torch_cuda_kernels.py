@@ -768,3 +768,55 @@ def test_similarity_fit_is_batch_invariant_on_cuda(cuda, batch):
         part = FD._fit_similarity_dense(flow[:batch].contiguous(), conf[:batch].contiguous(), 4)
         torch.cuda.synchronize()
         assert torch.equal(part, whole[:batch])
+
+
+@pytest.mark.parametrize("payload", ["uint8", "float_0_255"])
+def test_normalize_on_cuda_equals_cpu(cuda, payload):
+    """A uint8 clip and a 0..255 float clip normalized on the card are
+    torch.equal to the CPU normalization (numpy's true division by 255),
+    every one of the 256 levels included, and so are their estimation
+    grays (1920x1080 -> 960x540, the x2 pool)."""
+    from comfyui_video_stabilizer_tpu_torch.ops import resize as R
+    from comfyui_video_stabilizer_tpu_torch.utils.video_io import normalize_video_input
+
+    rng = np.random.default_rng(11)
+    clip = rng.integers(0, 256, (3, 1080, 1920, 3), dtype=np.uint8)
+    clip[0, 0, :256, 0] = np.arange(256)
+    src = torch.from_numpy(clip if payload == "uint8" else clip.astype(np.float32))
+    ctx = {dev: normalize_video_input(src, device=dev) for dev in ("cpu", cuda)}
+    assert torch.equal(ctx[cuda].frames.cpu(), ctx["cpu"].frames)
+    grays = {dev: R.gray_for_estimation(c.frames, (960, 540)) for dev, c in ctx.items()}
+    torch.cuda.synchronize()
+    assert torch.equal(grays[cuda].cpu(), grays["cpu"])
+
+
+@pytest.mark.parametrize("rebuild", [False, True])
+def test_shared_graph_pool_interleaved_replays_equal_eager(cuda, monkeypatch, rebuild):
+    """A Flow and a Classic crop_and_pad key captured into the one shared
+    graph pool, then replayed A, B, A, B, B, A: every result torch.equal
+    to the same call run eagerly (CVST_FUSED=0), though each graph's
+    replay reuses the other's freed blocks as scratch.  With ``rebuild``
+    the second capture rebuilds the pool (B recaptured first, then A: two
+    recaptures); without, it never does.  One pool on the card, none
+    once the cache is cleared."""
+    monkeypatch.setenv("CVST_FASTPATH_STRICT", "1")
+    monkeypatch.setattr(FP, "POOL_REBUILD_BYTES", -1 if rebuild else 2**62)
+    frames = _small_clip(21, n=12)
+    calls = {"A": _fast_call, "B": _classic_call}
+    monkeypatch.setenv("CVST_FUSED", "0")
+    eager = {k: run(frames, cuda) for k, run in calls.items()}
+    monkeypatch.setenv("CVST_FUSED", "1")
+    FP.clear_graph_cache()
+    stats = dict(FP.GRAPH_STATS)
+    for k in "ABABBA":
+        res = calls[k](frames, cuda)
+        torch.cuda.synchronize()
+        assert torch.equal(res.frames, eager[k].frames) and torch.equal(res.masks, eager[k].masks), k
+        assert res.meta == eager[k].meta, k
+    assert FP.GRAPH_STATS["captures"] - stats["captures"] == 2
+    assert FP.GRAPH_STATS["rebuilds"] - stats["rebuilds"] == int(rebuild)
+    assert FP.GRAPH_STATS["recaptures"] - stats["recaptures"] == (2 if rebuild else 0)
+    assert [e.program for e in FP._GRAPHS.values()] == [FP._PROGRAMS["classic"], FP._PROGRAMS["flow"]]  # LRU order
+    assert list(FP._POOLS) == [str(torch.device("cuda", 0))]
+    FP.clear_graph_cache()
+    assert FP._POOLS == {}

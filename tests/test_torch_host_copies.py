@@ -1,9 +1,9 @@
 """The port's copies of the JAX package's host modules give exactly what
 the originals give: motion_meta, geometry, color, shake and the native
-corner greedy.
+largest rectangle and corner greedy.
 
 Tolerance: exact everywhere.  The copies are the same numpy code (and
-the same C++ for the greedy), so error strings, float64 results, the
+the same C++ for the rectangle and the greedy), so error strings, float64 results, the
 shake JSON bytes and the accepted corners must all be identical.
 """
 
@@ -221,6 +221,26 @@ def test_native_greedy_equal(seed):
         ours = TNR.greedy_min_distance(idx // w, idx % w, h, w, min_distance, max_corners)
         np.testing.assert_array_equal(ours, ref)
         assert ours.shape[0] > 0
+
+
+def _cpp_function(path, name):
+    """The text of the C function ``name`` in a native source file."""
+    text = pathlib.Path(path).read_text()
+    start = text.index(f" {name}(")
+    return text[text.rindex("\n", 0, start):text.index("\n}\n", start)]
+
+
+def test_native_rectangle_source_is_a_copy():
+    assert _cpp_function(TNR._SRC, "largest_rectangle") == \
+        _cpp_function(pathlib.Path(JNR.__file__).with_name("rectangle.cpp"), "largest_rectangle")
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2, 3])
+def test_native_rectangle_equal(seed):
+    rng = np.random.default_rng(seed)
+    for shape, density in (((48, 64), 0.25), ((40, 56), 0.2), ((1, 31), 0.3), ((31, 1), 0.3), ((20, 20), 1.0)):
+        mask = rng.random(shape) > density
+        assert TNR.largest_axis_aligned_rectangle(mask) == JNR.largest_axis_aligned_rectangle(mask)
 
 
 def test_native_greedy_builds_into_build_dir():

@@ -4,8 +4,9 @@ there is none.
 
 The import check runs in a subprocess: this test session imports JAX
 for every test (tests/conftest.py).  It imports every module of the
-port and runs all six nodes on the CPU before it looks, both
-stabilizers also with crop framing and the perspective model and, with
+port and runs all six nodes and the host entry points (the batched
+fits, the largest rectangle, the package exports) on the CPU before it
+looks, both stabilizers also with crop framing and the perspective model and, with
 ``CVST_FASTPATH=1``, through the fast path in all three framings, the
 Flow node also with each fallback tier forced (TV-L1, phase
 correlation).
@@ -112,6 +113,18 @@ _CPU_SLICE = textwrap.dedent(
         warped, masks, _ = entry(clip4, mesh)
         assert warped.shape == (4, 64, 96, 3) and masks.shape == (4, 64, 96)
     assert not meshinfo.mesh_active() and parallel.make_mesh is pmesh.make_mesh
+    from comfyui_video_stabilizer_tpu_torch import models as tmodels, ops as tops, utils as tutils
+    from comfyui_video_stabilizer_tpu_torch.nodes import stabilizer_nodes
+    assert comfyui_video_stabilizer_tpu_torch.MotionMeta is motion_meta.MotionMeta
+    assert tutils.normalize_video_input is video_io.normalize_video_input and tops.warp_clip is warp.warp_clip
+    assert tmodels.geometry is geometry and stabilizer_nodes.VideoStabilizerFlowExtension
+    pts = rng.uniform(0, 90, (2, 40, 2)).astype(np.float32)
+    ok = np.ones((2, 40), bool)
+    H, n_in, _ = ransac.fit_model_batch(pts, pts + 1.5, ok, "similarity", device="cpu")
+    assert n_in.tolist() == [40, 40]
+    assert ransac.median_translation_batch(pts, pts + 1.5, ok, device="cpu")[0, 0, 2] == 1.5
+    assert ransac.reprojection_residuals(H, pts, pts + 1.5, ok, device="cpu").shape == (2,)
+    assert morphology.largest_axis_aligned_rectangle(np.ones((6, 9), bool)) == (0, 0, 9, 6)
     assert all(v == 0 for v in cuda_build.LAUNCHES.values()), cuda_build.LAUNCHES
     assert "warp_blur" in cuda_build.LAUNCHES
     assert "jax" not in sys.modules, sorted(m for m in sys.modules if m.startswith("jax"))
