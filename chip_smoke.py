@@ -16,8 +16,18 @@ Phases (any failure raises and the script exits non-zero):
      warm-up, its capture and one replay) on a line of their own, then a
      warm call's launch counts (the kernels line's), the replay, output
      checks, a CPU-path reference on a small clip (the fast path on both
-     devices), and the warm frames/s
+     devices), and the warm frames/s; a warm call launches K8 and K9
+     once each
   6. the Flow node on a CPU tensor of 16 frames at 1080p
+ 6a. K8 (padding stats) against its plain version, mask and counts
+     torch.equal: on the Flow slice's 1080p x 80 coefficients (whole, and
+     two row bands that concatenate and sum to it) and on a 4K expand
+     bucket (80 frames, a 2288x3968 static canvas, a smaller true canvas
+     on the device); timed in turns with the plain version
+ 6b. K9 (gray + integer pool) against its plain version, torch.equal: x4
+     (Flow) and x2 (Classic) on the 1080p x 80 clip, timed in turns with
+     the plain version; the gray alone, quantized and not, and x2 on every
+     uint8 (r, g, b) triple / 255 (16 frames of 1024 x 1024)
   7. K4 (GFTT scores from the gray) against its plain version on the
      Classic slice's grays, (79, 540, 960), bitwise, beside the plain
      Sobel and products it replaces; then K7 (the corner greedy) on
@@ -196,6 +206,7 @@ APPLY_MASK_UNEQUAL = 1e-3  # a coverage tie may flip on a one-ulp coordinate
 PEAK_BYTES = 3.35e12    # H100 SXM HBM3, bytes/s (NVIDIA data sheet)
 PEAK_FLOPS = 67e12      # H100 SXM float32 outside the tensor cores, FLOP/s (data sheet)
 NO_FMA_FLOPS = PEAK_FLOPS / 2  # the same with every multiply and add issued alone (-fmad=false)
+PROFILE_PAD = 256       # spin kernels that open each profiler session (device_events)
 
 
 class SmokeFailure(RuntimeError):
@@ -587,6 +598,8 @@ def phase_slice(device, frames):
     check(FP.GRAPH_STATS["replays"] == replays + 1, "the slice's estimation did not run from its CUDA graph")
     check(launches["warp"] >= 1, "K1 was not launched by the slice")
     check(launches["cost_volume"] >= 4, "K2 was launched fewer than 4 times by the slice")
+    check(launches["padding_stats"] == 1 and launches["gray_pool"] == 1,
+          f"the slice's warm call launched K8 {launches['padding_stats']} and K9 {launches['gray_pool']} times, not once")
     meta = res.meta
     check(meta["transform_mode_applied"] == "similarity",
           f"transform_mode_applied {meta['transform_mode_applied']!r}")
@@ -666,6 +679,119 @@ def phase_node(frames_cpu, node_name="VideoStabilizerFlow"):
     check(bool(torch.isfinite(video).all()), "node frames not finite")
     log(f"[node] {node_name}.execute on a CPU tensor ({n}, {HEIGHT}, {WIDTH}, 3): "
         f"{secs:.3f} s, mode {meta['transform_mode_applied']}")
+
+
+def phase_k8(device, frames):
+    """K8 against its plain version, mask and counts torch.equal: the Flow
+    slice's 1080p x 80 coefficients (from its graph) over the whole canvas
+    and as two row bands, and a 4K expand bucket; timed in turns at 1080p."""
+    import torch
+
+    from comfyui_video_stabilizer_tpu_torch.models import fastpath as FP
+    from comfyui_video_stabilizer_tpu_torch.ops import resize as R
+    from comfyui_video_stabilizer_tpu_torch.ops import warp as W
+
+    working, dec, est_args = fast_estimate_args("flow")
+    coeffs = FP._fused_estimate("flow", R.gray_for_estimation(frames, working, decimation=dec), *est_args)["coeffs"]
+    n = coeffs.shape[0]
+
+    def same(kernel, plain, what):
+        torch.cuda.synchronize()
+        equal = all(bool(torch.equal(a, b)) for a, b in zip(kernel, plain))
+        err = float((kernel[0] - plain[0]).abs().max())
+        log(f"[K8] {what}: mask and counts torch.equal {equal}; padded pixels {int(kernel[1].sum())}")
+        check(equal, f"K8 {what}: the mask or the counts differ from the plain version (max {err})")
+        return err
+
+    whole = W.padding_counts(coeffs, HEIGHT, WIDTH, HEIGHT, WIDTH)
+    err = same(whole, W.padding_counts_plain(coeffs, HEIGHT, WIDTH, HEIGHT, WIDTH), f"({n}, {HEIGHT}, {WIDTH})")
+    bands = [W.padding_counts(coeffs, r1 - r0, WIDTH, HEIGHT, WIDTH, row0=r0) for r0, r1 in ((0, 540), (540, HEIGHT))]
+    err = max(err, same(bands[1], W.padding_counts_plain(coeffs, HEIGHT - 540, WIDTH, HEIGHT, WIDTH, row0=540),
+                        "the band row0 = 540"))
+    joined = bool(torch.equal(torch.cat([m for m, _ in bands], dim=1), whole[0])) and bool(
+        torch.equal(bands[0][1] + bands[1][1], whole[1]))
+    log(f"[K8] two row bands: masks concatenate and counts sum to the whole canvas's {joined}")
+    check(joined, "K8: the row bands do not make up the whole canvas")
+    del bands
+
+    # the 4K expand bucket: a 2288x3968 static canvas (fastpath._out_dims),
+    # a 3890x2224 true canvas on the device, the source shaken inside it
+    bh, bw = 2160 + 128, 3840 + 128
+    shift = np.array([[1.0, 0, 25.0], [0, 1.0, 32.0], [0, 0, 1.0]])
+    mats = np.stack([shift @ m for m in shake_matrices(CLIP_FRAMES, 5, 0.003, 3.0)])
+    c4k = torch.as_tensor(W.prepare_inverse_coeffs(mats).astype(np.float32), device=device)
+    out_wh = torch.tensor([3890, 2224], dtype=torch.int32, device=device)
+    err = max(err, same(W.padding_counts(c4k, bh, bw, 2160, 3840, out_wh=out_wh),
+                        W.padding_counts_plain(c4k, bh, bw, 2160, 3840, out_wh=out_wh),
+                        f"4K expand bucket ({CLIP_FRAMES}, {bh}, {bw}), true canvas 3890x2224"))
+    ms_4k = cuda_ms(lambda: W.padding_counts(c4k, bh, bw, 2160, 3840, out_wh=out_wh), 10)
+    del c4k, whole
+    torch.cuda.empty_cache()
+
+    ms, plain_ms, tk, tp = timed_pair(lambda: W.padding_counts(coeffs, HEIGHT, WIDTH, HEIGHT, WIDTH),
+                                      lambda: W.padding_counts_plain(coeffs, HEIGHT, WIDTH, HEIGHT, WIDTH), 20, 3)
+    # the mask written once, the coefficients read and the counts written
+    # once; per pixel 33 operations for the displacement and the split
+    # (as K1), 4 for the round-half-even, 4 bound tests, 1 for 1 - inside
+    px = n * HEIGHT * WIDTH
+    b = bound(4 * px + 32 * n + 8 * n, 42 * px)
+    log(f"[K8] ({n}, {HEIGHT}, {WIDTH}): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (runs {tk}, {tp}); "
+        f"4K bucket kernel {ms_4k:.4f} ms; bound {b['bound_ms']:.4f} ms ({b['bound_by']}); "
+        "no single PyTorch call computes it")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **b, "library_ms": None}
+
+
+def triple_frames(device):
+    """Every uint8 (r, g, b) triple / 255 as 16 frames of 1024 x 1024 RGB."""
+    import torch
+
+    levels = torch.arange(256, dtype=torch.float32, device=device) / torch.full(
+        (), 255.0, dtype=torch.float32, device=device)
+    idx = torch.arange(1 << 24, dtype=torch.int64, device=device)
+    return torch.stack([levels[idx >> 16], levels[(idx >> 8) & 255], levels[idx & 255]], -1).reshape(
+        16, 1024, 1024, 3)
+
+
+def phase_k9(device, frames):
+    """K9 against its plain version, torch.equal: x4 (Flow) and x2 (Classic)
+    on the 1080p x 80 clip, timed in turns; the gray alone (quantized and
+    not) and x2 on every uint8 triple."""
+    import torch
+
+    from comfyui_video_stabilizer_tpu_torch.ops import resize as R
+
+    result = {"max_abs_err": 0.0}
+    for f in (4, 2):
+        out = R.gray_pool(frames, f, f)
+        ref = R.gray_pool_plain(frames, f, f)
+        torch.cuda.synchronize()
+        equal = bool(torch.equal(out, ref))
+        err = float((out - ref).abs().max())
+        result["max_abs_err"] = max(result["max_abs_err"], err)
+        log(f"[K9] x{f} {tuple(frames.shape)} -> {tuple(out.shape)}: torch.equal {equal}")
+        check(equal, f"K9 x{f}: the grays differ from the plain version (max {err})")
+        ms, plain_ms, tk, tp = timed_pair(lambda: R.gray_pool(frames, f, f), lambda: R.gray_pool_plain(frames, f, f),
+                                          20, 3)
+        # the clip read once and the gray written once; per source pixel 5
+        # operations for the luma (a product, two fmas), 4 for the
+        # quantization, 1 add; per output pixel 1 multiply
+        b = bound(4 * (frames.numel() + out.numel()), 10 * frames.numel() // 3 + out.numel())
+        log(f"[K9] x{f}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (runs {tk}, {tp}); bound {b['bound_ms']:.4f} ms "
+            f"({b['bound_by']}); no single PyTorch call computes it")
+        if f == 4:
+            result.update(ms=ms, plain_ms=plain_ms, **b, library_ms=None)
+        del out, ref
+    tri = triple_frames(device)
+    for f, quantize in ((1, True), (1, False), (2, True)):
+        out = R.gray_pool(tri, f, f, quantize)
+        ref = R.gray_pool_plain(tri, f, f, quantize)
+        torch.cuda.synchronize()
+        equal = bool(torch.equal(out, ref))
+        log(f"[K9] every uint8 triple, x{f}, quantize {quantize}: torch.equal {equal}")
+        check(equal, f"K9 on the uint8 triples (x{f}, quantize {quantize}): differs from the plain version")
+    del tri
+    torch.cuda.empty_cache()
+    return result
 
 
 def phase_normalize(device):
@@ -1014,22 +1140,33 @@ LAST_PROFILE_NAMES: list = []  # the distinct device event names of profile_call
 # each hand kernel's __global__ function, as the profiler names its launches
 KERNEL_SYMBOLS = {"warp": "warp_kernel", "warp_blur": "warp_blur_kernel", "cost_volume": "cost_volume_kernel",
                   "gftt": "gftt_gray_kernel", "lk_gn": "lk_gn_kernel", "extract_windows": "extract_kernel",
-                  "greedy": "greedy_kernel"}
+                  "greedy": "greedy_kernel", "padding_stats": "padding_stats_kernel",
+                  "gray_pool": "gray_pool_kernel"}
 
 
 def device_events(fn):
     """(the device events -- kernels and copies -- torch.profiler records
-    over one call of fn, wall ms)."""
+    over one call of fn, wall ms).  Late in a long run the profiler dropped
+    the leading device records of each session (a fallback call's two
+    leading grays among them), so a session starts with ``PROFILE_PAD``
+    spin kernels, which absorb that loss and are left out of the result;
+    a session that kept none of them may have dropped more, and fails."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILE_PAD):
+            torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = 1e3 * (time.perf_counter() - t0)
-    return [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA], wall
+    device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    pads = sum(1 for e in device if "spin_kernel" in e.name)
+    check(pads > 0, f"torch.profiler dropped all {PROFILE_PAD} leading pad kernels of its session")
+    return [e for e in device if "spin_kernel" not in e.name], wall
 
 
 def profile_call(fn):
@@ -1081,6 +1218,8 @@ def phase_classic(device, frames):
     check(launches["lk_gn"] >= 4, "K5 was launched fewer than 4 times by the Classic slice")
     check(launches["extract_windows"] >= 8, "K6 was launched fewer than 8 times by the Classic slice")
     check(launches["warp"] >= 1, "K1 was not launched by the Classic slice")
+    check(launches["padding_stats"] == 1 and launches["gray_pool"] == 1,
+          f"the Classic warm call launched K8 {launches['padding_stats']} and K9 {launches['gray_pool']} times, not once")
     meta = res.meta
     trans = meta["estimated_motion"]["per_transition"]
     modes = [t["mode"] for t in trans]
@@ -2374,20 +2513,13 @@ def phase_rectangle(device, frames):
     return {"native_ms": native_ms, "plain_ms": plain_ms, "rect": native}
 
 
-def phase_fast_split(device, frames, kind="flow"):
-    """The fast path's 1080p x 80 ``kind`` call stage by stage, a synchronize
-    after each (median of 3): the gray, the graph replay (with the copy of
-    the grays in and of the outputs out), the padding stats, K1 and the
-    one diagnostics fetch; the whole warm call beside them."""
-    import torch
-
+def fast_estimate_args(kind: str):
+    """(working size, decimation, the fast path's estimate argument tuple)
+    of the slice's 1080p ``kind`` call (run_slice / run_classic)."""
     from comfyui_video_stabilizer_tpu_torch.models import fastpath as FP
     from comfyui_video_stabilizer_tpu_torch.models.classic import classic_estimator
     from comfyui_video_stabilizer_tpu_torch.models.flow import flow_estimator
     from comfyui_video_stabilizer_tpu_torch.models.stabilize import estimation_plan
-    from comfyui_video_stabilizer_tpu_torch.ops import resize as R
-    from comfyui_video_stabilizer_tpu_torch.ops import warp as W
-    from comfyui_video_stabilizer_tpu_torch.utils.device import fetch_packed
 
     working, dec = estimation_plan(WIDTH, HEIGHT, flow_estimator if kind == "flow" else classic_estimator)
     strength, _, keep_fov, window, scale_xy = FP._trajectory_args(0.8, 0.6, 30.0, False, 0.6, WIDTH, HEIGHT,
@@ -2396,6 +2528,22 @@ def phase_fast_split(device, frames, kind="flow"):
               scale_xy=scale_xy)
     if kind == "flow":
         kw["decimation"] = dec
+    return working, dec, (strength, keep_fov, kw)
+
+
+def phase_fast_split(device, frames, kind="flow"):
+    """The fast path's 1080p x 80 ``kind`` call stage by stage, a synchronize
+    after each (median of 3): the gray, the graph replay (with the copy of
+    the grays in and of the outputs out), the padding stats, K1 and the
+    one diagnostics fetch; the whole warm call beside them."""
+    import torch
+
+    from comfyui_video_stabilizer_tpu_torch.models import fastpath as FP
+    from comfyui_video_stabilizer_tpu_torch.ops import resize as R
+    from comfyui_video_stabilizer_tpu_torch.ops import warp as W
+    from comfyui_video_stabilizer_tpu_torch.utils.device import fetch_packed
+
+    working, dec, est_args = fast_estimate_args(kind)
     border = torch.full((3,), 127 / 255.0, device=device)
     splits = []
     for _ in range(3):
@@ -2411,7 +2559,7 @@ def phase_fast_split(device, frames, kind="flow"):
 
         grays = stage("gray", lambda: R.gray_for_estimation(frames, working, decimation=dec))
         captures = FP.GRAPH_STATS["captures"]
-        out = stage("graph replay", lambda: FP._fused_estimate(kind, grays, strength, keep_fov, kw))
+        out = stage("graph replay", lambda: FP._fused_estimate(kind, grays, *est_args))
         check(FP.GRAPH_STATS["captures"] == captures, "the split captured a new graph")
         masks, ratios = stage("padding stats", lambda: W.padding_stats(out["coeffs"], HEIGHT, WIDTH, HEIGHT, WIDTH))
         stage("K1", lambda: W.warp_frames(frames, out["coeffs"], border, HEIGHT, WIDTH, "bilinear"))
@@ -2894,6 +3042,8 @@ def main() -> int:
     launches, _fps = timed_phase("Flow slice", phase_slice, device, frames)
     timed_phase("Flow reference", phase_small_reference, device)
     timed_phase("Flow node", phase_node, frames[:16].cpu())
+    k8 = timed_phase("K8", phase_k8, device, frames)
+    k9 = timed_phase("K9", phase_k9, device, frames)
 
     grays = classic_grays(frames)
     torch.cuda.synchronize()
@@ -3005,6 +3155,18 @@ def main() -> int:
          "replaces": "comfyui_video_stabilizer_tpu/ops/lk.py:162",
          "note": "the JAX package runs this stage as an XLA lax.scan (_greedy_device), not a pallas_call",
          "launches": classic_launches["greedy"], **k7},
+        {"name": "padding_stats", "route": "cuda",
+         "source": "comfyui_video_stabilizer_tpu_torch/csrc/warp.cu",
+         "replaces": "comfyui_video_stabilizer_tpu/ops/warp.py:262",
+         "note": "the JAX package runs this stage as XLA (_padding_stats_xla; the bucket's _padding_stats_bucket "
+                 ":283), not a pallas_call",
+         "launches": launches["padding_stats"], **k8},
+        {"name": "gray_pool", "route": "cuda",
+         "source": "comfyui_video_stabilizer_tpu_torch/csrc/gray.cu",
+         "replaces": "comfyui_video_stabilizer_tpu/ops/resize.py:93",
+         "note": "the JAX package runs this stage as XLA (_gray_pool_kernel; the gray alone _gray_kernel :54), "
+                 "not a pallas_call",
+         "launches": launches["gray_pool"], **k9},
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

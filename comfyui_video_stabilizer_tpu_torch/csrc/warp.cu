@@ -9,6 +9,23 @@
 // (_warp_blur_pallas_call / warp_clip_blur_pallas); K3's mask replaces the
 // XLA program _coverage_mean_xla of ops/warp.py in the JAX package.
 //
+// K8: the padding stats of the plain warp, the mask 1 - nearest coverage
+// and the exact padded count of each frame, in one pass.  It replaces no
+// pallas_call: the JAX package leaves this stage to XLA
+// (comfyui_video_stabilizer_tpu/ops/warp.py:262 _padding_stats_xla and
+// :283 _padding_stats_bucket, the mask and its per-frame mean).  What
+// bounds it on an H100: bytes, the float32 mask written once (663.6 MB at
+// 80 x 1080p, 0.198 ms at 3.35 TB/s); per pixel ~40 operations of the
+// displacement and the nearest test.  The plain version passes about a
+// dozen full-size temporaries through device memory; here one thread
+// computes 4 neighbouring pixels of a row (1 where out_w % 4 != 0) with
+// split_coords and round_half_even, the same device functions as K1 and
+// K3, stores their mask values as one 16-byte store, and counts the
+// padded ones: each warp sums its bits with __popc(__ballot_sync), the
+// block sums its warps, and one integer atomicAdd a block adds that into
+// the frame's count.  Integer atomics do not depend on their order, so
+// the counts are exact and the same on every run.
+//
 // K1.  What bounds it on an H100: bytes.  At 1080p a bilinear warp reads
 // each source pixel about once (near-identity warps keep the 2x2 taps of
 // neighbouring threads on the same cache lines) and writes each output
@@ -449,6 +466,100 @@ extern "C" int cvst_warp_blur(const float* frames, const float* coeffs, const fl
                                          n_samples, s);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+namespace {
+
+constexpr int kStatsThreads = 256;
+
+// K8.  One thread owns VEC neighbouring pixels of one output row (VEC = 4
+// needs out_w % 4 == 0, so a group never straddles a row and its mask
+// values are one aligned float4).  blockIdx.y is the frame.  out_wh, when
+// not null, is the bucket's true canvas (w, h) on the device: only pixels
+// with x < w and frame row < h are counted (the mask is written
+// everywhere).  counts must be zeroed; it receives the padded pixels.
+template <int VEC>
+__global__ void __launch_bounds__(kStatsThreads)
+padding_stats_kernel(const float* __restrict__ coeffs, const int* __restrict__ out_wh,
+                     float* __restrict__ mask, unsigned long long* __restrict__ counts,
+                     int out_h, int out_w, int in_h, int in_w, int row0) {
+  __shared__ unsigned int warp_sums[kStatsThreads / 32];
+  const int n = blockIdx.y;
+  const int groups_per_row = out_w / VEC;
+  const int64_t g = (int64_t)blockIdx.x * kStatsThreads + threadIdx.x;
+  const bool live = g < (int64_t)out_h * groups_per_row;
+  const int y = live ? (int)(g / groups_per_row) : 0;
+  const int x0 = live ? (int)(g - (int64_t)y * groups_per_row) * VEC : 0;
+  const int frame_row = y + row0;
+  int cw = INT_MAX, ch = INT_MAX;
+  if (out_wh != nullptr) {
+    cw = out_wh[0];
+    ch = out_wh[1];
+  }
+  float k[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) k[i] = coeffs[n * 8 + i];
+
+  float m[VEC];
+  unsigned int padded = 0;
+#pragma unroll
+  for (int j = 0; j < VEC; ++j) {
+    const int x = x0 + j;
+    const Split s = split_coords(k, x, frame_row);
+    const int xn = round_half_even(s.x0, s.fx);
+    const int yn = round_half_even(s.y0, s.fy);
+    const bool inside = xn >= 0 && xn < in_w && yn >= 0 && yn < in_h;
+    m[j] = inside ? 0.0f : 1.0f;  // 1 - coverage
+    padded += __popc(__ballot_sync(0xffffffffu, live && !inside && x < cw && frame_row < ch));
+  }
+  if (live) {
+    float* dst = mask + ((int64_t)n * out_h + y) * out_w + x0;
+    if constexpr (VEC == 4) {
+      *reinterpret_cast<float4*>(dst) = make_float4(m[0], m[1], m[2], m[3]);
+    } else {
+      dst[0] = m[0];
+    }
+  }
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  if (lane == 0) warp_sums[warp] = padded;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    unsigned long long total = 0;
+#pragma unroll
+    for (int i = 0; i < kStatsThreads / 32; ++i) total += warp_sums[i];
+    if (total != 0) atomicAdd(&counts[n], total);
+  }
+}
+
+}  // namespace
+
+// K8.  coeffs (n, 8) float32, out_wh (2,) int32 or null, mask (n, out_h,
+// out_w) float32, counts (n,) int64 zeroed; contiguous, on the current
+// device.  mask receives 1 - nearest coverage of the output rows
+// [row0, row0 + out_h) against an in_h x in_w source; counts the padded
+// pixels of each frame (with out_wh, those inside the true canvas).
+// Returns the launch's cudaError_t (0 on success).
+extern "C" int cvst_padding_stats(const float* coeffs, const int* out_wh, float* mask, unsigned long long* counts,
+                                  int n, int out_h, int out_w, int in_h, int in_w, int row0, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n <= 0 || n > 65535 || out_h <= 0 || out_w <= 0 || in_h <= 0 || in_w <= 0 || row0 < 0 ||
+      row0 > INT_MAX - out_h) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int vec = out_w % 4 == 0 ? 4 : 1;
+  const int64_t groups = (int64_t)out_h * (out_w / vec);
+  const int64_t blocks = (groups + kStatsThreads - 1) / kStatsThreads;
+  if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)blocks, n, 1);
+  if (vec == 4) {
+    padding_stats_kernel<4><<<grid, kStatsThreads, 0, s>>>(coeffs, out_wh, mask, counts, out_h, out_w, in_h, in_w,
+                                                          row0);
+  } else {
+    padding_stats_kernel<1><<<grid, kStatsThreads, 0, s>>>(coeffs, out_wh, mask, counts, out_h, out_w, in_h, in_w,
+                                                          row0);
+  }
+  return (int)cudaGetLastError();
 }
 
 extern "C" const char* cvst_error_string(int err) {

@@ -35,7 +35,7 @@ import torch
 
 PACKAGE_DIR = pathlib.Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
-SOURCES = ("warp.cu", "cost_volume.cu", "gftt.cu", "lk.cu", "extract.cu", "greedy.cu")
+SOURCES = ("warp.cu", "cost_volume.cu", "gftt.cu", "lk.cu", "extract.cu", "greedy.cu", "gray.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-fmad=false",
@@ -66,7 +66,7 @@ class KernelTypeError(KernelError, TypeError):
 
 
 LAUNCHES = {"warp": 0, "warp_blur": 0, "cost_volume": 0, "gftt": 0, "lk_gn": 0, "extract_windows": 0,
-            "greedy": 0}
+            "greedy": 0, "padding_stats": 0, "gray_pool": 0}
 
 
 def reset_launches() -> None:
@@ -182,6 +182,10 @@ def library() -> ctypes.CDLL:
     lib.cvst_warp.restype = i32
     lib.cvst_warp_blur.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32, i32, ptr]
     lib.cvst_warp_blur.restype = i32
+    lib.cvst_padding_stats.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, ptr]
+    lib.cvst_padding_stats.restype = i32
+    lib.cvst_gray_pool.argtypes = [ptr, ptr, i32, i32, i32, i32, i32, i32, i32, ptr]
+    lib.cvst_gray_pool.restype = i32
     lib.cvst_cost_volume.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr]
     lib.cvst_cost_volume.restype = i32
     lib.cvst_gftt_gray.argtypes = [ptr, ptr, i32, i32, i32, ptr]

@@ -1,4 +1,4 @@
-"""Grayscale and area resize for the estimation path (plain PyTorch).
+"""Grayscale and area resize for the estimation path.
 
 Counterpart of ``comfyui_video_stabilizer_tpu/ops/resize.py``.  Gray is
 the Rec.601 luma dot followed by the reference's "x255 -> uint8"
@@ -11,11 +11,17 @@ CPU backend emits for the JAX reference: products are exact in float64
 and each step is rounded once to float32.  With a different rounding
 one pixel in a few thousand lands one grey level off after the floor.
 
-``gray_for_estimation`` takes the clip in chunks of 16 frames: each is
-moved to the estimation device (an upload when the clip is held on the
-host because it streams), turned to gray and resized there; only the
-small grays stay on the device.  Every path computes the same 16-frame
-chunks, so a streamed clip gets the grays of an uploaded one bitwise.
+``gray_pool`` is the kernel wrapper of the gray and its integer pool: a
+CUDA tensor launches the hand-written kernel K9 (``csrc/gray.cu``), a
+CPU tensor takes ``gray_pool_plain``, the plain PyTorch version with the
+same op order.  ``make_gray`` and ``gray_for_estimation`` go through it.
+
+``gray_for_estimation`` turns a clip already on the estimation device
+into grays in one call.  A clip held on the host (because it streams)
+is uploaded 16 frames at a time, and each chunk is turned to gray and
+resized on the device; only the small grays stay there.  A gray pixel
+depends on its own source patch only, so the chunking never changes a
+bit.
 """
 
 from __future__ import annotations
@@ -26,12 +32,13 @@ import numpy as np
 import torch
 
 from ..parallel.mesh import FrameShards
+from . import cuda_build
 
 _LUMA = np.array([0.299, 0.587, 0.114], np.float32)
 
-# Frames per gray chunk: bounds the float64 temporaries of the luma
-# chain (~1.3 GB for 80 frames of 1080p unchunked) and the upload of a
-# clip held on the host.
+# Frames per gray chunk: bounds the upload of a clip held on the host and
+# the plain version's float64 temporaries of the luma chain (~1.3 GB for
+# 80 frames of 1080p unchunked).
 _GRAY_CHUNK_FRAMES = 16
 
 
@@ -64,24 +71,78 @@ def _quantize(gray: torch.Tensor) -> torch.Tensor:
     return torch.floor(torch.clamp(gray * 255.0, 0.0, 255.0))
 
 
-def make_gray(frames: torch.Tensor, quantize: bool = True) -> torch.Tensor:
-    """(N,H,W,3) float 0..1 -> (N,H,W) float gray (integers 0..255 when quantized)."""
+def _as_frames(frames: torch.Tensor) -> torch.Tensor:
+    """float32 (N, H, W, C) frames, contiguous; an (N, H, W) stack is one channel."""
     frames = frames.to(torch.float32)
     if frames.ndim == 3:
         frames = frames[..., None]
+    return frames.contiguous()
+
+
+def _gray_plain(frames: torch.Tensor, quantize: bool) -> torch.Tensor:
     gray = frames[..., 0] if frames.shape[-1] == 1 else _luma(frames)
     return _quantize(gray) if quantize else gray
 
 
 def box_pool(stack: torch.Tensor, fy: int, fx: int) -> torch.Tensor:
-    """fy x fx mean pool as the reference's XLA mean computes it: the sum
-    times the float32 reciprocal of fy * fx.  ``Tensor.mean`` divides on
-    the CPU and multiplies on the card, so for a factor that is not a
-    power of two the two devices would differ by an ulp; the factor is a
-    0-dim tensor on the stack's device, so both multiply."""
+    """fy x fx mean pool as the reference's XLA mean computes it: each
+    patch summed in float32 in row-major order, the order of XLA's CPU
+    reduce (exact on quantized grays), times the float32 reciprocal of
+    fy * fx.  ``Tensor.mean`` divides on the CPU and multiplies on the
+    card, so for a factor that is not a power of two the two devices would
+    differ by an ulp; the factor is a 0-dim tensor on the stack's device,
+    so both multiply."""
     n, h, w = stack.shape
     inv = torch.full((), float(np.float32(1.0) / np.float32(fy * fx)), dtype=torch.float32, device=stack.device)
-    return stack.reshape(n, h // fy, fy, w // fx, fx).sum(dim=(2, 4)) * inv
+    patches = stack.reshape(n, h // fy, fy, w // fx, fx)
+    acc = patches[:, :, 0, :, 0]
+    for i in range(fy):
+        for j in range(fx):
+            if i or j:
+                acc = acc + patches[:, :, i, :, j]
+    return acc * inv
+
+
+def gray_pool_plain(frames: torch.Tensor, fy: int, fx: int, quantize: bool = True) -> torch.Tensor:
+    """Plain PyTorch version of K9: the gray of (N, H, W, C) float32 frames
+    (channel 0 of a 1-channel clip, else the luma of channels 0-2),
+    quantized when ``quantize``, then :func:`box_pool` by fy x fx (none at
+    1 x 1); 16 frames at a time, bounding the luma's float64 temporaries."""
+    parts = []
+    for s in range(0, max(frames.shape[0], 1), _GRAY_CHUNK_FRAMES):  # one empty part for no frames
+        gray = _gray_plain(frames[s:s + _GRAY_CHUNK_FRAMES], quantize)
+        parts.append(gray if fy == fx == 1 else box_pool(gray, fy, fx))
+    return torch.cat(parts, dim=0)
+
+
+def gray_pool(frames: torch.Tensor, fy: int, fx: int, quantize: bool = True) -> torch.Tensor:
+    """(N, H, W, C) float32 frames -> (N, H / fy, W / fx) float32 gray
+    pooled by fy x fx: :func:`gray_pool_plain`'s result.  CUDA tensors
+    launch K9 (raising if it cannot build or launch; it takes 1 or 3
+    channels); CPU tensors take :func:`gray_pool_plain`."""
+    if frames.device.type == "cpu":
+        return gray_pool_plain(frames, fy, fx, quantize)
+    cuda_build.require_cuda_tensor("frames", frames, torch.float32, 4)
+    n, h, w, c = frames.shape
+    if c not in (1, 3):
+        raise cuda_build.KernelArgumentError(f"K9 takes 1 or 3 channels, got {c}")
+    if fy < 1 or fx < 1 or h % fy or w % fx:
+        raise cuda_build.KernelArgumentError(f"K9's pool {fy} x {fx} does not divide the frame {h} x {w}")
+    out = torch.empty((n, h // fy, w // fx), dtype=torch.float32, device=frames.device)
+    with torch.cuda.device(frames.device):
+        for s, e in cuda_build.frame_spans(n):
+            err = cuda_build.library().cvst_gray_pool(
+                frames[s:e].data_ptr(), out[s:e].data_ptr(), e - s, h, w, c, fy, fx, int(quantize),
+                cuda_build.current_stream(frames.device),
+            )
+            cuda_build.check_launch(err, "gray_pool")
+            cuda_build.LAUNCHES["gray_pool"] += 1
+    return out
+
+
+def make_gray(frames: torch.Tensor, quantize: bool = True) -> torch.Tensor:
+    """(N,H,W,3) float 0..1 -> (N,H,W) float gray (integers 0..255 when quantized)."""
+    return gray_pool(_as_frames(frames), 1, 1, quantize)
 
 
 def _area_matrices(h: int, w: int, out_w: int, out_h: int, device: torch.device):
@@ -125,13 +186,16 @@ def gray_for_estimation(
     device: torch.device | str | None = None,
 ) -> torch.Tensor:
     """Gray at the working size (divided by ``decimation``) on ``device``
-    (default: the frames' own), taken 16 frames at a time.
+    (default: the frames' own); a clip on the host for a device elsewhere
+    is uploaded 16 frames at a time.
 
     Frame shards (parallel/mesh.py::FrameShards) give frame shards: each
     shard's gray is made on its own device (``device`` is not used).
 
     The caller must have checked :func:`can_decimate` for
-    ``decimation`` > 1.
+    ``decimation`` > 1.  Integer factors (and no resize) are one
+    :func:`gray_pool` call; other factors pool the gray by the area
+    matrices.
     """
     if isinstance(frames, FrameShards):
         return frames.map(lambda f: gray_for_estimation(f, working_size, quantize, decimation))
@@ -150,13 +214,13 @@ def gray_for_estimation(
             # once a clip, not once a chunk: area_weights loops on the host
             weights = _area_matrices(h_in, w_in, out_w, out_h, dev)
 
-    def one(chunk: torch.Tensor) -> torch.Tensor:
-        gray = make_gray(chunk, quantize)
-        if working_size is None:
-            return gray
-        if weights is None and chunk.ndim == 4 and chunk.shape[-1] == 3:
-            return box_pool(gray, h_in // out_h, w_in // out_w)
-        return area_resize(gray, working_size, weights)
+    fy, fx = (1, 1) if working_size is None or weights is not None else (h_in // out_h, w_in // out_w)
 
+    def one(chunk: torch.Tensor) -> torch.Tensor:
+        gray = gray_pool(_as_frames(chunk), fy, fx, quantize)
+        return gray if weights is None else area_resize(gray, working_size, weights)
+
+    if frames.device.type != "cpu" or dev.type == "cpu":
+        return one(frames.to(dev))
     parts = [one(frames[s:s + _GRAY_CHUNK_FRAMES].to(dev)) for s in range(0, frames.shape[0], _GRAY_CHUNK_FRAMES)]
     return torch.cat(parts, dim=0)

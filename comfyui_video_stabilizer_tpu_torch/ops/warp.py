@@ -20,9 +20,11 @@ hand-written kernel K1 (``csrc/warp.cu``), a CPU tensor takes
 ``warp_blur_frames`` does the same for K3, the shutter-blur warp (the
 mean of S sample warps) with its soft mask (1 - mean nearest coverage
 over the samples, small values zeroed) in the same launch;
-``warp_blur_mask_plain`` is its plain version.  The padding mask of the
-plain warp (1 - nearest coverage) and its per-frame ratios stay plain
-PyTorch, as they are XLA in the JAX package.
+``warp_blur_mask_plain`` is its plain version.  ``padding_counts`` does
+the same for K8, the padding mask of the plain warp (1 - nearest
+coverage) with each frame's exact padded count, a stage the JAX package
+leaves to XLA; ``padding_counts_plain`` is its plain version.  The
+coverage masks of crop framing stay plain PyTorch.
 
 Clips whose live set on the device exceeds ``CHUNK_BUDGET_BYTES``
 stream through time chunks, as in the JAX package: ``warp_clip``,
@@ -340,7 +342,7 @@ def warp_blur_frames(frames: torch.Tensor, coeffs_s: torch.Tensor, border: torch
 
 
 # ---------------------------------------------------------------------------
-# Padding and coverage masks (plain PyTorch)
+# Padding masks (K8) and coverage masks (plain PyTorch)
 # ---------------------------------------------------------------------------
 
 def _mask_chunk(out_h: int, out_w: int) -> int:
@@ -372,18 +374,62 @@ def padding_mask_stats(
     return padding_stats(coeffs, out_h, out_w, in_h, in_w)
 
 
-def _padding_counts(coeffs: torch.Tensor, out_h: int, out_w: int, in_h: int, in_w: int, row0: int = 0
-                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(padding masks (N, out_h, out_w), padded pixels per frame (N,) int64)
-    of the output rows [row0, row0 + out_h)."""
+def padding_counts_plain(coeffs: torch.Tensor, out_h: int, out_w: int, in_h: int, in_w: int, row0: int = 0,
+                         out_wh: torch.Tensor | None = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of K8: (padding masks (N, out_h, out_w),
+    padded pixels per frame (N,) int64) of the output rows
+    [row0, row0 + out_h).  With ``out_wh`` = (w, h) int32 on the device
+    (a bucket's true canvas) only the padded pixels with x < w and row < h
+    are counted; the mask is 1 - coverage everywhere."""
     n = coeffs.shape[0]
-    mask = torch.empty((n, out_h, out_w), dtype=torch.float32, device=coeffs.device)
-    counts = torch.empty((n,), dtype=torch.int64, device=coeffs.device)
+    dev = coeffs.device
+    mask = torch.empty((n, out_h, out_w), dtype=torch.float32, device=dev)
+    counts = torch.empty((n,), dtype=torch.int64, device=dev)
+    in_canvas = None
+    if out_wh is not None:
+        in_canvas = ((torch.arange(out_w, dtype=torch.int32, device=dev)[None, :] < out_wh[0])
+                     & (torch.arange(row0, row0 + out_h, dtype=torch.int32, device=dev)[:, None] < out_wh[1]))
     chunk = _mask_chunk(out_h, out_w)
     for s in range(0, n, chunk):
         inside = _inside(coeffs[s:s + chunk], out_h, out_w, in_h, in_w, row0)
         mask[s:s + chunk] = 1.0 - inside.to(torch.float32)
-        counts[s:s + chunk] = out_h * out_w - inside.reshape(inside.shape[0], -1).sum(dim=1)
+        padded = ~inside if in_canvas is None else ~inside & in_canvas
+        counts[s:s + chunk] = padded.reshape(padded.shape[0], -1).sum(dim=1)
+    return mask, counts
+
+
+def padding_counts(coeffs: torch.Tensor, out_h: int, out_w: int, in_h: int, in_w: int, row0: int = 0,
+                   out_wh: torch.Tensor | None = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(padding masks, padded pixels per frame int64) of (N, 8) float32
+    inverse coefficients: :func:`padding_counts_plain`'s result.  CUDA
+    tensors launch K8 (raising if it cannot build or launch); CPU tensors
+    take :func:`padding_counts_plain`.  ``out_wh`` stays on the device (no
+    host read), so the call may be captured in a CUDA graph."""
+    if row0 < 0:
+        raise ValueError(f"row0 must be >= 0, got {row0}")
+    if coeffs.device.type == "cpu":
+        return padding_counts_plain(coeffs, out_h, out_w, in_h, in_w, row0, out_wh)
+    cuda_build.require_cuda_tensor("coeffs", coeffs, torch.float32, 2)
+    n = coeffs.shape[0]
+    if coeffs.shape[1] != 8:
+        raise cuda_build.KernelArgumentError(f"coeffs must be (N, 8), got {tuple(coeffs.shape)}")
+    if min(out_h, out_w, in_h, in_w) < 1:
+        raise cuda_build.KernelArgumentError(f"K8 takes positive sizes, got out {out_h}x{out_w}, in {in_h}x{in_w}")
+    if out_wh is not None:
+        cuda_build.require_cuda_tensor("out_wh", out_wh, torch.int32, 1)
+        if out_wh.shape != (2,) or out_wh.device != coeffs.device:
+            raise cuda_build.KernelArgumentError(f"out_wh must be a (2,) int32 tensor on {coeffs.device}")
+    mask = torch.empty((n, out_h, out_w), dtype=torch.float32, device=coeffs.device)
+    counts = torch.zeros((n,), dtype=torch.int64, device=coeffs.device)
+    with torch.cuda.device(coeffs.device):
+        for s, e in cuda_build.frame_spans(n):
+            err = cuda_build.library().cvst_padding_stats(
+                coeffs[s:e].data_ptr(), None if out_wh is None else out_wh.data_ptr(), mask[s:e].data_ptr(),
+                counts[s:e].data_ptr(), e - s, out_h, out_w, in_h, in_w, row0,
+                cuda_build.current_stream(coeffs.device),
+            )
+            cuda_build.check_launch(err, "padding_stats")
+            cuda_build.LAUNCHES["padding_stats"] += 1
     return mask, counts
 
 
@@ -402,7 +448,7 @@ def padding_stats(coeffs: torch.Tensor, out_h: int, out_w: int, in_h: int, in_w:
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """:func:`padding_mask_stats` from (N, 8) float32 inverse coefficients
     already on the device (the fast path's, made there)."""
-    mask, counts = _padding_counts(coeffs, out_h, out_w, in_h, in_w)
+    mask, counts = padding_counts(coeffs, out_h, out_w, in_h, in_w)
     return mask, _ratios(counts, out_h * out_w)
 
 
@@ -414,7 +460,7 @@ def padding_stats_sharded(coeffs: torch.Tensor, frames: FrameShards, out_h: int,
     ratios (N,) are gathered to ``coeffs``' device."""
     masks, counts = [], []
     for (s, e), dev in zip(frames.spans, frames.devices):
-        mask, cnt = _padding_counts(move(coeffs[s:e], dev, "scatter"), out_h, out_w, in_h, in_w)
+        mask, cnt = padding_counts(move(coeffs[s:e], dev, "scatter"), out_h, out_w, in_h, in_w)
         masks.append(mask)
         counts.append(move(cnt, coeffs.device, "gather"))
     return FrameShards(masks), _ratios(torch.cat(counts), out_h * out_w)
@@ -441,20 +487,12 @@ def padding_stats_bucket(coeffs: torch.Tensor, out_wh: torch.Tensor, out_h: int,
     only there (the expand fast path's bucket).  The mask is valid in
     [:h, :w], which the caller slices once it has fetched the size; the
     ratios average over the true canvas only.  Counterpart of the JAX
-    package's ``ops/warp.py::_padding_stats_bucket``."""
-    n = coeffs.shape[0]
-    dev = coeffs.device
-    mask = torch.empty((n, out_h, out_w), dtype=torch.float32, device=dev)
-    ratios = torch.empty((n,), dtype=torch.float32, device=dev)
-    in_canvas = ((torch.arange(out_w, dtype=torch.int32, device=dev)[None, :] < out_wh[0])
-                 & (torch.arange(out_h, dtype=torch.int32, device=dev)[:, None] < out_wh[1]))
+    package's ``ops/warp.py::_padding_stats_bucket``.  The ratio is the
+    exact count over the clamped area, a float32 true division (the sum of
+    the binary mask it stands for is exact below 2**24 pixels)."""
+    mask, counts = padding_counts(coeffs, out_h, out_w, in_h, in_w, out_wh=out_wh)
     area = torch.clamp((out_wh[0] * out_wh[1]).to(torch.float32), min=1.0)
-    chunk = _mask_chunk(out_h, out_w)
-    for s in range(0, n, chunk):
-        part = 1.0 - _inside(coeffs[s:s + chunk], out_h, out_w, in_h, in_w).to(torch.float32)
-        mask[s:s + chunk] = part
-        ratios[s:s + chunk] = torch.where(in_canvas[None], part, 0.0).reshape(part.shape[0], -1).sum(1) / area
-    return mask, ratios
+    return mask, counts.to(torch.float32) / area
 
 
 def padding_stats_bucket_sharded(coeffs: torch.Tensor, out_wh: torch.Tensor, frames: FrameShards,
@@ -587,7 +625,7 @@ def _warp_bands(frames: torch.Tensor, coeffs: np.ndarray, border, out_h: int, ou
     if with_mask:
         masks, total = [], 0
         for ((r0, r1), _), co in zip(bands, coeffs_d):
-            mask, cnt = _padding_counts(co, r1 - r0, out_w, in_h, in_w, row0=r0)
+            mask, cnt = padding_counts(co, r1 - r0, out_w, in_h, in_w, row0=r0)
             masks.append(mask)
             total = total + move(cnt, ratio_device, "gather")
     warped = FrameShards([
@@ -618,7 +656,7 @@ def _warp_clip(frames, matrices: np.ndarray, out_size: Tuple[int, int], interp: 
         warped = warp_frames(fr, coeffs_t, _border_tensor(border, c, fr.device), out_h, out_w, interp)
         if not with_mask:
             return (warped,)
-        masks, counts = _padding_counts(coeffs_t, out_h, out_w, h, w)
+        masks, counts = padding_counts(coeffs_t, out_h, out_w, h, w)
         return masks, _ratios(counts, out_h * out_w), warped
 
     chunk = _chunk_frames(n, h, w, out_h, out_w, c)

@@ -262,5 +262,5 @@ def test_cpu_tensor_takes_plain_versions_without_launching():
     pts, counts = greedy_cuda.greedy_min_distance(top, 12, 3)
     assert torch.equal(pts, greedy_cuda.greedy_plain(top, 12, 3)[0]) and counts.tolist() == [2, 0]
     assert set(cuda_build.LAUNCHES) == {"warp", "warp_blur", "cost_volume", "gftt", "lk_gn",
-                                        "extract_windows", "greedy"}
+                                        "extract_windows", "greedy", "padding_stats", "gray_pool"}
     assert all(v == 0 for v in cuda_build.LAUNCHES.values()), cuda_build.LAUNCHES
