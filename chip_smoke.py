@@ -20,10 +20,13 @@ Phases (any failure raises and the script exits non-zero):
      once each
   6. the Flow node on a CPU tensor of 16 frames at 1080p
  6a. K8 (padding stats) against its plain version, mask and counts
-     torch.equal: on the Flow slice's 1080p x 80 coefficients (whole, and
-     two row bands that concatenate and sum to it) and on a 4K expand
-     bucket (80 frames, a 2288x3968 static canvas, a smaller true canvas
-     on the device); timed in turns with the plain version
+     torch.equal: on the Flow slice's 1080p x 80 coefficients (every
+     frame must take the affine route; whole, and two row bands that
+     concatenate and sum to it), on a batch mixing affine frames (signed
+     zeros too) with perspective ones, on perspective coefficients and on
+     a 4K expand bucket (80 frames, a 2288x3968 static canvas, a smaller
+     true canvas on the device); timed in turns with the plain version,
+     and similarity beside perspective coefficients
  6b. K9 (gray + integer pool) against its plain version, torch.equal: x4
      (Flow) and x2 (Classic) on the 1080p x 80 clip, timed in turns with
      the plain version; the gray alone, quantized and not, and x2 on every
@@ -31,10 +34,11 @@ Phases (any failure raises and the script exits non-zero):
   7. K4 (GFTT scores from the gray) against its plain version on the
      Classic slice's grays, (79, 540, 960), bitwise, beside the plain
      Sobel and products it replaces; then K7 (the corner greedy) on
-     those grays' (79, 2048) candidates from _topk_packed and on
-     clustered candidates that fill max_corners = 23, torch.equal to its
-     plain version and to the native greedy, timed beside the plain
-     version, with its byte and operation counts
+     those grays' (79, 2048) candidates from _topk_packed, on clustered
+     candidates that fill max_corners = 23, on the candidates with every
+     tenth a repeat and on a grid that fills max_corners = 6144 inside a
+     block, torch.equal to its plain version and to the native greedy,
+     timed beside the plain version, with its byte and operation counts
   8. K6 (window extraction) against its plain version at (79, 400, 49)
      and (79, 400, 36) on the level-0 stack with the real GFTT corners
   9. K5 (LK Gauss-Newton) against its plain version: one level-0 solve
@@ -681,10 +685,22 @@ def phase_node(frames_cpu, node_name="VideoStabilizerFlow"):
         f"{secs:.3f} s, mode {meta['transform_mode_applied']}")
 
 
+def perspective_copy(coeffs, seed: int, every: int = 1):
+    """The coefficients with g, h set to small nonzero values (a
+    perspective frame) on every ``every``-th frame."""
+    rng = np.random.default_rng(seed)
+    out = coeffs.cpu().numpy().copy()
+    rows = np.arange(0, len(out), every)
+    out[rows, 6:] = rng.uniform(-2e-5, 2e-5, (len(rows), 2)).astype(np.float32)
+    return out
+
+
 def phase_k8(device, frames):
     """K8 against its plain version, mask and counts torch.equal: the Flow
-    slice's 1080p x 80 coefficients (from its graph) over the whole canvas
-    and as two row bands, and a 4K expand bucket; timed in turns at 1080p."""
+    slice's 1080p x 80 coefficients (from its graph; every frame must take
+    the affine route) over the whole canvas and as two row bands, a mixed
+    affine + perspective batch with signed zeros, and a 4K expand bucket;
+    timed in turns at 1080p, similarity and perspective."""
     import torch
 
     from comfyui_video_stabilizer_tpu_torch.models import fastpath as FP
@@ -694,6 +710,9 @@ def phase_k8(device, frames):
     working, dec, est_args = fast_estimate_args("flow")
     coeffs = FP._fused_estimate("flow", R.gray_for_estimation(frames, working, decimation=dec), *est_args)["coeffs"]
     n = coeffs.shape[0]
+    affine = int(W.affine_route(coeffs).sum())
+    log(f"[K8] routes of the Flow slice's {n} frames: affine {affine}, general {n - affine}")
+    check(affine == n, f"K8: {n - affine} of the Flow slice's similarity frames take the general route")
 
     def same(kernel, plain, what):
         torch.cuda.synchronize()
@@ -714,6 +733,21 @@ def phase_k8(device, frames):
     check(joined, "K8: the row bands do not make up the whole canvas")
     del bands
 
+    # one launch of both routes: every other frame perspective, and signed
+    # zeros in c, f, g, h of every fourth
+    mixed = perspective_copy(coeffs, 13, every=2)
+    mixed[1::4, [2, 5, 6, 7]] = np.float32(-0.0)
+    mixed = torch.from_numpy(mixed).to(device)
+    routes = W.affine_route(mixed)
+    err = max(err, same(W.padding_counts(mixed, HEIGHT, WIDTH, HEIGHT, WIDTH),
+                        W.padding_counts_plain(mixed, HEIGHT, WIDTH, HEIGHT, WIDTH),
+                        f"mixed batch, affine {int(routes.sum())} + general {int((~routes).sum())} frames"))
+    persp = torch.from_numpy(perspective_copy(coeffs, 17)).to(device)
+    err = max(err, same(W.padding_counts(persp, HEIGHT, WIDTH, HEIGHT, WIDTH),
+                        W.padding_counts_plain(persp, HEIGHT, WIDTH, HEIGHT, WIDTH),
+                        f"perspective, general route {int((~W.affine_route(persp)).sum())} frames"))
+    del mixed, whole
+
     # the 4K expand bucket: a 2288x3968 static canvas (fastpath._out_dims),
     # a 3890x2224 true canvas on the device, the source shaken inside it
     bh, bw = 2160 + 128, 3840 + 128
@@ -723,21 +757,31 @@ def phase_k8(device, frames):
     out_wh = torch.tensor([3890, 2224], dtype=torch.int32, device=device)
     err = max(err, same(W.padding_counts(c4k, bh, bw, 2160, 3840, out_wh=out_wh),
                         W.padding_counts_plain(c4k, bh, bw, 2160, 3840, out_wh=out_wh),
-                        f"4K expand bucket ({CLIP_FRAMES}, {bh}, {bw}), true canvas 3890x2224"))
+                        f"4K expand bucket ({CLIP_FRAMES}, {bh}, {bw}), true canvas 3890x2224, affine "
+                        f"{int(W.affine_route(c4k).sum())} frames"))
     ms_4k = cuda_ms(lambda: W.padding_counts(c4k, bh, bw, 2160, 3840, out_wh=out_wh), 10)
-    del c4k, whole
+    del c4k
     torch.cuda.empty_cache()
 
     ms, plain_ms, tk, tp = timed_pair(lambda: W.padding_counts(coeffs, HEIGHT, WIDTH, HEIGHT, WIDTH),
                                       lambda: W.padding_counts_plain(coeffs, HEIGHT, WIDTH, HEIGHT, WIDTH), 20, 3)
+    # in turns: similarity, perspective, perspective, similarity
+    turns = [cuda_ms(lambda c=c: W.padding_counts(c, HEIGHT, WIDTH, HEIGHT, WIDTH), 20)
+             for c in (coeffs, persp, persp, coeffs)]
     # the mask written once, the coefficients read and the counts written
-    # once; per pixel 33 operations for the displacement and the split
-    # (as K1), 4 for the round-half-even, 4 bound tests, 1 for 1 - inside
+    # once; per pixel 42 operations, fixed by the first design: 33 for the
+    # displacement and the split (as K1), 4 for the round-half-even, 4
+    # bound tests, 1 for 1 - inside
     px = n * HEIGHT * WIDTH
     b = bound(4 * px + 32 * n + 8 * n, 42 * px)
+    px_4k = CLIP_FRAMES * bh * bw
+    b_4k = bound(4 * px_4k + 32 * CLIP_FRAMES + 8 * CLIP_FRAMES + 8, 42 * px_4k)
     log(f"[K8] ({n}, {HEIGHT}, {WIDTH}): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (runs {tk}, {tp}); "
-        f"4K bucket kernel {ms_4k:.4f} ms; bound {b['bound_ms']:.4f} ms ({b['bound_by']}); "
-        "no single PyTorch call computes it")
+        f"bound {b['bound_ms']:.4f} ms ({b['bound_by']}; the operations {1e3 * 42 * px / PEAK_FLOPS:.4f} ms, "
+        f"{1e3 * 42 * px / NO_FMA_FLOPS:.4f} at the no-FMA rate); in turns similarity / perspective / "
+        f"perspective / similarity {[round(t, 4) for t in turns]} ms; 4K bucket ({CLIP_FRAMES}, {bh}, {bw}) "
+        f"kernel {ms_4k:.4f} ms, bound {b_4k['bound_ms']:.4f} ms ({b_4k['bound_by']}; the operations "
+        f"{1e3 * 42 * px_4k / NO_FMA_FLOPS:.4f} ms at the no-FMA rate); no single PyTorch call computes it")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **b, "library_ms": None}
 
 
@@ -934,12 +978,23 @@ def clustered_candidates(b: int, h: int, w: int, k: int, seed: int):
     return np.stack(rows).astype(np.int32)
 
 
+def grid_candidates(h: int, w: int, seed: int, repeats: int):
+    """(1, K) int32 candidates: every point of a grid 8 px apart on an
+    h x w frame (all accepted), shuffled, with the first ``repeats``
+    repeated among the next ones (each rejected)."""
+    rng = np.random.default_rng(seed)
+    idx = rng.permutation((np.arange(4, h, 8)[:, None] * w + np.arange(4, w, 8)[None, :]).ravel())
+    return np.insert(idx, 20 + 8 * np.arange(repeats), idx[:repeats])[None, :].astype(np.int32)
+
+
 def phase_k7(grays):
-    """K7 (the corner greedy) on the Classic slice's (79, 2048) candidates
-    from _topk_packed: torch.equal to its plain version and to the native
-    greedy; then on clustered candidates with max_corners 23, so every
-    frame's walk ends partway through its candidates; timed in turns
-    with the plain version."""
+    """K7 (the corner greedy) torch.equal to its plain version and to the
+    native greedy: on the Classic slice's (79, 2048) candidates from
+    _topk_packed; on clustered candidates with max_corners 23, so every
+    frame's walk ends partway through its candidates; on the slice's
+    candidates with every tenth one a repeat of an earlier one; and with
+    max_corners MAX_KERNEL_CORNERS on a grid of 8,202 candidates whose
+    walk is cut inside a block.  Timed in turns with the plain version."""
     import torch
 
     from comfyui_video_stabilizer_tpu_torch.ops import greedy_cuda as GR
@@ -948,13 +1003,20 @@ def phase_k7(grays):
     g = grays[:-1]
     B, H, W_ = g.shape
     top = LK._topk_packed(g, LK.TOP_K)
-    cases = [("the slice's candidates", top, LK.MAX_CORNERS),
+    repeats = top.clone()  # column i repeats column i - 9 where both are valid (the valid ones sort first)
+    repeats[:, 10::10] = torch.where(top[:, 10::10] >= 0, top[:, 1:-9:10], top[:, 10::10])
+    big_h, big_w = 512, 1024
+    cases = [("the slice's candidates", top, H, W_, LK.MAX_CORNERS, None),
              ("clustered, max_corners 23", torch.from_numpy(clustered_candidates(B, H, W_, LK.TOP_K, 7)).to(g.device),
-              23)]
-    for name, t, maxc in cases:
-        pts, counts = GR.greedy_min_distance(t, W_, maxc, LK.MIN_DISTANCE)
-        ref_pts, ref_counts = GR.greedy_plain(t, W_, maxc, LK.MIN_DISTANCE)
-        host_pts, host_counts = LK.greedy_host(t.cpu().numpy(), H, W_, maxc)
+              H, W_, 23, 23),
+             ("the slice's candidates, every tenth a repeat", repeats, H, W_, LK.MAX_CORNERS, None),
+             (f"a grid on {big_w}x{big_h}, max_corners {GR.MAX_KERNEL_CORNERS}",
+              torch.from_numpy(grid_candidates(big_h, big_w, 8, 10)).to(g.device), big_h, big_w,
+              GR.MAX_KERNEL_CORNERS, GR.MAX_KERNEL_CORNERS)]
+    for name, t, h, w, maxc, fills in cases:
+        pts, counts = GR.greedy_min_distance(t, w, maxc, LK.MIN_DISTANCE)
+        ref_pts, ref_counts = GR.greedy_plain(t, w, maxc, LK.MIN_DISTANCE)
+        host_pts, host_counts = LK.greedy_host(t.cpu().numpy(), h, w, maxc)
         torch.cuda.synchronize()
         eq_plain = bool(torch.equal(pts, ref_pts)) and bool(torch.equal(counts, ref_counts))
         eq_host = bool(np.array_equal(pts.cpu().numpy(), host_pts)) and bool(
@@ -963,8 +1025,7 @@ def phase_k7(grays):
             f"{eq_host}; corners a frame min {int(counts.min())}, median {float(counts.float().median()):.0f}, "
             f"max {int(counts.max())}")
         check(eq_plain and eq_host, f"K7 ({name}): the corners differ from the plain version or the native greedy")
-    check(int(cases[1][1].shape[1]) == LK.TOP_K and bool((counts == 23).all()),
-          "K7: the clustered case did not fill max_corners")
+        check(fills is None or bool((counts == fills).all()), f"K7 ({name}): the walk did not fill max_corners")
     ms, plain_ms, tk, tp = timed_pair(lambda: GR.greedy_min_distance(top, W_, LK.MAX_CORNERS, LK.MIN_DISTANCE),
                                       lambda: GR.greedy_plain(top, W_, LK.MAX_CORNERS, LK.MIN_DISTANCE), 50, 1)
     # bytes: the candidates in, the corners and counts out; operations:
@@ -975,8 +1036,8 @@ def phase_k7(grays):
     b = bound(nbytes, 6 * tests)
     log(f"[K7] {tuple(top.shape)}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (runs {tk}, {tp}); "
         f"{nbytes} bytes ({1e3 * nbytes / PEAK_BYTES:.6f} ms at the memory rate), {tests} distance tests; "
-        f"bound {b['bound_ms']:.6f} ms ({b['bound_by']}); the kernel waits on {LK.TOP_K} dependent steps a frame; "
-        "no single PyTorch call computes it")
+        f"bound {b['bound_ms']:.6f} ms ({b['bound_by']}); the kernel waits on {LK.TOP_K // GR.KERNEL_BLOCK} dependent "
+        f"blocks of {GR.KERNEL_BLOCK} candidates a frame; no single PyTorch call computes it")
     return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, **b, "library_ms": None}
 
 

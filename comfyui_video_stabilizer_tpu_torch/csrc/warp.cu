@@ -9,22 +9,22 @@
 // (_warp_blur_pallas_call / warp_clip_blur_pallas); K3's mask replaces the
 // XLA program _coverage_mean_xla of ops/warp.py in the JAX package.
 //
-// K8: the padding stats of the plain warp, the mask 1 - nearest coverage
-// and the exact padded count of each frame, in one pass.  It replaces no
+// K8: the padding stats of the plain warp, the mask 1 - nearest coverage and
+// the exact padded count of each frame, in one pass.  It replaces no
 // pallas_call: the JAX package leaves this stage to XLA
-// (comfyui_video_stabilizer_tpu/ops/warp.py:262 _padding_stats_xla and
-// :283 _padding_stats_bucket, the mask and its per-frame mean).  What
-// bounds it on an H100: bytes, the float32 mask written once (663.6 MB at
-// 80 x 1080p, 0.198 ms at 3.35 TB/s); per pixel ~40 operations of the
-// displacement and the nearest test.  The plain version passes about a
-// dozen full-size temporaries through device memory; here one thread
-// computes 4 neighbouring pixels of a row (1 where out_w % 4 != 0) with
-// split_coords and round_half_even, the same device functions as K1 and
-// K3, stores their mask values as one 16-byte store, and counts the
-// padded ones: each warp sums its bits with __popc(__ballot_sync), the
-// block sums its warps, and one integer atomicAdd a block adds that into
-// the frame's count.  Integer atomics do not depend on their order, so
-// the counts are exact and the same on every run.
+// (comfyui_video_stabilizer_tpu/ops/warp.py:262 _padding_stats_xla and :283
+// _padding_stats_bucket, the mask and its per-frame mean).  Its bound on an
+// H100 is the float32 mask written once (663.6 MB at 80 x 1080p, 0.198 ms at
+// 3.35 TB/s); what holds it back is the instruction rate, not the store: the
+// exact per-pixel steps (the displacement, the clip, floor, float->int,
+// round-half-even and bound tests) compile to several dozen instructions a
+// pixel under -fmad=false.  The design cuts the instructions a pixel (comment
+// above padding_stats_kernel): a route per frame that skips the denominator
+// where it is exactly 1, the products of the row hoisted out of the pixel loop,
+// the padded pixels counted in a register, and up to 16 pixels a thread (16
+// where out_w % 16 == 0), which spreads a thread's fixed costs.  Integer
+// atomics do not depend on their order, so the counts are exact and the same on
+// every run.
 //
 // K1.  What bounds it on an H100: bytes.  At 1080p a bilinear warp reads
 // each source pixel about once (near-identity warps keep the 2x2 taps of
@@ -472,12 +472,53 @@ namespace {
 
 constexpr int kStatsThreads = 256;
 
-// K8.  One thread owns VEC neighbouring pixels of one output row (VEC = 4
-// needs out_w % 4 == 0, so a group never straddles a row and its mask
-// values are one aligned float4).  blockIdx.y is the frame.  out_wh, when
-// not null, is the bucket's true canvas (w, h) on the device: only pixels
-// with x < w and frame row < h are counted (the mask is written
-// everywhere).  counts must be zeroed; it receives the padded pixels.
+// One pixel of K8: 1 - coverage of the round-half-even nearest source of
+// the displacement (dx, dy) at (x, frame_row), the steps of split_coords
+// after the division.  safe == false is the zero denominator's guard.
+__device__ __forceinline__ bool padded_at(float dx, float dy, bool safe, int x, int frame_row, int in_h, int in_w) {
+  dx = safe ? clip(dx, -kDispLim, kDispLim) : -kDispLim;
+  dy = safe ? clip(dy, -kDispLim, kDispLim) : -kDispLim;
+  const float dxf = floorf(dx);
+  const float dyf = floorf(dy);
+  const int xn = round_half_even(x + (int)dxf, dx - dxf);
+  const int yn = round_half_even(frame_row + (int)dyf, dy - dyf);
+  // xn >= 0 && xn < in_w && yn >= 0 && yn < in_h, as two unsigned tests
+  return !((unsigned)xn < (unsigned)in_w && (unsigned)yn < (unsigned)in_h);
+}
+
+// K8.  One thread owns VEC neighbouring pixels of one output row (VEC =
+// 16, 8 or 4 needs out_w % VEC == 0, so a group never straddles a row and
+// its mask values are VEC / 4 aligned float4 stores).  blockIdx.y is the
+// frame.  out_wh, when not null, is the bucket's true canvas (w, h) on the
+// device: only pixels with x < w and frame row < h are counted (the mask
+// is written everywhere).  counts must be zeroed; it receives the padded
+// pixels.
+//
+// Each frame takes one of two routes, uniformly across its blocks (the
+// frame is blockIdx.y), chosen from its coefficients alone: never from
+// out_wh or the band.
+//   * Affine (k[6] == 0.0f && k[7] == 0.0f, true for +-0 and false for
+//     NaN): qx = ((a-1)*x + b*y) + c and qy = (d*x + (e-1)*y) + f, then
+//     the clip, floor, fraction and round-half-even of the plain version.
+//     It skips the denominator, the reciprocal, the safe select and the
+//     four g/h subtractions.  Why the result is bitwise the general
+//     route's: with g = h = +-0 and finite x, y, denom = (1 + +-0) + +-0
+//     is exactly 1, so inv_d = 1 and q * 1 = q (NaN and inf included);
+//     (g*x)*x, (h*x)*y, (g*y)*x and (h*y)*y are zeros, and subtracting a
+//     zero leaves every non-zero value (NaN and inf too) unchanged and can
+//     flip only the sign of a zero.  The mask and the counts depend only
+//     on the integers xn, yn, and a zero of either sign gives the same
+//     floor (0), fraction (+0) and round (down).
+//     ops/warp.py::padding_counts_affine_plain repeats this route op for
+//     op, and the CPU tests hold it to padding_counts_plain.
+//   * General (any other frame: perspective, NaN): split_coords' formula,
+//     op for op, with the products of the row hoisted.
+// On both routes b*y, (e-1)*y (and g*y, h*y, (h*y)*y) are formed once a
+// thread: the same products, so nothing changes.  x in float is x0 + j
+// (one conversion a thread, not a pixel): exact, since VEC > 1 is taken
+// only where out_w <= 2^24; VEC 1 converts x itself.  Each thread counts its padded pixels in a register;
+// a warp sums them with __reduce_add_sync, the block its warps, and one
+// int64 atomicAdd a block adds that into the frame's count.
 template <int VEC>
 __global__ void __launch_bounds__(kStatsThreads)
 padding_stats_kernel(const float* __restrict__ coeffs, const int* __restrict__ out_wh,
@@ -499,30 +540,60 @@ padding_stats_kernel(const float* __restrict__ coeffs, const int* __restrict__ o
   float k[8];
 #pragma unroll
   for (int i = 0; i < 8; ++i) k[i] = coeffs[n * 8 + i];
+  const float a1 = k[0] - 1.0f, b = k[1], c = k[2], d = k[3];
+  const float e1 = k[4] - 1.0f, f = k[5], gg = k[6], hh = k[7];
+  const float yy = (float)frame_row;
+  const float by = b * yy;
+  const float ey = e1 * yy;
+  const float xx0 = (float)x0;
+  const bool count_row = live && frame_row < ch;
 
   float m[VEC];
   unsigned int padded = 0;
+  if (gg == 0.0f && hh == 0.0f) {
 #pragma unroll
-  for (int j = 0; j < VEC; ++j) {
-    const int x = x0 + j;
-    const Split s = split_coords(k, x, frame_row);
-    const int xn = round_half_even(s.x0, s.fx);
-    const int yn = round_half_even(s.y0, s.fy);
-    const bool inside = xn >= 0 && xn < in_w && yn >= 0 && yn < in_h;
-    m[j] = inside ? 0.0f : 1.0f;  // 1 - coverage
-    padded += __popc(__ballot_sync(0xffffffffu, live && !inside && x < cw && frame_row < ch));
+    for (int j = 0; j < VEC; ++j) {
+      const int x = x0 + j;
+      const float xx = j == 0 ? xx0 : xx0 + (float)j;
+      const float qx = (a1 * xx + by) + c;
+      const float qy = (d * xx + ey) + f;
+      const bool pad = padded_at(qx, qy, true, x, frame_row, in_h, in_w);
+      m[j] = pad ? 1.0f : 0.0f;  // 1 - coverage
+      padded += (pad && count_row && x < cw) ? 1u : 0u;
+    }
+  } else {
+    const float gy = gg * yy;
+    const float hy = hh * yy;
+    const float hyy = hy * yy;
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) {
+      const int x = x0 + j;
+      const float xx = j == 0 ? xx0 : xx0 + (float)j;
+      const float denom = (1.0f + gg * xx) + hy;
+      const float qx = ((((a1 * xx + by) + c) - (gg * xx) * xx) - (hh * xx) * yy);
+      const float qy = (((d * xx + ey) + f) - gy * xx) - hyy;
+      const bool safe = denom != 0.0f;
+      const float inv_d = safe ? 1.0f / denom : 0.0f;
+      const bool pad = padded_at(qx * inv_d, qy * inv_d, safe, x, frame_row, in_h, in_w);
+      m[j] = pad ? 1.0f : 0.0f;
+      padded += (pad && count_row && x < cw) ? 1u : 0u;
+    }
   }
   if (live) {
     float* dst = mask + ((int64_t)n * out_h + y) * out_w + x0;
-    if constexpr (VEC == 4) {
-      *reinterpret_cast<float4*>(dst) = make_float4(m[0], m[1], m[2], m[3]);
-    } else {
+    if constexpr (VEC == 1) {
       dst[0] = m[0];
+    } else {
+#pragma unroll
+      for (int q = 0; q < VEC / 4; ++q) {
+        reinterpret_cast<float4*>(dst)[q] = make_float4(m[4 * q], m[4 * q + 1], m[4 * q + 2], m[4 * q + 3]);
+      }
     }
   }
+  const unsigned int warp_total = __reduce_add_sync(0xffffffffu, padded);
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  if (lane == 0) warp_sums[warp] = padded;
+  if (lane == 0) warp_sums[warp] = warp_total;
   __syncthreads();
   if (threadIdx.x == 0) {
     unsigned long long total = 0;
@@ -530,6 +601,14 @@ padding_stats_kernel(const float* __restrict__ coeffs, const int* __restrict__ o
     for (int i = 0; i < kStatsThreads / 32; ++i) total += warp_sums[i];
     if (total != 0) atomicAdd(&counts[n], total);
   }
+}
+
+template <int VEC>
+cudaError_t launch_stats(dim3 grid, cudaStream_t s, const float* coeffs, const int* out_wh, float* mask,
+                         unsigned long long* counts, int out_h, int out_w, int in_h, int in_w, int row0) {
+  padding_stats_kernel<VEC><<<grid, kStatsThreads, 0, s>>>(coeffs, out_wh, mask, counts, out_h, out_w, in_h, in_w,
+                                                          row0);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -547,19 +626,18 @@ extern "C" int cvst_padding_stats(const float* coeffs, const int* out_wh, float*
       row0 > INT_MAX - out_h) {
     return (int)cudaErrorInvalidValue;
   }
-  const int vec = out_w % 4 == 0 ? 4 : 1;
+  // x0 + j in float is exact only below 2^24 (padding_stats_kernel)
+  const int vec = out_w > (1 << 24) ? 1 : (out_w % 16 == 0 ? 16 : (out_w % 8 == 0 ? 8 : (out_w % 4 == 0 ? 4 : 1)));
   const int64_t groups = (int64_t)out_h * (out_w / vec);
   const int64_t blocks = (groups + kStatsThreads - 1) / kStatsThreads;
   if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
   const dim3 grid((unsigned)blocks, n, 1);
-  if (vec == 4) {
-    padding_stats_kernel<4><<<grid, kStatsThreads, 0, s>>>(coeffs, out_wh, mask, counts, out_h, out_w, in_h, in_w,
-                                                          row0);
-  } else {
-    padding_stats_kernel<1><<<grid, kStatsThreads, 0, s>>>(coeffs, out_wh, mask, counts, out_h, out_w, in_h, in_w,
-                                                          row0);
+  switch (vec) {
+    case 16: return (int)launch_stats<16>(grid, s, coeffs, out_wh, mask, counts, out_h, out_w, in_h, in_w, row0);
+    case 8: return (int)launch_stats<8>(grid, s, coeffs, out_wh, mask, counts, out_h, out_w, in_h, in_w, row0);
+    case 4: return (int)launch_stats<4>(grid, s, coeffs, out_wh, mask, counts, out_h, out_w, in_h, in_w, row0);
+    default: return (int)launch_stats<1>(grid, s, coeffs, out_wh, mask, counts, out_h, out_w, in_h, in_w, row0);
   }
-  return (int)cudaGetLastError();
 }
 
 extern "C" const char* cvst_error_string(int err) {

@@ -23,7 +23,9 @@ over the samples, small values zeroed) in the same launch;
 ``warp_blur_mask_plain`` is its plain version.  ``padding_counts`` does
 the same for K8, the padding mask of the plain warp (1 - nearest
 coverage) with each frame's exact padded count, a stage the JAX package
-leaves to XLA; ``padding_counts_plain`` is its plain version.  The
+leaves to XLA; ``padding_counts_plain`` is its plain version, and
+``padding_counts_affine_plain`` repeats the kernel's route for affine
+frames (no denominator) op for op.  The
 coverage masks of crop framing stay plain PyTorch.
 
 Clips whose live set on the device exceeds ``CHUNK_BUDGET_BYTES``
@@ -146,27 +148,37 @@ def _displacements(coeffs: torch.Tensor, out_h: int, out_w: int, row0: int = 0):
     return qx * inv_d, qy * inv_d, safe
 
 
-def _split_coords(coeffs: torch.Tensor, out_h: int, out_w: int, row0: int = 0):
-    """int32 (x0, y0) = floor(source) and float32 fractions (fx, fy)."""
-    dx, dy, safe = _displacements(coeffs, out_h, out_w, row0)
-    dev = coeffs.device
+def _split_displacements(dx: torch.Tensor, dy: torch.Tensor, safe: torch.Tensor | None, row0: int = 0):
+    """int32 (x0, y0) = floor(source) and float32 fractions (fx, fy) of
+    (N, out_h, out_w) displacements; ``safe`` None is a denominator known
+    to be 1."""
+    dev = dx.device
+    out_h, out_w = dx.shape[-2:]
     xi = torch.arange(out_w, device=dev, dtype=torch.int32)[None, None, :]
     yi = torch.arange(row0, row0 + out_h, device=dev, dtype=torch.int32)[None, :, None]
-    dx = torch.where(safe, dx.clamp(-_DISP_LIM, _DISP_LIM), -_DISP_LIM)
-    dy = torch.where(safe, dy.clamp(-_DISP_LIM, _DISP_LIM), -_DISP_LIM)
+    dx = dx.clamp(-_DISP_LIM, _DISP_LIM)
+    dy = dy.clamp(-_DISP_LIM, _DISP_LIM)
+    if safe is not None:
+        dx = torch.where(safe, dx, -_DISP_LIM)
+        dy = torch.where(safe, dy, -_DISP_LIM)
     dxf = torch.floor(dx)
     dyf = torch.floor(dy)
     return xi + dxf.to(torch.int32), yi + dyf.to(torch.int32), dx - dxf, dy - dyf
 
 
+def _split_coords(coeffs: torch.Tensor, out_h: int, out_w: int, row0: int = 0):
+    """int32 (x0, y0) = floor(source) and float32 fractions (fx, fy)."""
+    return _split_displacements(*_displacements(coeffs, out_h, out_w, row0), row0)
+
+
+def _round_half_even(base: torch.Tensor, frac: torch.Tensor) -> torch.Tensor:
+    return base + torch.where(frac > 0.5, 1, torch.where(frac < 0.5, 0, base & 1))
+
+
 def _nearest_coords(coeffs: torch.Tensor, out_h: int, out_w: int, row0: int = 0):
     """Round-half-to-even integer source coords (cv2 INTER_NEAREST)."""
     x0, y0, fx, fy = _split_coords(coeffs, out_h, out_w, row0)
-
-    def rnd(base, frac):
-        return base + torch.where(frac > 0.5, 1, torch.where(frac < 0.5, 0, base & 1))
-
-    return rnd(x0, fx), rnd(y0, fy)
+    return _round_half_even(x0, fx), _round_half_even(y0, fy)
 
 
 def _gather_taps(frames: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor) -> torch.Tensor:
@@ -351,8 +363,29 @@ def _mask_chunk(out_h: int, out_w: int) -> int:
 
 def _inside(coeffs: torch.Tensor, out_h: int, out_w: int, in_h: int, in_w: int, row0: int = 0) -> torch.Tensor:
     """Nearest coverage: True where the round-half-even source lies in the frame."""
-    xn, yn = _nearest_coords(coeffs, out_h, out_w, row0)
+    return _in_frame(*_nearest_coords(coeffs, out_h, out_w, row0), in_h, in_w)
+
+
+def _in_frame(xn: torch.Tensor, yn: torch.Tensor, in_h: int, in_w: int) -> torch.Tensor:
     return (xn >= 0) & (xn < in_w) & (yn >= 0) & (yn < in_h)
+
+
+def _inside_affine(coeffs: torch.Tensor, out_h: int, out_w: int, in_h: int, in_w: int, row0: int = 0) -> torch.Tensor:
+    """:func:`_inside` by K8's affine route: no denominator, no g/h terms."""
+    dev = coeffs.device
+    xx = torch.arange(out_w, device=dev, dtype=torch.float32)[None, None, :]
+    yy = torch.arange(row0, row0 + out_h, device=dev, dtype=torch.float32)[None, :, None]
+    a, b, c, d, e, f = (coeffs[:, i, None, None] for i in range(6))
+    qx = ((a - 1.0) * xx + b * yy) + c
+    qy = (d * xx + (e - 1.0) * yy) + f
+    x0, y0, fx, fy = _split_displacements(qx, qy, None, row0)
+    return _in_frame(_round_half_even(x0, fx), _round_half_even(y0, fy), in_h, in_w)
+
+
+def affine_route(coeffs: torch.Tensor) -> torch.Tensor:
+    """(N,) bool: the frames K8 takes by its affine route (g and h both
+    zero, of either sign; a NaN takes the general route)."""
+    return (coeffs[:, 6] == 0.0) & (coeffs[:, 7] == 0.0)
 
 
 def padding_mask_stats(
@@ -381,6 +414,21 @@ def padding_counts_plain(coeffs: torch.Tensor, out_h: int, out_w: int, in_h: int
     [row0, row0 + out_h).  With ``out_wh`` = (w, h) int32 on the device
     (a bucket's true canvas) only the padded pixels with x < w and row < h
     are counted; the mask is 1 - coverage everywhere."""
+    return _padding_counts(_inside, coeffs, out_h, out_w, in_h, in_w, row0, out_wh)
+
+
+def padding_counts_affine_plain(coeffs: torch.Tensor, out_h: int, out_w: int, in_h: int, in_w: int, row0: int = 0,
+                                out_wh: torch.Tensor | None = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K8's affine route op for op (``csrc/warp.cu::padding_stats_kernel``):
+    :func:`padding_counts_plain`'s result, for frames whose g and h are
+    zero (:func:`affine_route`; others raise ValueError).  It holds the
+    route's exactness argument in the CPU tests; no caller uses it."""
+    if not bool(affine_route(coeffs).all()):
+        raise ValueError("the affine route takes frames with g == h == 0 only")
+    return _padding_counts(_inside_affine, coeffs, out_h, out_w, in_h, in_w, row0, out_wh)
+
+
+def _padding_counts(inside_of, coeffs, out_h, out_w, in_h, in_w, row0, out_wh):
     n = coeffs.shape[0]
     dev = coeffs.device
     mask = torch.empty((n, out_h, out_w), dtype=torch.float32, device=dev)
@@ -391,7 +439,7 @@ def padding_counts_plain(coeffs: torch.Tensor, out_h: int, out_w: int, in_h: int
                      & (torch.arange(row0, row0 + out_h, dtype=torch.int32, device=dev)[:, None] < out_wh[1]))
     chunk = _mask_chunk(out_h, out_w)
     for s in range(0, n, chunk):
-        inside = _inside(coeffs[s:s + chunk], out_h, out_w, in_h, in_w, row0)
+        inside = inside_of(coeffs[s:s + chunk], out_h, out_w, in_h, in_w, row0)
         mask[s:s + chunk] = 1.0 - inside.to(torch.float32)
         padded = ~inside if in_canvas is None else ~inside & in_canvas
         counts[s:s + chunk] = padded.reshape(padded.shape[0], -1).sum(dim=1)
