@@ -82,6 +82,14 @@ Phases (any failure raises and the script exits non-zero):
      the fast path: per-pair modes, K1 / K2 launches; the fast path's warm
      frames/s (median of 3); Classic perspective once on the 1080p clip
      through each engine
+ 17a. K10 (the DLT refit's smallest eigenvector) and K11 (the 8x8
+     solves) against their plain versions, torch.equal (NaN where NaN),
+     on every input the perspective paths give them, recorded from one
+     eager call each of Flow and Classic 1080p x 80 crop_and_pad
+     perspective and of config 3 ((79, 9, 9) and (127, 9, 9); 40,448 and
+     65,024 4-point systems; the IRLS pre-warp's (B, 8, 8) systems);
+     each timed at the main shapes in turns with its plain version,
+     beside torch.linalg.eigh / solve_ex on the same inputs
  18. forced streaming: Flow, Classic and config 4 on the 1080p clip held
      on the host, the chunk budget lowered to 20 frames, frames and masks
      bitwise equal to the unstreamed calls (Flow and Classic through the
@@ -123,6 +131,13 @@ Phases (any failure raises and the script exits non-zero):
      and the fetch, a synchronize after each; then, after every profiled
      phase (torch.profiler has lost a later call's device events once
      these phases' many graph captures had run ahead of it):
+     perspective graph: Flow and Classic 1080p x 80 crop_and_pad
+     perspective from their CUDA graphs: one capture each, a warm
+     replay's launches (the kernels line's K10 and K11 counts), frames,
+     masks and meta torch.equal to CVST_FUSED=0 in turns, no host sync
+     in the estimation (set_sync_debug_mode("error")), no device-to-host
+     copy before K1, the memory each graph keeps alone and the two
+     together; then each one's split as above;
      normalize: a uint8 clip and a 0..255 float clip (1080p x 80, from a
      seed) normalized on the card, torch.equal to the CPU normalization
      with equal 960x540 grays, and the values and gray pixels the
@@ -196,9 +211,9 @@ SMALL_MAT_TOL = 1e-3    # CUDA path vs CPU path on the small clip
 SMALL_FRAME_P99 = 1e-3
 # perspective fits, card vs CPU at the 1080p shapes: the frame corners'
 # projections (px).  The DLT refit's A^T A sums 2P float32 rows in another
-# order on the card and cuSOLVER's eigh is not LAPACK's, so the
-# translations differ by a few 1e-3 px at P = 8160 (SMALL_MAT_TOL holds
-# for the similarity fits)
+# order on the card (a library matmul; K10 and K11 do their twins'
+# arithmetic), so the translations differ by ~2e-3 px at P = 8160
+# (SMALL_MAT_TOL holds for the similarity fits)
 PERSP_FIT_TOL_PX = 0.05
 BASELINE1 = (64, 480, 854)  # BASELINE.json config 1: Classic 480p / 64 frames
 BASELINE2 = (80, 720, 1280)  # BASELINE.json config 2: shake -> Motion Apply 720p, bilinear
@@ -210,7 +225,8 @@ APPLY_MASK_UNEQUAL = 1e-3  # a coverage tie may flip on a one-ulp coordinate
 PEAK_BYTES = 3.35e12    # H100 SXM HBM3, bytes/s (NVIDIA data sheet)
 PEAK_FLOPS = 67e12      # H100 SXM float32 outside the tensor cores, FLOP/s (data sheet)
 NO_FMA_FLOPS = PEAK_FLOPS / 2  # the same with every multiply and add issued alone (-fmad=false)
-PROFILE_PAD = 256       # spin kernels that open each profiler session (device_events)
+PROFILE_PAD = 4096      # spin kernels that open each profiler session (device_events)
+PAD_CYCLES = 12_500     # each a ~6-7 us spin at the H100's 1.7-2.0 GHz: ~26-30 ms a session
 
 
 class SmokeFailure(RuntimeError):
@@ -429,7 +445,7 @@ def ptxas_summary(text: str):
     for line in text.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            t = re.search(r"\d([a-z][a-z_]*_kernel)(?:I((?:Li\d+E)+)E)?", m.group(1))
+            t = re.search(r"\d([a-z][a-z_]*\d*_kernel)(?:I((?:Li\d+E)+)E)?", m.group(1))
             name = m.group(1) if not t else t.group(1) if not t.group(2) else \
                 f"{t.group(1)}<{','.join(re.findall(r'Li(\d+)E', t.group(2)))}>"
             continue
@@ -557,21 +573,22 @@ def make_context(frames):
     )
 
 
-def run_slice(ctx, device, backend="DIS"):
-    """The Flow slice's call; fails unless ``backend`` ran it."""
+def run_slice(ctx, device, backend="DIS", transform="similarity"):
+    """The Flow slice's call (``transform`` similarity, or perspective for
+    the perspective graph's phase); fails unless ``backend`` ran it."""
     from comfyui_video_stabilizer_tpu_torch.models.flow import stabilize_flow
 
-    res = stabilize_flow(ctx, "crop_and_pad", "similarity", False, 0.8, 0.6, 0.6,
+    res = stabilize_flow(ctx, "crop_and_pad", transform, False, 0.8, 0.6, 0.6,
                          (127, 127, 127), 30.0, device=device)
     check(res.meta["flow_backend"] == backend,
           f"flow_backend {res.meta['flow_backend']!r} ({res.meta['flow_fallback_reason']}), not {backend!r}")
     return res
 
 
-def run_classic(ctx, device):
+def run_classic(ctx, device, transform="similarity"):
     from comfyui_video_stabilizer_tpu_torch.models.classic import stabilize_classic
 
-    return stabilize_classic(ctx, "crop_and_pad", "similarity", False, 0.8, 0.6, 0.6,
+    return stabilize_classic(ctx, "crop_and_pad", transform, False, 0.8, 0.6, 0.6,
                              (127, 127, 127), 30.0, device=device)
 
 
@@ -1202,31 +1219,46 @@ LAST_PROFILE_NAMES: list = []  # the distinct device event names of profile_call
 KERNEL_SYMBOLS = {"warp": "warp_kernel", "warp_blur": "warp_blur_kernel", "cost_volume": "cost_volume_kernel",
                   "gftt": "gftt_gray_kernel", "lk_gn": "lk_gn_kernel", "extract_windows": "extract_kernel",
                   "greedy": "greedy_kernel", "padding_stats": "padding_stats_kernel",
-                  "gray_pool": "gray_pool_kernel"}
+                  "gray_pool": "gray_pool_kernel", "smallest_eigvec": "smallest_eigvec_kernel",
+                  "solve8": "solve8_kernel"}
+
+
+PROFILE_LOSSES: list = []  # (pads lost, ms of pad lost) for each device_events session
 
 
 def device_events(fn):
     """(the device events -- kernels and copies -- torch.profiler records
-    over one call of fn, wall ms).  Late in a long run the profiler dropped
-    the leading device records of each session (a fallback call's two
-    leading grays among them), so a session starts with ``PROFILE_PAD``
-    spin kernels, which absorb that loss and are left out of the result;
-    a session that kept none of them may have dropped more, and fails."""
+    over one call of fn, wall ms).  Late in a long run the profiler drops
+    the leading device records of each session, more the later the session
+    (a fallback call's two leading grays once; all of 256 pads of 1,000
+    cycles in another run; 0-8 records a session in a third), so a
+    session starts with
+    ``PROFILE_PAD`` spin kernels of ``PAD_CYCLES`` cycles each, which absorb
+    that loss, whether it is a count of records or a span of time, and are
+    left out of the result.  Each session's loss goes into PROFILE_LOSSES
+    and is logged; a session that kept none of its pads may have dropped
+    more, and fails."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(PROFILE_PAD):
-            torch.cuda._sleep(1000)
+            torch.cuda._sleep(PAD_CYCLES)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = 1e3 * (time.perf_counter() - t0)
     device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    pads = sum(1 for e in device if "spin_kernel" in e.name)
-    check(pads > 0, f"torch.profiler dropped all {PROFILE_PAD} leading pad kernels of its session")
+    pads = [e for e in device if "spin_kernel" in e.name]
+    check(len(pads) > 0, f"torch.profiler dropped all {PROFILE_PAD} leading pad kernels of its session")
+    lost = PROFILE_PAD - len(pads)
+    pad_ms = sum(e.time_range.elapsed_us() for e in pads) / 1e3 / len(pads)
+    PROFILE_LOSSES.append((lost, lost * pad_ms))
+    if lost:
+        log(f"[profiler] session {len(PROFILE_LOSSES)} lost {lost} of its {PROFILE_PAD} leading pads "
+            f"(~{lost * pad_ms:.2f} ms of {PROFILE_PAD * pad_ms:.2f} ms of pad)")
     return [e for e in device if "spin_kernel" not in e.name], wall
 
 
@@ -1882,9 +1914,274 @@ def phase_config3(device, frames):
               f"Classic perspective ({engine}): launches {dict(cuda_build.LAUNCHES)}")
         log(f"[config3] Classic perspective 1080p x {CLIP_FRAMES}, {engine}: per-pair modes {mode_counts(res.meta)}, "
             f"applied {res.meta['transform_mode_applied']}; one call {1e3 * secs:.1f} ms "
-            f"({'cold for the perspective fits' if flag == '1' else 'warm fits'}); launches {dict(cuda_build.LAUNCHES)}")
+            f"({'its graph captured in this call' if flag == '1' else 'warm fits'}); launches {dict(cuda_build.LAUNCHES)}")
         del res
     return launches
+
+
+# K10's operations: a rotation test (three abs, two square roots, two
+# products, the compare), a rotation (theta 3, t 6, c 4, s 1; seven rows
+# of A x 6; the diagonal 4; nine rows of V x 6) and the pick of the
+# smallest of nine diagonal entries
+K10_TEST_OPS, K10_ROTATION_OPS, K10_PICK_OPS = 8, 114, 8
+# K11's operations a system: the pivot search 64, the reciprocals and
+# their test 16, the elimination 364, the back substitution 64
+K11_SYSTEM_OPS = 508
+
+
+def record_linalg_inputs(run):
+    """[(kernel name, cloned arguments)] of every K10 and K11 call that one
+    eager (CVST_FUSED=0) call of ``run`` makes, in order."""
+    from comfyui_video_stabilizer_tpu_torch.ops import linalg_cuda as LA
+
+    seen = []
+    real = {"smallest_eigvec": LA.smallest_eigvec, "solve8": LA.solve8}
+
+    def spy(name):
+        def wrapper(*args):
+            seen.append((name, tuple(a.clone() for a in args)))
+            return real[name](*args)
+        return wrapper
+
+    try:
+        for name in real:
+            setattr(LA, name, spy(name))
+        with env(CVST_FUSED="0"):
+            run()
+    finally:
+        for name, fn in real.items():
+            setattr(LA, name, fn)
+    return seen
+
+
+def same_nan(a, b) -> bool:
+    """torch.equal, NaN where NaN."""
+    import torch
+
+    nan_a, nan_b = torch.isnan(a), torch.isnan(b)
+    return bool(torch.equal(nan_a, nan_b)) and bool(torch.equal(a[~nan_a], b[~nan_b]))
+
+
+def library_ms(fn, reps: int) -> float:
+    """Host ms of one call of a library function with its own
+    synchronization: a synchronize after each call, mean of ``reps``
+    after one warm call."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+        torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / reps
+
+
+def phase_k10_k11(device, frames):
+    """K10 (the DLT refit's smallest eigenvector) and K11 (the 8x8 solves)
+    against their plain versions on the inputs the perspective paths give
+    them, recorded from one eager (CVST_FUSED=0) call each of Flow and
+    Classic 1080p x 80 crop_and_pad perspective and of config 3 (Flow 720p
+    x 128, perspective, camera_lock): K10 at (79, 9, 9) and (127, 9, 9),
+    K11 on 40,448 and 65,024 4-point systems (repeated draws among them,
+    NaN where NaN) and on the IRLS pre-warp's (B, 8, 8) systems of every
+    DIS level, all torch.equal.  Then each at the main shapes, timed in
+    turns with its plain version, beside torch.linalg.eigh / solve_ex on
+    the same inputs (host clock, their own synchronization included), with
+    bounds from this run's inputs (K10's tests and rotations counted by
+    its plain version)."""
+    import torch
+
+    from comfyui_video_stabilizer_tpu_torch.ops import linalg_cuda as LA
+
+    n3, h3, w3 = BASELINE3
+    ctx3 = make_context(synth_clip(n3, h3, w3, seed=3, device=device))
+    ctx = make_context(frames)
+    runs = {
+        "flow": ("flow", lambda: run_slice(ctx, device, transform="perspective")),
+        "classic": ("classic", lambda: run_classic(ctx, device, transform="perspective")),
+        "config 3": ("flow", lambda: run_stabilizer("flow", ctx3, device, "crop_and_pad", "perspective", lock=True,
+                                                   fps=24.0)),
+    }
+    recorded = {}
+    for path, (kind, run) in runs.items():
+        with served(kind, 1, f"K10/K11 inputs ({path})"):
+            recorded[path] = record_linalg_inputs(run)
+    del ctx3
+    summary = {}
+    for path, calls in recorded.items():
+        for name, args in calls:
+            if name == "smallest_eigvec":
+                out, ref = LA.smallest_eigvec(args[0]), LA.smallest_eigvec_plain(args[0])
+                shape = tuple(args[0].shape)
+            else:
+                a, b = args[0].reshape(-1, 8, 8), args[1].reshape(-1, 8)
+                out, ref = LA.solve8(a, b), LA.solve8_plain(a, b)
+                shape = tuple(a.shape)
+            torch.cuda.synchronize()
+            ok = same_nan(out, ref)
+            key = f"{path} {name} {shape}"
+            calls_, nan_rows = summary.get(key, (0, 0))
+            summary[key] = (calls_ + 1, nan_rows + int(torch.isnan(ref).any(-1).sum()))
+            check(ok, f"K10/K11 ({key}): the kernel differs from its plain version")
+    log("[K10/K11] torch.equal (NaN where NaN) to the plain versions on every recorded input (path, kernel, "
+        "shape: calls, systems with a NaN): " + "; ".join(f"{k}: {v[0]}, {v[1]}" for k, v in summary.items()))
+    check(any(v[1] > 0 for k, v in summary.items() if "solve8" in k), "K11: no recorded system came out non-finite")
+
+    def pick(path, name, ndim):
+        return next(args for n, args in recorded[path] if n == name and args[0].dim() == ndim)
+
+    result = {}
+    for kernel, path in (("K10", "flow"), ("K10", "config 3"), ("K11", "flow"), ("K11", "config 3")):
+        if kernel == "K10":
+            m = pick(path, "smallest_eigvec", 3)[0]
+            counts = {}
+            LA.smallest_eigvec_plain(m, counts)
+            ms, plain_ms, tk, tp = timed_pair(lambda: LA.smallest_eigvec(m), lambda: LA.smallest_eigvec_plain(m),
+                                              50, 2)
+            lib = library_ms(lambda: torch.linalg.eigh(m), 10)
+            b = bound(4 * m.shape[0] * (81 + 9), K10_TEST_OPS * counts["tests"]
+                      + K10_ROTATION_OPS * counts["rotations"] + K10_PICK_OPS * m.shape[0])
+            shape = tuple(m.shape)
+            work = f"{counts['tests']} rotation tests, {counts['rotations']} rotations"
+        else:
+            a4, b4 = pick(path, "solve8", 4)
+            a, rhs = a4.reshape(-1, 8, 8), b4.reshape(-1, 8)
+            ms, plain_ms, tk, tp = timed_pair(lambda: LA.solve8(a, rhs), lambda: LA.solve8_plain(a, rhs), 50, 2)
+            lib = library_ms(lambda: torch.linalg.solve_ex(a, rhs[..., None], check_errors=False), 10)
+            b = bound(4 * a.shape[0] * (64 + 8 + 8), K11_SYSTEM_OPS * a.shape[0])
+            shape = tuple(a.shape)
+            work = f"{a.shape[0]} systems"
+        log(f"[K10/K11] {kernel} {path} {shape}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms (runs {tk}, {tp}); "
+            f"{'torch.linalg.eigh' if kernel == 'K10' else 'torch.linalg.solve_ex'} {lib:.4f} ms (host clock, its "
+            f"own synchronization included); {work}; bound {b['bound_ms']:.6f} ms ({b['bound_by']})")
+        row = {"shape": shape, "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, **b, "library_ms": lib}
+        if path == "flow":
+            result[kernel] = row
+        else:
+            result[kernel]["config3"] = row
+    return result["K10"], result["K11"]
+
+
+def phase_persp_graph(device, frames):
+    """Perspective crop_and_pad of Flow and Classic at 1080p x 80 from their
+    CUDA graphs.  Per kind, from an empty cache: the first call captures
+    one graph (its ms, and the device memory the graph keeps alone); a
+    warm call replays it (its launches, the kernels line's for K10 and
+    K11: K10 twice, K11 once for Classic, for Flow once plus three times a
+    DIS level); calls in turns (graph, eager, eager, graph; CVST_FUSED=0
+    for eager) with frames, masks and the whole meta (every matrix in it)
+    torch.equal to the first eager call's, timed; the replay alone (CUDA
+    events); one eager run of the estimation the graph holds
+    (fastpath._flow_estimate / _classic_estimate) under
+    torch.cuda.set_sync_debug_mode("error"); a warm call under
+    torch.profiler (each hand kernel's events equal to its launches) and
+    no device-to-host copy before K1.  Then both graphs cached together:
+    the memory they keep, at most the larger alone + 0.5 GiB.  Leaves both
+    cached, for the perspective splits."""
+    import torch
+
+    from comfyui_video_stabilizer_tpu_torch.models import fastpath as FP
+    from comfyui_video_stabilizer_tpu_torch.ops import cuda_build
+    from comfyui_video_stabilizer_tpu_torch.ops import resize as R
+
+    ctx = make_context(frames)
+    runs = {"flow": lambda: run_slice(ctx, device, transform="perspective"),
+            "classic": lambda: run_classic(ctx, device, transform="perspective")}
+    gib = 2.0 ** 30
+    out = {}
+    for kind, run in runs.items():
+        tag = f"perspective graph, {kind}"
+        FP.clear_graph_cache()
+        reserved0 = cache_memory()[0]
+        stats = dict(FP.GRAPH_STATS)
+        with served(kind, 1, f"{tag}: the first call"):
+            first_ms = timed_calls(run, 1)[0]
+        check(FP.GRAPH_STATS["captures"] == stats["captures"] + 1, f"{tag}: the first call did not capture")
+        kept = (cache_memory()[0] - reserved0) / gib
+        cuda_build.reset_launches()
+        with served(kind, 1, f"{tag}: a warm call"):
+            run()
+        torch.cuda.synchronize()
+        launches = dict(cuda_build.LAUNCHES)
+        check(FP.GRAPH_STATS["captures"] == stats["captures"] + 1
+              and FP.GRAPH_STATS["replays"] == stats["replays"] + 2, f"{tag}: the warm call did not replay alone")
+        # Flow: one 4-point solve, three IRLS solves a DIS level fit
+        check(launches["smallest_eigvec"] == 2 and launches["warp"] == 1
+              and (launches["solve8"] > 1 and (launches["solve8"] - 1) % 3 == 0 if kind == "flow"
+                   else launches["solve8"] == 1), f"{tag}: launches {launches}")
+
+        def same(a, b):
+            return (bool(torch.equal(a.frames, b.frames)), bool(torch.equal(a.masks, b.masks)), a.meta == b.meta)
+
+        times, equal, ref, pending = {"graph": [], "eager": []}, [], None, []
+        for which in ("graph", "eager", "eager", "graph"):
+            with env(CVST_FUSED="1" if which == "graph" else "0"), served(kind, 1, f"{tag}: {which} call"):
+                replays = FP.GRAPH_STATS["replays"]
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = run()
+                torch.cuda.synchronize()
+                times[which].append(1e3 * (time.perf_counter() - t0))
+                check(FP.GRAPH_STATS["replays"] == replays + (which == "graph"), f"{tag}: {which} call's replays")
+            if ref is None and which == "graph":
+                pending.append(res)
+            elif ref is None:
+                ref = res
+                equal += [same(g, ref) for g in pending]
+                pending = []
+            else:
+                equal.append(same(res, ref))
+            del res
+        del ref
+        check(len(equal) == 3 and all(all(e) for e in equal),
+              f"{tag}: the graph calls differ from CVST_FUSED=0 (frames, masks, meta): {equal}")
+        entry = next(reversed(FP._GRAPHS.values()))
+        replay_ms = cuda_ms(entry.graph.replay, 10)
+        working, dec, (strength, keep_fov, kw) = fast_estimate_args(kind, "perspective")
+        grays = R.gray_for_estimation(frames, working, decimation=dec)
+        s_t, k_t = FP._scalar(strength, device), FP._scalar(keep_fov, device)
+        FP._PROGRAMS[kind](grays, s_t, k_t, **kw)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            FP._PROGRAMS[kind](grays, s_t, k_t, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        del grays
+        n_events, busy, wall = profile_call(run)
+        call_events, _ = device_events(run)
+        dtoh_before, dtoh_all = dtoh_copies(call_events)
+        check(dtoh_before == 0, f"{tag}: {dtoh_before} device-to-host copies before K1")
+        med = {k: float(np.median(v)) for k, v in times.items()}
+        log(f"[persp graph] {kind} 1080p x {CLIP_FRAMES} crop_and_pad perspective: first call (eager warm-up + capture "
+            f"+ replay) {first_ms:.1f} ms, the graph keeps {kept:.3f} GiB alone; a warm call's launches {launches}; "
+            f"graph, eager, eager, graph turns (frames, masks, meta torch.equal to the first eager call: {equal}): "
+            f"graph {[round(t, 1) for t in times['graph']]} ms, eager {[round(t, 1) for t in times['eager']]} ms; "
+            f"the replay alone {replay_ms:.2f} ms (CUDA events); the estimation eagerly under "
+            f"set_sync_debug_mode('error'): no sync; torch.profiler over one call: {n_events} device events, busy "
+            f"{busy:.1f} ms of {wall:.1f} ms wall; device-to-host copies before K1 {dtoh_before}, in the call {dtoh_all}")
+        out[kind] = {"first_ms": first_ms, "kept_gib": kept, "launches": launches, "graph_ms": med["graph"],
+                     "eager_ms": med["eager"], "replay_ms": replay_ms, "events": n_events,
+                     "dtoh_before_k1": dtoh_before}
+    FP.clear_graph_cache()
+    reserved0 = cache_memory()[0]
+    segments0 = pool_segments()
+    stats = dict(FP.GRAPH_STATS)
+    for kind, run in runs.items():
+        with served(kind, 1, f"perspective graphs together ({kind})"):
+            run()
+    both = (cache_memory()[0] - reserved0) / gib
+    largest = max(v["kept_gib"] for v in out.values())
+    log(f"[persp graph] both perspective graphs cached (one pool): {both:.3f} GiB kept; alone flow "
+        f"{out['flow']['kept_gib']:.3f}, classic {out['classic']['kept_gib']:.3f} GiB; GRAPH_STATS since "
+        f"{({k: FP.GRAPH_STATS[k] - v for k, v in stats.items()})}; each graph's pool growth at its last capture, "
+        f"GiB {({k[0]: round(e.pool_growth / gib, 3) for k, e in FP._GRAPHS.items()})}; segments by pool, GiB, "
+        f"before {segments0}, after {pool_segments()}")
+    check(both <= largest + 0.5, f"the two perspective graphs keep {both:.3f} GiB, past {largest:.3f} + 0.5")
+    out["kept_both_gib"] = both
+    return out
 
 
 def k2_bound(px: int, radius: int) -> dict:
@@ -2322,6 +2619,23 @@ def cache_memory() -> tuple:
     return torch.cuda.memory_reserved(), torch.cuda.memory_allocated()
 
 
+def pool_segments() -> dict:
+    """GiB of the device's memory segments by pool: "default" for the
+    caching allocator's own, "graphs" for the cached graphs' shared pool
+    (fastpath._POOLS), "other" for any other private pool."""
+    import torch
+
+    from comfyui_video_stabilizer_tpu_torch.models import fastpath as FP
+
+    graph_pools = {tuple(h) for h in FP._POOLS.values()}
+    out = {"default": 0.0, "graphs": 0.0, "other": 0.0}
+    for seg in torch.cuda.memory_snapshot():
+        pool = tuple(seg.get("segment_pool_id", (0, 0)))
+        key = "default" if pool == (0, 0) else "graphs" if pool in graph_pools else "other"
+        out[key] += seg["total_size"] / 2**30
+    return {k: round(v, 3) for k, v in out.items()}
+
+
 def host_issue_ms(kind: str, call) -> dict:
     """The host ms the estimation of a warm ``call`` holds the calling
     thread, from its CUDA graph and eagerly (CVST_FUSED=0), in turns
@@ -2574,9 +2888,10 @@ def phase_rectangle(device, frames):
     return {"native_ms": native_ms, "plain_ms": plain_ms, "rect": native}
 
 
-def fast_estimate_args(kind: str):
+def fast_estimate_args(kind: str, mode: str = "similarity"):
     """(working size, decimation, the fast path's estimate argument tuple)
-    of the slice's 1080p ``kind`` call (run_slice / run_classic)."""
+    of the slice's 1080p ``kind`` call (run_slice / run_classic) in
+    transform ``mode``."""
     from comfyui_video_stabilizer_tpu_torch.models import fastpath as FP
     from comfyui_video_stabilizer_tpu_torch.models.classic import classic_estimator
     from comfyui_video_stabilizer_tpu_torch.models.flow import flow_estimator
@@ -2585,18 +2900,19 @@ def fast_estimate_args(kind: str):
     working, dec = estimation_plan(WIDTH, HEIGHT, flow_estimator if kind == "flow" else classic_estimator)
     strength, _, keep_fov, window, scale_xy = FP._trajectory_args(0.8, 0.6, 30.0, False, 0.6, WIDTH, HEIGHT,
                                                                    working)
-    kw = dict(seed=0, mode="similarity", camera_lock=False, window=window, width=WIDTH, height=HEIGHT,
+    kw = dict(seed=0, mode=mode, camera_lock=False, window=window, width=WIDTH, height=HEIGHT,
               scale_xy=scale_xy)
     if kind == "flow":
         kw["decimation"] = dec
     return working, dec, (strength, keep_fov, kw)
 
 
-def phase_fast_split(device, frames, kind="flow"):
-    """The fast path's 1080p x 80 ``kind`` call stage by stage, a synchronize
-    after each (median of 3): the gray, the graph replay (with the copy of
-    the grays in and of the outputs out), the padding stats, K1 and the
-    one diagnostics fetch; the whole warm call beside them."""
+def phase_fast_split(device, frames, kind="flow", mode="similarity"):
+    """The fast path's 1080p x 80 ``kind`` call in transform ``mode`` stage
+    by stage, a synchronize after each (median of 3): the gray, the graph
+    replay (with the copy of the grays in and of the outputs out), the
+    padding stats, K1 and the one diagnostics fetch; the whole warm call
+    beside them."""
     import torch
 
     from comfyui_video_stabilizer_tpu_torch.models import fastpath as FP
@@ -2604,7 +2920,7 @@ def phase_fast_split(device, frames, kind="flow"):
     from comfyui_video_stabilizer_tpu_torch.ops import warp as W
     from comfyui_video_stabilizer_tpu_torch.utils.device import fetch_packed
 
-    working, dec, est_args = fast_estimate_args(kind)
+    working, dec, est_args = fast_estimate_args(kind, mode)
     border = torch.full((3,), 127 / 255.0, device=device)
     splits = []
     for _ in range(3):
@@ -2628,9 +2944,9 @@ def phase_fast_split(device, frames, kind="flow"):
         splits.append(ms)
         del grays, out, masks, ratios
     ctx = make_context(frames)
-    whole = timed_calls(lambda: (run_slice if kind == "flow" else run_classic)(ctx, device), 3)
+    whole = timed_calls(lambda: (run_slice if kind == "flow" else run_classic)(ctx, device, transform=mode), 3)
     med = {k: float(np.median([s[k] for s in splits])) for k in splits[0]}
-    log(f"[fast split] 1080p x {CLIP_FRAMES} {kind} crop_and_pad, the fast path, ms (median of 3, synchronize after "
+    log(f"[fast split] 1080p x {CLIP_FRAMES} {kind} crop_and_pad {mode}, the fast path, ms (median of 3, synchronize after "
         "each stage): " + ", ".join(f"{k} {v:.2f}" for k, v in med.items())
         + f"; sum {sum(med.values()):.2f}; whole warm call {[round(t, 1) for t in whole]}, median "
         f"{float(np.median(whole)):.1f}")
@@ -3120,6 +3436,7 @@ def main() -> int:
     timed_phase("Classic node", phase_node, frames[:16].cpu(), "VideoStabilizerClassic")
     timed_phase("crop", phase_crop, device, frames)
     config3_launches = timed_phase("config 3", phase_config3, device, frames)
+    k10, k11 = timed_phase("K10/K11", phase_k10_k11, device, frames)
 
     meta4 = shake_meta("action", 3, CLIP_FRAMES, HEIGHT, WIDTH)
     # every profile ahead of K3's check: once K3's plain version has run at
@@ -3134,6 +3451,11 @@ def main() -> int:
     fast_host = timed_phase("fast vs host", phase_fast_vs_host, device, frames)
     fused = timed_phase("fused graph", phase_fused, device, frames)
     fast_split = timed_phase("fast split", phase_fast_split, device, frames)
+    persp = timed_phase("perspective graph", phase_persp_graph, device, frames)
+    persp_split = {kind: timed_phase(f"{kind} perspective split", phase_fast_split, device, frames, kind, "perspective")
+                   for kind in ("flow", "classic")}
+    log(f"[profiler] {len(PROFILE_LOSSES)} sessions; leading pads lost in each (of {PROFILE_PAD}): "
+        f"{[n for n, _ in PROFILE_LOSSES]}, at most ~{max(ms for _, ms in PROFILE_LOSSES):.2f} ms of pad")
     # after every profiled phase: see the docstring's phase 27
     normalize = timed_phase("normalize", phase_normalize, device)
     graph_cache = timed_phase("graph cache", phase_graph_cache, device, frames)
@@ -3173,6 +3495,12 @@ def main() -> int:
         f"host issue medians, ms, graph / eager: Classic {classic_graph['issue_ms']['graph']:.2f} / "
         f"{classic_graph['issue_ms']['eager']:.2f}, Flow {fused['issue_ms']['graph']:.2f} / "
         f"{fused['issue_ms']['eager']:.2f}")
+    log(f"[summary] {smi}: perspective crop_and_pad 1080p x {CLIP_FRAMES} from the CUDA graphs (K10, K11 inside): "
+        + "; ".join(f"{k} {persp[k]['graph_ms']:.1f} ms (eager {persp[k]['eager_ms']:.1f}; the replay alone "
+                    f"{persp[k]['replay_ms']:.2f}; first call {persp[k]['first_ms']:.1f}; keeps "
+                    f"{persp[k]['kept_gib']:.3f} GiB; K10 / K11 launches {persp[k]['launches']['smallest_eigvec']} / "
+                    f"{persp[k]['launches']['solve8']}; split {persp_split[k]})" for k in ("flow", "classic"))
+        + f"; both graphs keep {persp['kept_both_gib']:.3f} GiB")
     log(f"[summary] {smi}: the unrepaired uint8 / 0..255 normalization would move full-size gray pixels: "
         f"{({k: v['gray pixels'] for k, v in normalize.items()})}; host fits on the card, ms: "
         f"{({k: round(v['ms'], 2) for k, v in host_fits.items()})}; the largest rectangle native "
@@ -3228,6 +3556,21 @@ def main() -> int:
          "note": "the JAX package runs this stage as XLA (_gray_pool_kernel; the gray alone _gray_kernel :54), "
                  "not a pallas_call",
          "launches": launches["gray_pool"], **k9},
+        {"name": "smallest_eigvec", "route": "cuda",
+         "source": "comfyui_video_stabilizer_tpu_torch/csrc/linalg.cu",
+         "replaces": "comfyui_video_stabilizer_tpu/ops/ransac.py:112",
+         "note": "the JAX package runs this stage as XLA (jnp.linalg.eigh in _refit_homography), not a pallas_call; "
+                 "launches from a warm Flow 1080p x 80 crop_and_pad perspective call (its graph replay)",
+         "launches": persp["flow"]["launches"]["smallest_eigvec"],
+         "launches_classic": persp["classic"]["launches"]["smallest_eigvec"], **k10},
+        {"name": "solve8", "route": "cuda",
+         "source": "comfyui_video_stabilizer_tpu_torch/csrc/linalg.cu",
+         "replaces": "comfyui_video_stabilizer_tpu/ops/ransac.py:60",
+         "note": "the JAX package runs this stage as XLA (jnp.linalg.solve in _solve_homography_4pt; also the IRLS "
+                 "pre-warp, ops/flow_dis.py:341), not a pallas_call; launches from a warm Flow 1080p x 80 "
+                 "crop_and_pad perspective call (its graph replay)",
+         "launches": persp["flow"]["launches"]["solve8"],
+         "launches_classic": persp["classic"]["launches"]["solve8"], **k11},
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

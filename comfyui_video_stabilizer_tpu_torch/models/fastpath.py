@@ -33,9 +33,10 @@ _tracks_and_fits``) GFTT with K4 and the corner greedy K7, the
 pyramid, LK with K6 and K5, the fits, the trajectory and the inverse
 coefficients.  Each is captured once per static shape and replayed on a
 copy of the working-resolution grays.  The gray, the padding stats and
-K1 run eagerly after the replay.  Perspective is not captured: its
-refit's ``torch.linalg.eigh`` checks its result on the host, so
-perspective runs the same program eagerly.
+K1 run eagerly after the replay.  Perspective is captured too, as the
+JAX package's fused programs hold it: its 8x8 solves (the 4-point
+hypotheses and, for Flow, the IRLS pre-warp) run K11 and its DLT refit
+K10 (ops/linalg_cuda.py), neither of which reads the card on the host.
 
 Under an active mesh (utils/meshinfo.py) the fast path runs by shard, the
 counterpart of the JAX package's ``_mesh_defer`` branch: a clip the
@@ -44,8 +45,9 @@ grays and runs its estimation on each shard (K2, or K4-K7), the fits and
 the trajectory program run eagerly on the lead device, each shard's rows
 of the warp coefficients go back to it, and the padding stats and K1 run
 there.  The graph stays single-device: it is not used under a mesh of
-more than one shard (a static choice, as for perspective).  An uneven clip (the "rows" or "replicated" outcome) and
-crop framing defer to the host engine, as in the JAX package.
+more than one shard (a static choice).  An uneven clip (the "rows" or
+"replicated" outcome) and crop framing defer to the host engine, as in
+the JAX package.
 
 The JAX package's speculative Pallas plan, its tile-span guard and
 guard-miss re-warp, and its planar ingest exist for the Pallas warp's
@@ -689,13 +691,13 @@ def _scalar(v: float, device) -> torch.Tensor:
     return torch.full((), v, dtype=_F32, device=device)
 
 
-def _fused_enabled(framing: str, tick_pairs, want_persp: bool, frames) -> bool:
+def _fused_enabled(framing: str, tick_pairs, frames) -> bool:
     """The fused graph's conditions: crop_and_pad, no progress observer,
-    not perspective, one CUDA device (not frame shards: the graph stays
-    single-device), and ``CVST_FUSED`` not 0.  Flow also needs integer
-    pool factors (its caller checks them)."""
+    one CUDA device (not frame shards: the graph stays single-device),
+    and ``CVST_FUSED`` not 0, in every transform mode.  Flow also needs
+    integer pool factors (its caller checks them)."""
     return (framing == "crop_and_pad" and tick_pairs is None
-            and not want_persp and not isinstance(frames, FrameShards) and frames.device.type == "cuda"
+            and not isinstance(frames, FrameShards) and frames.device.type == "cuda"
             and os.environ.get("CVST_FUSED", "1") not in ("0", "false"))
 
 
@@ -747,31 +749,33 @@ class _FusedGraph:
     """One captured estimation (``kind`` 'flow' or 'classic'): static grays,
     strength and keep_fov in, the trajectory program's tensors out, and
     the kernel launches the capture recorded, added to
-    ``cuda_build.LAUNCHES`` on every replay."""
+    ``cuda_build.LAUNCHES`` on every replay.
+
+    The static inputs are allocated inside the capture, in the shared
+    pool, as the outputs are: a long-lived input made outside it could
+    land in a large free block of the allocator's own pool (the last
+    call's frames) and keep that whole segment reserved."""
 
     def __init__(self, kind: str, grays: torch.Tensor, kw: dict):
-        dev = grays.device
         self.program = _PROGRAMS[kind]
-        self.grays = grays.clone()
-        self.strength = torch.zeros((), dtype=_F32, device=dev)
-        self.keep_fov = torch.zeros((), dtype=_F32, device=dev)
+        self.device = grays.device
+        self.shape, self.dtype = tuple(grays.shape), grays.dtype
         self.kw = kw
+        self.grays = self.strength = self.keep_fov = None
         self.graph = None
         self.out = None
         self.launches = {}
         self.pool_growth = 0
 
-    def capture(self, strength: float, keep_fov: float) -> None:
-        """Run the program once eagerly on a side stream (so cuSOLVER /
+    def capture(self, grays: torch.Tensor, strength: float, keep_fov: float) -> None:
+        """Run the program once eagerly on the device's warm-up stream (so
         cuBLAS handles and the allocator's state exist, as PyTorch's graph
         guide asks), then capture it."""
-        dev = self.grays.device
-        self.strength.fill_(strength)
-        self.keep_fov.fill_(keep_fov)
-        side = torch.cuda.Stream(dev)
+        dev = self.device
+        side = _warmup_stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
-            self.program(self.grays, self.strength, self.keep_fov, **self.kw)
+            self.program(grays, _scalar(strength, dev), _scalar(keep_fov, dev), **self.kw)
         torch.cuda.current_stream(dev).wait_stream(side)
         self.record()
         GRAPH_STATS["captures"] += 1
@@ -780,7 +784,7 @@ class _FusedGraph:
         """Capture the program into the device's shared pool (a recapture
         calls this alone).  ``pool_growth`` is what the capture added to
         the device's reserved bytes: the pool's new segments."""
-        dev = self.grays.device
+        dev = self.device
         # torch.cuda.graph empties the allocator's cache as it begins (the
         # segments of a pool no graph uses go too); count from there
         torch.cuda.synchronize(dev)
@@ -792,11 +796,16 @@ class _FusedGraph:
         # Every cached graph of a device records into one shared pool, so
         # the cache keeps about the largest graph's pool, not the sum.
         # Sharing is safe here: the graphs replay one at a time on one
-        # stream; the static inputs (grays, strength, keep_fov) were
-        # allocated before the capture, outside the pool; and replay()
-        # clones every output at once, so a later replay of another graph
-        # that reuses this one's output blocks as scratch harms no result.
+        # stream; a graph's static inputs and outputs are live blocks no
+        # later capture takes, though they may lie in an earlier graph's
+        # scratch; replay() writes the inputs just before it replays and
+        # clones every output at once, so another graph's replay in
+        # between harms no result.
         with torch.cuda.device(dev), torch.cuda.graph(graph, pool=_graph_pool(dev)):
+            # torch.empty records no kernel: replay() alone writes them
+            self.grays = torch.empty(self.shape, dtype=self.dtype, device=dev)
+            self.strength = torch.empty((), dtype=_F32, device=dev)
+            self.keep_fov = torch.empty((), dtype=_F32, device=dev)
             out = self.program(self.grays, self.strength, self.keep_fov, **self.kw)
         _CAPTURE.open = False
         # the wrappers counted the captured launches, which ran nothing
@@ -806,8 +815,10 @@ class _FusedGraph:
         self.pool_growth = torch.cuda.memory_reserved(dev) - reserved
 
     def release(self) -> None:
-        """Drop the captured graph and its outputs (its share of the pool)."""
+        """Drop the captured graph, its static inputs and its outputs (its
+        share of the pool)."""
         self.graph = self.out = None
+        self.grays = self.strength = self.keep_fov = None
 
     def replay(self, grays: torch.Tensor, strength: float, keep_fov: float) -> Dict[str, torch.Tensor]:
         """The program on these inputs; every output copied out of the
@@ -815,7 +826,7 @@ class _FusedGraph:
         self.grays.copy_(grays)
         self.strength.fill_(strength)
         self.keep_fov.fill_(keep_fov)
-        with torch.cuda.device(self.grays.device):
+        with torch.cuda.device(self.device):
             self.graph.replay()
         for k, v in self.launches.items():
             cuda_build.LAUNCHES[k] += v
@@ -827,6 +838,18 @@ _GRAPHS: "OrderedDict[tuple, _FusedGraph]" = OrderedDict()
 
 # the pool handle each device's graphs share, while one of them lives
 _POOLS: Dict[str, tuple] = {}
+
+# one side stream a device for the graphs' eager warm-ups: cuBLAS keeps a
+# workspace for every stream it has run on, so a new stream a capture
+# would add one a capture
+_WARMUP_STREAMS: Dict[str, torch.cuda.Stream] = {}
+
+
+def _warmup_stream(dev: torch.device) -> torch.cuda.Stream:
+    key = str(dev)
+    if key not in _WARMUP_STREAMS:
+        _WARMUP_STREAMS[key] = torch.cuda.Stream(dev)
+    return _WARMUP_STREAMS[key]
 
 
 def _graph_pool(dev: torch.device) -> tuple:
@@ -842,7 +865,7 @@ def _drop_unused_pools() -> None:
     pool is then free for ``torch.cuda.empty_cache()`` to return, and the
     next capture opens a new one: the allocator refuses to reuse the
     handle of a pool whose last graph is gone."""
-    live = {str(entry.grays.device) for entry in _GRAPHS.values()}
+    live = {str(entry.device) for entry in _GRAPHS.values()}
     for key in [k for k in _POOLS if k not in live]:
         del _POOLS[key]
 
@@ -864,8 +887,8 @@ def _rebuild_pool(key: tuple) -> None:
     fit in, so the cache keeps about the largest graph's pool.  The old
     pool, used by no graph once they are released, is returned by the
     cache emptying the first recapture begins with."""
-    dev = _GRAPHS[key].grays.device
-    keys = [key] + [k for k, e in _GRAPHS.items() if k != key and e.grays.device == dev]
+    dev = _GRAPHS[key].device
+    keys = [key] + [k for k, e in _GRAPHS.items() if k != key and e.device == dev]
     entries = {k: _GRAPHS.pop(k) for k in keys}
     for entry in entries.values():
         entry.release()
@@ -891,7 +914,7 @@ def _fused_estimate(kind: str, grays, strength: float, keep_fov: float, kw: dict
     if entry is None:
         entry = _FusedGraph(kind, grays, kw)
         try:
-            entry.capture(strength, keep_fov)
+            entry.capture(grays, strength, keep_fov)
         except BaseException:
             _drop_unused_pools()
             raise
@@ -899,7 +922,7 @@ def _fused_estimate(kind: str, grays, strength: float, keep_fov: float, kw: dict
         while len(_GRAPHS) > GRAPH_CACHE_SIZE:
             _GRAPHS.popitem(last=False)
         _drop_unused_pools()
-        others = sum(e.grays.device == entry.grays.device for e in _GRAPHS.values()) > 1
+        others = sum(e.device == entry.device for e in _GRAPHS.values()) > 1
         if others and entry.pool_growth > POOL_REBUILD_BYTES:
             _rebuild_pool(key)
     else:
@@ -939,7 +962,7 @@ def run_flow_fast(
     kw = dict(decimation=decimation, seed=seed, mode=transform_mode, camera_lock=camera_lock,
               window=window, width=width, height=height, scale_xy=scale_xy)
     factors = _gray_pool_factors(width, height, working_size, decimation)
-    if factors is not None and _fused_enabled(framing, tick_pairs, want_persp, frames):
+    if factors is not None and _fused_enabled(framing, tick_pairs, frames):
         out = _fused_estimate("flow", grays, strength_c, keep_fov_c, kw)
     else:
         out = _flow_estimate(grays, _scalar(strength_c, dev), _scalar(keep_fov_c, dev),
@@ -985,7 +1008,7 @@ def run_classic_fast(
     grays = R.gray_for_estimation(frames, working_size, decimation=decimation)
     kw = dict(seed=seed, mode=transform_mode, camera_lock=camera_lock, window=window, width=width,
               height=height, scale_xy=scale_xy)
-    if _fused_enabled(framing, tick_pairs, want_persp, frames):
+    if _fused_enabled(framing, tick_pairs, frames):
         out = _fused_estimate("classic", grays, strength_c, keep_fov_c, kw)
     else:
         out = _classic_estimate(grays, _scalar(strength_c, dev), _scalar(keep_fov_c, dev),

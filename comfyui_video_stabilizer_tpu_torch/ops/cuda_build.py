@@ -35,7 +35,7 @@ import torch
 
 PACKAGE_DIR = pathlib.Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
-SOURCES = ("warp.cu", "cost_volume.cu", "gftt.cu", "lk.cu", "extract.cu", "greedy.cu", "gray.cu")
+SOURCES = ("warp.cu", "cost_volume.cu", "gftt.cu", "lk.cu", "extract.cu", "greedy.cu", "gray.cu", "linalg.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-fmad=false",
@@ -66,7 +66,7 @@ class KernelTypeError(KernelError, TypeError):
 
 
 LAUNCHES = {"warp": 0, "warp_blur": 0, "cost_volume": 0, "gftt": 0, "lk_gn": 0, "extract_windows": 0,
-            "greedy": 0, "padding_stats": 0, "gray_pool": 0}
+            "greedy": 0, "padding_stats": 0, "gray_pool": 0, "smallest_eigvec": 0, "solve8": 0}
 
 
 def reset_launches() -> None:
@@ -196,6 +196,10 @@ def library() -> ctypes.CDLL:
     lib.cvst_extract_windows.restype = i32
     lib.cvst_greedy.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, ctypes.c_float, ptr]
     lib.cvst_greedy.restype = i32
+    lib.cvst_smallest_eigvec.argtypes = [ptr, ptr, i32, i32, ptr]
+    lib.cvst_smallest_eigvec.restype = i32
+    lib.cvst_solve8.argtypes = [ptr, ptr, ptr, i32, ptr]
+    lib.cvst_solve8.restype = i32
     lib.cvst_error_string.argtypes = [i32]
     lib.cvst_error_string.restype = ctypes.c_char_p
     return lib

@@ -13,8 +13,9 @@ working-resolution fit grid.
 The arithmetic follows the reference op for op, including the
 separable masked-shift pre-warp (not exact bilinear) of
 ``_warp_similarity_device``, which honours the projective row.  The
-homography fit's 8x8 normal equations are solved by
-``torch.linalg.solve`` (LAPACK on the CPU, cuSOLVER on the card).
+homography fit's 8x8 normal equations are solved by K11 (ops/
+linalg_cuda.py::solve8; its plain twin on the CPU), which a CUDA graph
+can hold.
 
 The dense API, :func:`dis_flow`, runs three
 refine rounds at radius 3 (K2 at r = 3), then an LK-only polish at
@@ -32,6 +33,7 @@ import torch.nn.functional as F
 
 from ..utils.device import device_constant
 from . import cv_cuda as CV
+from . import linalg_cuda as LA
 from .cv_cuda import edge_pad
 
 FINEST_SCALE = 2   # stop refining at quarter resolution (DIS MEDIUM parity)
@@ -283,7 +285,7 @@ def _fit_homography_dense(flow: torch.Tensor, conf: torch.Tensor, stride: int) -
         ww = torch.cat([weight, weight], dim=1)
         AtA = torch.einsum("bpi,bp,bpj->bij", A, ww, A) + 1e-6 * eye8
         Atb = torch.einsum("bpi,bp,bp->bi", A, ww, rhs)
-        sol = torch.linalg.solve_ex(AtA, Atb[..., None], check_errors=False)[0][..., 0]
+        sol = LA.solve8(AtA, Atb)
         return torch.cat([sol, torch.ones((B, 1), **f32)], dim=1).reshape(B, 3, 3)
 
     def col(i, j):

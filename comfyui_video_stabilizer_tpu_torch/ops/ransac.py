@@ -17,11 +17,13 @@ rounding.  JAX turns such a pivot into NaN, which ``hyp_ok`` masks, on
 most repeated draws but not all (4-11 % of them come out finite, and
 score no inliers); the port rejects every repeated 4-point draw
 outright, so its CPU and CUDA paths agree on ``hyp_ok``.  The 4-point
-solve is ``torch.linalg.solve_ex`` without error checks, which neither
-raises on a singular system, as ``torch.linalg.solve`` would, nor syncs
-the card to check.  On the card the batched solve and ``eigh`` go
-through cuSOLVER, not LAPACK, so hypotheses and refits agree with the
-CPU to rounding, not bitwise.
+solves are K11 and the refit's smallest eigenvector K10 (ops/
+linalg_cuda.py: partial-pivoting elimination and cyclic Jacobi, plain
+twins on the CPU), which never read the card on the host, so a CUDA
+graph holds the whole fit.  A singular system gives the same
+non-finite (or finite) result on both devices.  The normal matrix's
+product is a library matmul, so refits agree with the CPU to rounding,
+not bitwise.
 
 ``fit_model_batch``, ``median_translation_batch`` and
 ``reprojection_residuals`` are the JAX package's host entry points:
@@ -38,6 +40,7 @@ import numpy as np
 import torch
 
 from ..utils.device import fetch_packed, resolve_device
+from . import linalg_cuda as LA
 from . import prng
 
 SIM_THRESH = 2.0     # px reprojection, estimateAffinePartial2D default in reference
@@ -80,8 +83,8 @@ def _solve_homography_4pt(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     A = torch.cat([rows_u, rows_v], dim=-2)                          # (..., 8, 8)
     b = torch.cat([u, v], dim=-1)[..., None]                         # (..., 8, 1)
     eye = torch.eye(8, dtype=A.dtype, device=A.device)
-    h, _ = torch.linalg.solve_ex(A + 1e-12 * eye, b, check_errors=False)
-    H = torch.cat([h[..., 0], torch.ones_like(h[..., :1, 0])], dim=-1)
+    h = LA.solve8(A + 1e-12 * eye, b[..., 0])
+    H = torch.cat([h, torch.ones_like(h[..., :1])], dim=-1)
     return H.reshape(*H.shape[:-1], 3, 3)
 
 
@@ -116,8 +119,8 @@ def _refit_homography(p: torch.Tensor, q: torch.Tensor, weight: torch.Tensor) ->
 
     A pair whose normal matrix is not finite (a NaN sample: its zero
     weight does not cancel it, as in the JAX package) gets NaN, which
-    the caller's finiteness guard rejects; ``eigh`` itself only sees
-    finite matrices, since it raises where LAPACK fails to converge.
+    the caller's finiteness guard rejects; K10 only sees finite
+    matrices (such a pair's is swapped for the identity).
     """
     B = p.shape[0]
     wsum = torch.clamp(weight.sum(-1), min=1e-6)                     # (B,)
@@ -137,8 +140,7 @@ def _refit_homography(p: torch.Tensor, q: torch.Tensor, weight: torch.Tensor) ->
     ata = A.transpose(1, 2) @ A
     bad = ~_all_finite(ata)
     eye9 = torch.eye(9, dtype=ata.dtype, device=ata.device)
-    _, vecs = torch.linalg.eigh(torch.where(bad[:, None, None], eye9, ata))
-    Hn = vecs[..., 0].reshape(B, 3, 3)
+    Hn = LA.smallest_eigvec(torch.where(bad[:, None, None], eye9, ata)).reshape(B, 3, 3)
     zero, one = torch.zeros_like(ps), torch.ones_like(ps)
     Tp = torch.stack([
         torch.stack([1.0 / ps, zero, -pm[:, 0] / ps], -1),

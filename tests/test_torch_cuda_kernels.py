@@ -349,11 +349,12 @@ def _small_clip(seed, n=8, h=144, w=192):
                                                ("crop", "perspective")])
 @pytest.mark.parametrize("fastpath", ["1", "0"])
 def test_perspective_and_crop_on_cuda_match_cpu(cuda, monkeypatch, estimator, framing, transform, fastpath):
-    """Perspective fits (cuSOLVER on the card, LAPACK on the CPU) and crop
-    framing, through the fast path (CVST_FASTPATH=1) and through the host
-    engine (=0, its keep_fov search and no-padding refine on the card),
-    the same engine on both devices: per-pair modes, crop status, note
-    and scale equal, matrices <= 1e-3, frames p99 <= 1e-3."""
+    """Perspective fits (K10 and K11 on the card, their plain twins on the
+    CPU) and crop framing, through the fast path (CVST_FASTPATH=1) and
+    through the host engine (=0, its keep_fov search and no-padding
+    refine on the card), the same engine on both devices: per-pair modes,
+    crop status, note and scale equal, matrices <= 1e-3, frames p99
+    <= 1e-3."""
     from comfyui_video_stabilizer_tpu_torch.models.classic import stabilize_classic
     from comfyui_video_stabilizer_tpu_torch.models.flow import stabilize_flow
     from comfyui_video_stabilizer_tpu_torch.utils.video_io import normalize_video_input

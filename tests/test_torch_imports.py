@@ -231,7 +231,7 @@ def test_cuda_request_without_card_raises(monkeypatch):
 def test_cpu_tensor_takes_plain_versions_without_launching():
     """A CPU tensor never reaches the kernel library (no build, no launch)."""
     from comfyui_video_stabilizer_tpu_torch.ops import (cuda_build, cv_cuda, extract_cuda, gftt_cuda, greedy_cuda,
-                                                        lk_cuda, warp)
+                                                        linalg_cuda, lk_cuda, warp)
 
     cuda_build.reset_launches()
     frames = torch.rand((1, 8, 8, 3))
@@ -261,6 +261,11 @@ def test_cpu_tensor_takes_plain_versions_without_launching():
     top = torch.tensor([[5, 60, 40, -1], [-1, -1, -1, -1]], dtype=torch.int32)
     pts, counts = greedy_cuda.greedy_min_distance(top, 12, 3)
     assert torch.equal(pts, greedy_cuda.greedy_plain(top, 12, 3)[0]) and counts.tolist() == [2, 0]
+    spd = torch.eye(9) * 3.0 + 0.5
+    assert torch.equal(linalg_cuda.smallest_eigvec(spd[None]), linalg_cuda.smallest_eigvec_plain(spd[None]))
+    A, b = torch.eye(8)[None] * 2.0, torch.ones((1, 8))
+    assert torch.equal(linalg_cuda.solve8(A, b), linalg_cuda.solve8_plain(A, b))
     assert set(cuda_build.LAUNCHES) == {"warp", "warp_blur", "cost_volume", "gftt", "lk_gn",
-                                        "extract_windows", "greedy", "padding_stats", "gray_pool"}
+                                        "extract_windows", "greedy", "padding_stats", "gray_pool",
+                                        "smallest_eigvec", "solve8"}
     assert all(v == 0 for v in cuda_build.LAUNCHES.values()), cuda_build.LAUNCHES

@@ -16,7 +16,8 @@ ill-conditioned hypothesis differs enough to move points across the
 2.5 px threshold); the fitted RANSAC counts exact or off by one.
 Fitted homographies agree at the four frame corners within 1e-2 px
 (float32 solves and eigenvectors in another order: LAPACK through XLA
-against LAPACK through PyTorch), and within 0.05 px for the DLT refit
+against the port's partial pivoting and Jacobi, ops/linalg_cuda.py's
+plain versions on the CPU), and within 0.05 px for the DLT refit
 on 5 points, whose normal matrix is near-singular in float32; the
 dense homography fit within 1e-4 of JAX's; acceptance flags identical.
 """

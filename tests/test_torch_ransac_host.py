@@ -10,7 +10,8 @@ Tolerances: valid and inlier counts exact, with JAX's dtypes; pair i's
 key is ``fold_in(PRNGKey(seed), i)``, bitwise; matrices within
 tests/test_ransac.py's 1.0 px at the 960x540 frame's corners and centre
 (the refits sum in another order and the 4-point solves are another
-LAPACK call), and within 1e-3 elementwise; median translations exact
+float32 solver: ops/linalg_cuda.py's partial pivoting against LAPACK),
+and within 1e-3 elementwise; median translations exact
 (selection and one mean of two); residuals <= 1e-4 px.
 """
 
