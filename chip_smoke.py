@@ -82,14 +82,16 @@ Phases (any failure raises and the script exits non-zero):
      the fast path: per-pair modes, K1 / K2 launches; the fast path's warm
      frames/s (median of 3); Classic perspective once on the 1080p clip
      through each engine
- 17a. K10 (the DLT refit's smallest eigenvector) and K11 (the 8x8
-     solves) against their plain versions, torch.equal (NaN where NaN),
-     on every input the perspective paths give them, recorded from one
-     eager call each of Flow and Classic 1080p x 80 crop_and_pad
+ 17a. K10 (the DLT refit's smallest eigenvector) and K11's two entries
+     (the 4-point hypotheses, which build their own systems, and the
+     general 8x8 solve) against their plain versions, torch.equal (NaN
+     where NaN), on every input the perspective paths give them, recorded
+     from one eager call each of Flow and Classic 1080p x 80 crop_and_pad
      perspective and of config 3 ((79, 9, 9) and (127, 9, 9); 40,448 and
-     65,024 4-point systems; the IRLS pre-warp's (B, 8, 8) systems);
-     each timed at the main shapes in turns with its plain version,
-     beside torch.linalg.eigh / solve_ex on the same inputs
+     65,024 4-point sets; the IRLS pre-warp's (B, 8, 8) systems; the
+     general entry also on the 4-point sets' systems); each timed at the
+     main shapes in turns with its plain version, beside
+     torch.linalg.eigh / solve_ex on the same inputs
  18. forced streaming: Flow, Classic and config 4 on the 1080p clip held
      on the host, the chunk budget lowered to 20 frames, frames and masks
      bitwise equal to the unstreamed calls (Flow and Classic through the
@@ -294,6 +296,39 @@ def cuda_ms(fn, reps: int, warm: bool = True) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps: int) -> float:
+    """Mean device milliseconds of fn() captured ``reps`` times in one CUDA
+    graph, the best of three replays (CUDA events) after a warm one: the
+    kernels alone, without the host's issue time (a small kernel's
+    wrapper takes longer to issue than the kernel to run, so an eager
+    loop of launches times the host).  fn must be capturable."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    del graph
+    return min(times)
 
 
 def bound(nbytes: float, flops: float) -> dict:
@@ -1220,7 +1255,7 @@ KERNEL_SYMBOLS = {"warp": "warp_kernel", "warp_blur": "warp_blur_kernel", "cost_
                   "gftt": "gftt_gray_kernel", "lk_gn": "lk_gn_kernel", "extract_windows": "extract_kernel",
                   "greedy": "greedy_kernel", "padding_stats": "padding_stats_kernel",
                   "gray_pool": "gray_pool_kernel", "smallest_eigvec": "smallest_eigvec_kernel",
-                  "solve8": "solve8_kernel"}
+                  "solve8": "solve8_kernel", "homography_4pt": "homography_4pt_kernel"}
 
 
 PROFILE_LOSSES: list = []  # (pads lost, ms of pad lost) for each device_events session
@@ -1925,8 +1960,11 @@ def phase_config3(device, frames):
 # smallest of nine diagonal entries
 K10_TEST_OPS, K10_ROTATION_OPS, K10_PICK_OPS = 8, 114, 8
 # K11's operations a system: the pivot search 64, the reciprocals and
-# their test 16, the elimination 364, the back substitution 64
+# their test 16, the elimination 364, the back substitution 64; the
+# 4-point entry's construction adds 88 (four points' two negations and
+# four products, and the ridge added to 64 entries)
 K11_SYSTEM_OPS = 508
+K11_4PT_BUILD_OPS = 88
 
 
 def record_linalg_inputs(run):
@@ -1935,7 +1973,8 @@ def record_linalg_inputs(run):
     from comfyui_video_stabilizer_tpu_torch.ops import linalg_cuda as LA
 
     seen = []
-    real = {"smallest_eigvec": LA.smallest_eigvec, "solve8": LA.solve8}
+    real = {"smallest_eigvec": LA.smallest_eigvec, "solve8": LA.solve8,
+            "solve_homography_4pt": LA.solve_homography_4pt}
 
     def spy(name):
         def wrapper(*args):
@@ -1978,18 +2017,23 @@ def library_ms(fn, reps: int) -> float:
 
 
 def phase_k10_k11(device, frames):
-    """K10 (the DLT refit's smallest eigenvector) and K11 (the 8x8 solves)
-    against their plain versions on the inputs the perspective paths give
-    them, recorded from one eager (CVST_FUSED=0) call each of Flow and
-    Classic 1080p x 80 crop_and_pad perspective and of config 3 (Flow 720p
-    x 128, perspective, camera_lock): K10 at (79, 9, 9) and (127, 9, 9),
-    K11 on 40,448 and 65,024 4-point systems (repeated draws among them,
-    NaN where NaN) and on the IRLS pre-warp's (B, 8, 8) systems of every
-    DIS level, all torch.equal.  Then each at the main shapes, timed in
-    turns with its plain version, beside torch.linalg.eigh / solve_ex on
-    the same inputs (host clock, their own synchronization included), with
-    bounds from this run's inputs (K10's tests and rotations counted by
-    its plain version)."""
+    """K10 (the DLT refit's smallest eigenvector) and K11's two entries
+    (the 4-point hypotheses and the general 8x8 solve) against their plain
+    versions on the inputs the perspective paths give them, recorded from
+    one eager (CVST_FUSED=0) call each of Flow and Classic 1080p x 80
+    crop_and_pad perspective and of config 3 (Flow 720p x 128,
+    perspective, camera_lock): K10 at (79, 9, 9) and (127, 9, 9), the
+    4-point entry on 40,448 and 65,024 sets (repeated draws among them,
+    NaN where NaN), the general entry on the IRLS pre-warp's (B, 8, 8)
+    systems of every DIS level and on the 4-point sets' systems, all
+    torch.equal.  Then each at the main shapes, timed in turns with its
+    plain version (the kernel's device time in a CUDA graph of 20 calls,
+    and an eager loop's, which the wrapper's host issue sets), beside
+    torch.linalg.eigh / solve_ex on the same inputs (host clock, their
+    own synchronization included), with bounds from
+    this run's inputs (K10's tests and rotations counted by its plain
+    version).  Returns the kernels line's rows of K10, the general K11
+    entry and the 4-point entry."""
     import torch
 
     from comfyui_video_stabilizer_tpu_torch.ops import linalg_cuda as LA
@@ -2009,58 +2053,85 @@ def phase_k10_k11(device, frames):
             recorded[path] = record_linalg_inputs(run)
     del ctx3
     summary = {}
+
+    def compare(key, out, ref):
+        torch.cuda.synchronize()
+        calls_, nan_rows = summary.get(key, (0, 0))
+        summary[key] = (calls_ + 1, nan_rows + int(torch.isnan(ref).flatten(1).any(-1).sum()))
+        check(same_nan(out, ref), f"K10/K11 ({key}): the kernel differs from its plain version")
+
     for path, calls in recorded.items():
         for name, args in calls:
             if name == "smallest_eigvec":
-                out, ref = LA.smallest_eigvec(args[0]), LA.smallest_eigvec_plain(args[0])
-                shape = tuple(args[0].shape)
-            else:
+                compare(f"{path} {name} {tuple(args[0].shape)}", LA.smallest_eigvec(args[0]),
+                        LA.smallest_eigvec_plain(args[0]))
+            elif name == "solve8":
                 a, b = args[0].reshape(-1, 8, 8), args[1].reshape(-1, 8)
-                out, ref = LA.solve8(a, b), LA.solve8_plain(a, b)
-                shape = tuple(a.shape)
-            torch.cuda.synchronize()
-            ok = same_nan(out, ref)
-            key = f"{path} {name} {shape}"
-            calls_, nan_rows = summary.get(key, (0, 0))
-            summary[key] = (calls_ + 1, nan_rows + int(torch.isnan(ref).any(-1).sum()))
-            check(ok, f"K10/K11 ({key}): the kernel differs from its plain version")
+                compare(f"{path} {name} {tuple(a.shape)}", LA.solve8(a, b), LA.solve8_plain(a, b))
+            else:
+                p4, q4 = args[0].reshape(-1, 4, 2), args[1].reshape(-1, 4, 2)
+                compare(f"{path} {name} {tuple(p4.shape)}", LA.solve_homography_4pt(p4, q4),
+                        LA.homography_4pt_plain(p4, q4))
+                a, b = LA.four_point_systems(p4, q4)
+                compare(f"{path} solve8 on its systems {tuple(a.shape)}", LA.solve8(a, b), LA.solve8_plain(a, b))
     log("[K10/K11] torch.equal (NaN where NaN) to the plain versions on every recorded input (path, kernel, "
-        "shape: calls, systems with a NaN): " + "; ".join(f"{k}: {v[0]}, {v[1]}" for k, v in summary.items()))
-    check(any(v[1] > 0 for k, v in summary.items() if "solve8" in k), "K11: no recorded system came out non-finite")
+        "shape: calls, results with a NaN): " + "; ".join(f"{k}: {v[0]}, {v[1]}" for k, v in summary.items()))
+    check(any(v[1] > 0 for k, v in summary.items() if "homography_4pt" in k),
+          "K11: no recorded 4-point set came out non-finite")
 
-    def pick(path, name, ndim):
-        return next(args for n, args in recorded[path] if n == name and args[0].dim() == ndim)
+    def pick(path, name):
+        return next(args for n, args in recorded[path] if n == name)
 
     result = {}
-    for kernel, path in (("K10", "flow"), ("K10", "config 3"), ("K11", "flow"), ("K11", "config 3")):
+    rows = (("K10", "flow"), ("K10", "config 3"), ("K11", "flow"), ("K11", "config 3"), ("K11 40,448", "flow"),
+            ("K11 4-point", "flow"), ("K11 4-point", "config 3"))
+    for kernel, path in rows:
         if kernel == "K10":
-            m = pick(path, "smallest_eigvec", 3)[0]
+            m = pick(path, "smallest_eigvec")[0]
             counts = {}
             LA.smallest_eigvec_plain(m, counts)
-            ms, plain_ms, tk, tp = timed_pair(lambda: LA.smallest_eigvec(m), lambda: LA.smallest_eigvec_plain(m),
-                                              50, 2)
+            kern, plain = (lambda: LA.smallest_eigvec(m)), (lambda: LA.smallest_eigvec_plain(m))
             lib = library_ms(lambda: torch.linalg.eigh(m), 10)
             b = bound(4 * m.shape[0] * (81 + 9), K10_TEST_OPS * counts["tests"]
                       + K10_ROTATION_OPS * counts["rotations"] + K10_PICK_OPS * m.shape[0])
             shape = tuple(m.shape)
             work = f"{counts['tests']} rotation tests, {counts['rotations']} rotations"
+        elif kernel == "K11 4-point":
+            p4, q4 = (t.reshape(-1, 4, 2) for t in pick(path, "solve_homography_4pt"))
+            kern, plain = (lambda: LA.solve_homography_4pt(p4, q4)), (lambda: LA.homography_4pt_plain(p4, q4))
+            a, rhs = LA.four_point_systems(p4, q4)
+            lib = library_ms(lambda: torch.linalg.solve_ex(a, rhs[..., None], check_errors=False), 10)
+            b = bound(4 * p4.shape[0] * (16 + 9), (K11_4PT_BUILD_OPS + K11_SYSTEM_OPS) * p4.shape[0])
+            shape = tuple(p4.shape)
+            work = f"{p4.shape[0]} 4-point sets (the library call solves the systems built from them)"
         else:
-            a4, b4 = pick(path, "solve8", 4)
-            a, rhs = a4.reshape(-1, 8, 8), b4.reshape(-1, 8)
-            ms, plain_ms, tk, tp = timed_pair(lambda: LA.solve8(a, rhs), lambda: LA.solve8_plain(a, rhs), 50, 2)
+            if kernel == "K11":
+                a, rhs = pick(path, "solve8")
+            else:
+                a, rhs = LA.four_point_systems(*(t.reshape(-1, 4, 2) for t in pick(path, "solve_homography_4pt")))
+            a, rhs = a.reshape(-1, 8, 8), rhs.reshape(-1, 8)
+            kern, plain = (lambda: LA.solve8(a, rhs)), (lambda: LA.solve8_plain(a, rhs))
             lib = library_ms(lambda: torch.linalg.solve_ex(a, rhs[..., None], check_errors=False), 10)
             b = bound(4 * a.shape[0] * (64 + 8 + 8), K11_SYSTEM_OPS * a.shape[0])
             shape = tuple(a.shape)
             work = f"{a.shape[0]} systems"
-        log(f"[K10/K11] {kernel} {path} {shape}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms (runs {tk}, {tp}); "
+        # plain, kernel, kernel, plain; the kernel in a CUDA graph of 20 calls
+        tp = [cuda_ms(plain, 2)]
+        tk = [graph_ms(kern, 20) for _ in range(2)]
+        tp.append(cuda_ms(plain, 2))
+        ms, plain_ms, issue_ms = min(tk), min(tp), cuda_ms(kern, 50)
+        log(f"[K10/K11] {kernel} {path} {shape}: kernel {ms:.4f} ms (device time in a graph; an eager loop of "
+            f"launches {issue_ms:.4f}: the host's issue), plain {plain_ms:.3f} ms (runs {tk}, {tp}); "
             f"{'torch.linalg.eigh' if kernel == 'K10' else 'torch.linalg.solve_ex'} {lib:.4f} ms (host clock, its "
             f"own synchronization included); {work}; bound {b['bound_ms']:.6f} ms ({b['bound_by']})")
-        row = {"shape": shape, "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, **b, "library_ms": lib}
-        if path == "flow":
-            result[kernel] = row
+        row = {"shape": shape, "max_abs_err": 0.0, "ms": ms, "eager_loop_ms": issue_ms, "plain_ms": plain_ms, **b,
+               "library_ms": lib}
+        name = kernel.split()[0] if kernel != "K11 4-point" else "K11 4-point"
+        if path == "flow" and kernel != "K11 40,448":
+            result[name] = row
         else:
-            result[kernel]["config3"] = row
-    return result["K10"], result["K11"]
+            result[name]["config3" if path == "config 3" else "systems_40448"] = row
+    return result["K10"], result["K11"], result["K11 4-point"]
 
 
 def phase_persp_graph(device, frames):
@@ -2068,8 +2139,8 @@ def phase_persp_graph(device, frames):
     CUDA graphs.  Per kind, from an empty cache: the first call captures
     one graph (its ms, and the device memory the graph keeps alone); a
     warm call replays it (its launches, the kernels line's for K10 and
-    K11: K10 twice, K11 once for Classic, for Flow once plus three times a
-    DIS level); calls in turns (graph, eager, eager, graph; CVST_FUSED=0
+    K11: K10 twice, K11's 4-point entry once, its general entry three
+    times a DIS level for Flow and never for Classic); calls in turns (graph, eager, eager, graph; CVST_FUSED=0
     for eager) with frames, masks and the whole meta (every matrix in it)
     torch.equal to the first eager call's, timed; the replay alone (CUDA
     events); one eager run of the estimation the graph holds
@@ -2106,10 +2177,10 @@ def phase_persp_graph(device, frames):
         launches = dict(cuda_build.LAUNCHES)
         check(FP.GRAPH_STATS["captures"] == stats["captures"] + 1
               and FP.GRAPH_STATS["replays"] == stats["replays"] + 2, f"{tag}: the warm call did not replay alone")
-        # Flow: one 4-point solve, three IRLS solves a DIS level fit
-        check(launches["smallest_eigvec"] == 2 and launches["warp"] == 1
-              and (launches["solve8"] > 1 and (launches["solve8"] - 1) % 3 == 0 if kind == "flow"
-                   else launches["solve8"] == 1), f"{tag}: launches {launches}")
+        # one 4-point solve a RANSAC fit; Flow: three IRLS solves a DIS level fit
+        check(launches["smallest_eigvec"] == 2 and launches["warp"] == 1 and launches["homography_4pt"] == 1
+              and (launches["solve8"] > 0 and launches["solve8"] % 3 == 0 if kind == "flow"
+                   else launches["solve8"] == 0), f"{tag}: launches {launches}")
 
         def same(a, b):
             return (bool(torch.equal(a.frames, b.frames)), bool(torch.equal(a.masks, b.masks)), a.meta == b.meta)
@@ -3436,7 +3507,7 @@ def main() -> int:
     timed_phase("Classic node", phase_node, frames[:16].cpu(), "VideoStabilizerClassic")
     timed_phase("crop", phase_crop, device, frames)
     config3_launches = timed_phase("config 3", phase_config3, device, frames)
-    k10, k11 = timed_phase("K10/K11", phase_k10_k11, device, frames)
+    k10, k11, k11_4pt = timed_phase("K10/K11", phase_k10_k11, device, frames)
 
     meta4 = shake_meta("action", 3, CLIP_FRAMES, HEIGHT, WIDTH)
     # every profile ahead of K3's check: once K3's plain version has run at
@@ -3498,7 +3569,8 @@ def main() -> int:
     log(f"[summary] {smi}: perspective crop_and_pad 1080p x {CLIP_FRAMES} from the CUDA graphs (K10, K11 inside): "
         + "; ".join(f"{k} {persp[k]['graph_ms']:.1f} ms (eager {persp[k]['eager_ms']:.1f}; the replay alone "
                     f"{persp[k]['replay_ms']:.2f}; first call {persp[k]['first_ms']:.1f}; keeps "
-                    f"{persp[k]['kept_gib']:.3f} GiB; K10 / K11 launches {persp[k]['launches']['smallest_eigvec']} / "
+                    f"{persp[k]['kept_gib']:.3f} GiB; K10 / K11 4-point / K11 general launches "
+                    f"{persp[k]['launches']['smallest_eigvec']} / {persp[k]['launches']['homography_4pt']} / "
                     f"{persp[k]['launches']['solve8']}; split {persp_split[k]})" for k in ("flow", "classic"))
         + f"; both graphs keep {persp['kept_both_gib']:.3f} GiB")
     log(f"[summary] {smi}: the unrepaired uint8 / 0..255 normalization would move full-size gray pixels: "
@@ -3565,12 +3637,21 @@ def main() -> int:
          "launches_classic": persp["classic"]["launches"]["smallest_eigvec"], **k10},
         {"name": "solve8", "route": "cuda",
          "source": "comfyui_video_stabilizer_tpu_torch/csrc/linalg.cu",
-         "replaces": "comfyui_video_stabilizer_tpu/ops/ransac.py:60",
-         "note": "the JAX package runs this stage as XLA (jnp.linalg.solve in _solve_homography_4pt; also the IRLS "
-                 "pre-warp, ops/flow_dis.py:341), not a pallas_call; launches from a warm Flow 1080p x 80 "
-                 "crop_and_pad perspective call (its graph replay)",
+         "replaces": "comfyui_video_stabilizer_tpu/ops/flow_dis.py:341",
+         "note": "the general entry; the JAX package runs this stage as XLA (jnp.linalg.solve of the IRLS "
+                 "pre-warp's normal equations), not a pallas_call; launches from a warm Flow 1080p x 80 "
+                 "crop_and_pad perspective call (its graph replay); systems_40448: the Flow call's 4-point "
+                 "sets' systems",
          "launches": persp["flow"]["launches"]["solve8"],
          "launches_classic": persp["classic"]["launches"]["solve8"], **k11},
+        {"name": "homography_4pt", "route": "cuda",
+         "source": "comfyui_video_stabilizer_tpu_torch/csrc/linalg.cu",
+         "replaces": "comfyui_video_stabilizer_tpu/ops/ransac.py:60",
+         "note": "K11's 4-point entry, which builds each system itself; the JAX package runs this stage as XLA "
+                 "(jnp.linalg.solve in _solve_homography_4pt), not a pallas_call; launches from a warm Flow "
+                 "1080p x 80 crop_and_pad perspective call (its graph replay)",
+         "launches": persp["flow"]["launches"]["homography_4pt"],
+         "launches_classic": persp["classic"]["launches"]["homography_4pt"], **k11_4pt},
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

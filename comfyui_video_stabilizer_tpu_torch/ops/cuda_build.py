@@ -66,7 +66,8 @@ class KernelTypeError(KernelError, TypeError):
 
 
 LAUNCHES = {"warp": 0, "warp_blur": 0, "cost_volume": 0, "gftt": 0, "lk_gn": 0, "extract_windows": 0,
-            "greedy": 0, "padding_stats": 0, "gray_pool": 0, "smallest_eigvec": 0, "solve8": 0}
+            "greedy": 0, "padding_stats": 0, "gray_pool": 0, "smallest_eigvec": 0, "solve8": 0,
+            "homography_4pt": 0}
 
 
 def reset_launches() -> None:
@@ -200,6 +201,8 @@ def library() -> ctypes.CDLL:
     lib.cvst_smallest_eigvec.restype = i32
     lib.cvst_solve8.argtypes = [ptr, ptr, ptr, i32, ptr]
     lib.cvst_solve8.restype = i32
+    lib.cvst_homography_4pt.argtypes = [ptr, ptr, ptr, i32, ptr]
+    lib.cvst_homography_4pt.restype = i32
     lib.cvst_error_string.argtypes = [i32]
     lib.cvst_error_string.restype = ctypes.c_char_p
     return lib

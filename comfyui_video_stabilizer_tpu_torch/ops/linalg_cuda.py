@@ -7,13 +7,16 @@ single-program perspective estimation, which XLA lowers without a
 - ``jnp.linalg.eigh`` in the DLT refit (``comfyui_video_stabilizer_tpu/
   ops/ransac.py:112`` ``_refit_homography``): the eigenvector of the
   smallest eigenvalue of each (B, 9, 9) normal matrix.  K10
-  (``csrc/linalg.cu``, ``smallest_eigvec``) runs cyclic Jacobi, one
-  thread a matrix.
+  (``csrc/linalg.cu``, ``smallest_eigvec``) runs Jacobi in the parallel
+  (round-robin) order, one warp a matrix.
 - ``jnp.linalg.solve`` of the 4-point homography systems (``ops/
   ransac.py:60`` ``_solve_homography_4pt``) and of the IRLS pre-warp's
-  normal equations (``ops/flow_dis.py:341``): K11 (``csrc/linalg.cu``,
-  ``solve8``), Gaussian elimination with partial pivoting on each 8x8
-  system, one thread a system.
+  normal equations (``ops/flow_dis.py:341``): K11 (``csrc/linalg.cu``),
+  Gaussian elimination with partial pivoting on each 8x8 system, one
+  thread a system, a block's systems staged through shared memory.  Its
+  4-point entry (``solve_homography_4pt``) builds each hypothesis's
+  system from its four correspondences itself; the general entry
+  (``solve8``) takes the systems.
 
 The port calls neither ``torch.linalg.eigh`` nor ``torch.linalg.solve_ex``
 for them: both read the card on the host (``eigh`` checks the library's
@@ -27,16 +30,24 @@ kernel's arithmetic op for op, batched with per-matrix masks, every
 division a division by a tensor, so the kernels (built with
 ``-fmad=false``) are ``torch.equal`` to them on the card.
 
-Jacobi (K10).  Sweeps visit the pairs (p, q), p < q, row by row.  A
-pair rotates when ``|a_pq| > 2**-23 * sqrt|a_pp| * sqrt|a_qq|`` (the
-relative test that keeps the small eigenvalues' accuracy), with the
-classic rotation::
+Jacobi (K10).  A sweep visits the 36 pairs (p, q), p < q, in 9 rounds
+of 4 disjoint pairs (``ROUNDS``: round r pairs r + k and r - k mod 9,
+k = 1..4, and leaves index r out).  A pair rotates when ``|a_pq| >
+2**-23 * sqrt|a_pp| * sqrt|a_qq|`` (the relative test that keeps the
+small eigenvalues' accuracy), with the classic rotation::
 
     theta = (a_qq - a_pp) / (2 a_pq)
     t = sign(theta) / (|theta| + sqrt(theta^2 + 1)),  c = 1 / sqrt(t^2 + 1),  s = t c
     a_kp <- c a_kp - s a_kq,  a_kq <- s a_kp + c a_kq   (k != p, q; both triangles)
     a_pp <- a_pp - t a_pq,  a_qq <- a_qq + t a_pq,  a_pq <- 0
     v_kp <- c v_kp - s v_kq,  v_kq <- s v_kp + c v_kq   (all k)
+
+The kernel takes a round's four tests and rotations from the matrix as
+the round found it and applies them together, an entry where two
+rotated pairs cross getting the earlier pair's rotation first.  No
+rotation of a round reads or writes another one's a_pp, a_qq or a_pq,
+so that is exactly the four rotations one after the other, as the
+plain version runs them.
 
 A sweep that rotates nothing ends the matrix's iteration (it is then a
 fixed point: a further sweep tests the same numbers), as does the
@@ -52,6 +63,11 @@ the smallest normal float32), as LAPACK's ``sgetf2`` scales the column
 by the pivot's reciprocal; back substitution sums ``a_ij x_j`` for j =
 i+1..7 in order and divides by ``a_ii``.  A zero pivot gives the IEEE
 non-finite result on both sides, so ``hyp_ok`` rejects the same draws.
+The 4-point entry's system is the JAX package's: rows ``[x, y, 1, 0, 0,
+0, -x u, -y u]`` and ``[0, 0, 0, x, y, 1, -x v, -y v]`` (``-x u`` the
+product of the negation), then ``1e-12 I`` added to every entry (a -0
+becomes +0), right-hand side ``[u, v]``; the homography is the solution
+and h22 = 1.
 """
 
 from __future__ import annotations
@@ -68,12 +84,19 @@ N_EIG = 9
 N_SOLVE = 8
 # the smallest normal float32: K11 scales by a pivot's reciprocal at or above it
 FLT_MIN = 2.0 ** -126
-# the pairs of a sweep, in order
-_PAIRS = tuple((p, q) for p in range(N_EIG - 1) for q in range(p + 1, N_EIG))
+# the rounds of a sweep: 4 disjoint pairs each, every pair once a sweep
+ROUNDS = tuple(tuple(tuple(sorted(((r + k) % N_EIG, (r - k) % N_EIG))) for k in range(1, 5))
+               for r in range(N_EIG))
+# the pairs of a sweep, in the order the plain version rotates them
+PAIRS = tuple(pair for rnd in ROUNDS for pair in rnd)
+# the 4-point systems' ridge (the JAX package's A + 1e-12 I)
+RIDGE = 1e-12
 
 
-def smallest_eigvec_plain(mats: torch.Tensor, counts: dict | None = None) -> torch.Tensor:
-    """Plain PyTorch version of K10: (B, 9, 9) symmetric float32 -> (B, 9).
+def smallest_eigvec_plain(mats: torch.Tensor, counts: dict | None = None,
+                          pairs: tuple = PAIRS) -> torch.Tensor:
+    """Plain PyTorch version of K10: (B, 9, 9) symmetric float32 -> (B, 9),
+    rotating ``pairs`` in order each sweep (K10's: ``PAIRS``).
 
     Runs sweeps until no matrix rotates (a host read, taken only where
     this version runs: the CPU, and the card's comparisons) or the
@@ -92,7 +115,7 @@ def smallest_eigvec_plain(mats: torch.Tensor, counts: dict | None = None) -> tor
     tests = rotations = 0
     for _ in range(JACOBI_SWEEPS):
         rotated = torch.zeros(B, dtype=torch.bool, device=a.device)
-        for p, q in _PAIRS:
+        for p, q in pairs:
             app, aqq, apq = a[:, p, p], a[:, q, q], a[:, p, q]
             rot = apq.abs() > JACOBI_TOL * (torch.sqrt(app.abs()) * torch.sqrt(aqq.abs()))
             theta = (aqq - app) / (2.0 * apq)
@@ -121,7 +144,7 @@ def smallest_eigvec_plain(mats: torch.Tensor, counts: dict | None = None) -> tor
             if counts is not None:
                 rotations += int(rot.sum())
         if counts is not None:
-            tests += len(_PAIRS) * int(active.sum())
+            tests += len(pairs) * int(active.sum())
         active = rotated
         if not bool(rotated.any()):
             break
@@ -208,7 +231,7 @@ def solve8(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     flat_b = b.reshape(-1, N_SOLVE)
     if A.device.type == "cpu":
         return solve8_plain(flat_a, flat_b).reshape(lead + (N_SOLVE,))
-    flat_a, flat_b = flat_a.contiguous(), flat_b.contiguous()
+    flat_a, flat_b = _aligned(flat_a.contiguous()), _aligned(flat_b.contiguous())
     cuda_build.require_cuda_tensor("A", flat_a, torch.float32, 3)
     cuda_build.require_cuda_tensor("b", flat_b, torch.float32, 2)
     n = flat_a.shape[0]
@@ -221,3 +244,61 @@ def solve8(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         cuda_build.check_launch(err, "solve8")
         cuda_build.LAUNCHES["solve8"] += 1
     return x.reshape(lead + (N_SOLVE,))
+
+
+def four_point_systems(p: torch.Tensor, q: torch.Tensor):
+    """The 4-point systems of p, q (..., 4, 2) float32 as torch builds
+    them (module docstring): (A + 1e-12 I (..., 8, 8), b (..., 8))."""
+    x, y = p[..., 0], p[..., 1]
+    u, v = q[..., 0], q[..., 1]
+    zeros = torch.zeros_like(x)
+    ones = torch.ones_like(x)
+    rows_u = torch.stack([x, y, ones, zeros, zeros, zeros, -x * u, -y * u], dim=-1)
+    rows_v = torch.stack([zeros, zeros, zeros, x, y, ones, -x * v, -y * v], dim=-1)
+    A = torch.cat([rows_u, rows_v], dim=-2)
+    return A + RIDGE * torch.eye(N_SOLVE, dtype=A.dtype, device=A.device), torch.cat([u, v], dim=-1)
+
+
+def homography_4pt_plain(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of K11's 4-point entry: p, q (..., 4, 2)
+    float32 -> (..., 3, 3), ``four_point_systems`` solved by
+    ``solve8_plain``, h22 = 1."""
+    A, b = four_point_systems(p, q)
+    h = solve8_plain(A.reshape(-1, N_SOLVE, N_SOLVE), b.reshape(-1, N_SOLVE)).reshape(b.shape)
+    H = torch.cat([h, torch.ones_like(h[..., :1])], dim=-1)
+    return H.reshape(*H.shape[:-1], 3, 3)
+
+
+def solve_homography_4pt(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """The homography (h22 = 1) through each set of four correspondences
+    p -> q, (..., 4, 2) float32 each -> (..., 3, 3) (module docstring); a
+    singular system (a repeated point) gives non-finite entries.
+
+    CUDA tensors launch K11's 4-point entry; CPU tensors take the plain
+    version."""
+    lead = tuple(p.shape[:-2])
+    if p.shape[-2:] != (4, 2) or q.shape != p.shape:
+        raise cuda_build.KernelArgumentError(
+            f"K11's 4-point entry takes (..., 4, 2) points p and q, got {tuple(p.shape)}, {tuple(q.shape)}")
+    if p.device.type == "cpu":
+        return homography_4pt_plain(p, q)
+    flat_p = _aligned(p.reshape(-1, 4, 2).contiguous())
+    flat_q = _aligned(q.reshape(-1, 4, 2).contiguous())
+    cuda_build.require_cuda_tensor("p", flat_p, torch.float32, 3)
+    cuda_build.require_cuda_tensor("q", flat_q, torch.float32, 3)
+    n = flat_p.shape[0]
+    if not 1 <= n < 2**31 or flat_q.device != flat_p.device:
+        raise cuda_build.KernelArgumentError(f"K11's 4-point entry takes 1 <= N < 2**31 sets on one device, got {n}")
+    H = torch.empty((n, 9), dtype=torch.float32, device=p.device)
+    with torch.cuda.device(p.device):
+        err = cuda_build.library().cvst_homography_4pt(
+            flat_p.data_ptr(), flat_q.data_ptr(), H.data_ptr(), n, cuda_build.current_stream(p.device))
+        cuda_build.check_launch(err, "homography_4pt")
+        cuda_build.LAUNCHES["homography_4pt"] += 1
+    return H.reshape(lead + (3, 3))
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a copy of it where its data is not 16-byte aligned (the
+    kernels' staged loads read 16 bytes at a time)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()

@@ -17,10 +17,11 @@ rounding.  JAX turns such a pivot into NaN, which ``hyp_ok`` masks, on
 most repeated draws but not all (4-11 % of them come out finite, and
 score no inliers); the port rejects every repeated 4-point draw
 outright, so its CPU and CUDA paths agree on ``hyp_ok``.  The 4-point
-solves are K11 and the refit's smallest eigenvector K10 (ops/
-linalg_cuda.py: partial-pivoting elimination and cyclic Jacobi, plain
-twins on the CPU), which never read the card on the host, so a CUDA
-graph holds the whole fit.  A singular system gives the same
+solves are K11's 4-point entry, which builds each system itself, and
+the refit's smallest eigenvector K10 (ops/linalg_cuda.py: partial-
+pivoting elimination and Jacobi in the parallel order, plain twins on
+the CPU), which never read the card on the host, so a CUDA graph holds
+the whole fit.  A singular system gives the same
 non-finite (or finite) result on both devices.  The normal matrix's
 product is a library matmul, so refits agree with the CPU to rounding,
 not bitwise.
@@ -74,18 +75,7 @@ def _solve_similarity_2pt(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
 
 def _solve_homography_4pt(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     """p, q (..., 4, 2) -> (..., 3, 3) homography with h22 = 1 (8x8 solve)."""
-    x, y = p[..., 0], p[..., 1]
-    u, v = q[..., 0], q[..., 1]
-    zeros = torch.zeros_like(x)
-    ones = torch.ones_like(x)
-    rows_u = torch.stack([x, y, ones, zeros, zeros, zeros, -x * u, -y * u], dim=-1)
-    rows_v = torch.stack([zeros, zeros, zeros, x, y, ones, -x * v, -y * v], dim=-1)
-    A = torch.cat([rows_u, rows_v], dim=-2)                          # (..., 8, 8)
-    b = torch.cat([u, v], dim=-1)[..., None]                         # (..., 8, 1)
-    eye = torch.eye(8, dtype=A.dtype, device=A.device)
-    h = LA.solve8(A + 1e-12 * eye, b[..., 0])
-    H = torch.cat([h, torch.ones_like(h[..., :1])], dim=-1)
-    return H.reshape(*H.shape[:-1], 3, 3)
+    return LA.solve_homography_4pt(p, q)
 
 
 def _apply_homography(H: torch.Tensor, x: torch.Tensor, y: torch.Tensor):

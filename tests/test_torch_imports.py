@@ -265,7 +265,10 @@ def test_cpu_tensor_takes_plain_versions_without_launching():
     assert torch.equal(linalg_cuda.smallest_eigvec(spd[None]), linalg_cuda.smallest_eigvec_plain(spd[None]))
     A, b = torch.eye(8)[None] * 2.0, torch.ones((1, 8))
     assert torch.equal(linalg_cuda.solve8(A, b), linalg_cuda.solve8_plain(A, b))
+    quad = torch.tensor([[[0.0, 0.0], [1.0, 0.0], [0.0, 1.0], [1.0, 1.0]]])
+    assert torch.equal(linalg_cuda.solve_homography_4pt(quad, quad * 2.0),
+                       linalg_cuda.homography_4pt_plain(quad, quad * 2.0))
     assert set(cuda_build.LAUNCHES) == {"warp", "warp_blur", "cost_volume", "gftt", "lk_gn",
                                         "extract_windows", "greedy", "padding_stats", "gray_pool",
-                                        "smallest_eigvec", "solve8"}
+                                        "smallest_eigvec", "solve8", "homography_4pt"}
     assert all(v == 0 for v in cuda_build.LAUNCHES.values()), cuda_build.LAUNCHES

@@ -9,8 +9,8 @@ numpy seed.  Tolerances:
   normal matrices (8 to 8,160 noisy correspondences) and of symmetric
   matrices with a set spectrum (smallest eigenvalue 1e-2, the others in
   [1, 100]) equal to ``jnp.linalg.eigh``'s up to sign within 1e-4
-  (measured 3.5e-6 at 8 points: both are float32 solvers, Jacobi against
-  LAPACK); K11's solutions against ``jnp.linalg.solve``, each entry
+  (measured 2.7e-6 at 8 points, 3.5e-6 in the cyclic order: both
+  are float32 solvers, Jacobi against LAPACK); K11's solutions against ``jnp.linalg.solve``, each entry
   over its column's largest, within 2e-3 on 4-point systems of
   well-spread quads in pixel coordinates (measured 6.4e-4; JAX's own
   float32 solve is 7.2e-4 from float64's there: the unnormalized
@@ -28,9 +28,16 @@ numpy seed.  Tolerances:
   crop_and_pad call goes through ``_fused_estimate`` with results
   ``torch.equal`` to the eager call.
 
-The ``cuda`` cases hold K10 and K11 ``torch.equal`` to their twins on
-the card at the slice's shapes ((79, 9, 9) and (127, 9, 9); 40,448 and
-65,024 8x8 systems, repeated draws among them; (79, 8, 8)), check that
+K10 rotates in the parallel (round-robin) order; its twin in that order
+is held to the twin in the old cyclic order within 1e-4 too (both
+float32 Jacobi, rounding differently).  K11's 4-point twin is the torch
+construction of the systems followed by ``solve8_plain``, ``torch.equal``
+(NaN where NaN) to that construction written out here.
+
+The ``cuda`` cases hold K10 and both K11 entries ``torch.equal`` to their
+twins on the card at the slice's shapes ((79, 9, 9) and (127, 9, 9);
+40,448 and 65,024 4-point sets, repeated draws among them; (79, 8, 8)),
+at 1 and at counts that leave a block part full, check that
 the perspective estimation makes no host sync, and that both perspective
 graphs equal the eager fast path bitwise.  They skip here; on a card:
 
@@ -166,6 +173,110 @@ def test_eigvec_plain_reads_the_upper_triangle_and_takes_the_first_tie():
     assert torch.equal(LA.smallest_eigvec_plain(lower_junk), LA.smallest_eigvec_plain(mats))
     e0 = LA.smallest_eigvec_plain(torch.eye(9)[None])
     assert torch.equal(e0, torch.eye(9)[:1])
+
+
+CYCLIC_PAIRS = tuple((p, q) for p in range(9) for q in range(p + 1, 9))
+
+
+@pytest.mark.parametrize("case", ["dlt 8", "dlt 400", "dlt 8160", "spectrum"])
+def test_eigvec_plain_matches_cyclic_order(case):
+    """The parallel order's twin against the cyclic order's (K10's first order),
+    up to sign, within 1e-4: the same Jacobi in another order."""
+    rng = np.random.default_rng(len(case) + 40)
+    mats = torch.from_numpy(_spectrum(rng, 24) if case == "spectrum" else _dlt_normals(rng, 12, int(case.split()[1])))
+    ours = LA.smallest_eigvec_plain(mats).numpy()
+    cyclic = LA.smallest_eigvec_plain(mats, pairs=CYCLIC_PAIRS).numpy()
+    sign = np.sign((ours * cyclic).sum(1, keepdims=True))
+    assert np.abs(ours * sign - cyclic).max() <= 1e-4
+
+
+def test_jacobi_rounds_visit_every_pair_once():
+    """Nine rounds of four disjoint pairs, index r left out of round r,
+    every pair (p < q) once a sweep; the plain version's order is the
+    rounds' in turn."""
+    assert len(LA.ROUNDS) == 9 and all(len(r) == 4 for r in LA.ROUNDS)
+    for r, rnd in enumerate(LA.ROUNDS):
+        idx = [i for pair in rnd for i in pair]
+        assert len(set(idx)) == 8 and r not in idx
+        assert all(p < q for p, q in rnd)
+    assert sorted(LA.PAIRS) == list(CYCLIC_PAIRS)
+    assert LA.PAIRS == tuple(pair for rnd in LA.ROUNDS for pair in rnd)
+
+
+@pytest.mark.parametrize("case", ["identity", "diagonal ties", "block ties"])
+def test_eigvec_plain_identity_and_ties(case):
+    """Nothing rotates on the identity (the refit's stand-in for a
+    non-finite normal matrix) or on a diagonal matrix: e0, or the first
+    of the tied smallest entries; a matrix whose two smallest eigenvalues
+    tie after rotating gives a unit vector of that eigenspace."""
+    if case == "identity":
+        mats, first = torch.eye(9)[None], 0
+    elif case == "diagonal ties":
+        mats, first = torch.diag(torch.tensor([5.0, 2.0, 3.0, 2.0, 9.0, 2.0, 4.0, 6.0, 7.0]))[None], 1
+    else:
+        Q, _ = np.linalg.qr(np.random.default_rng(11).normal(size=(9, 9)))
+        lam = np.array([1.0, 1.0, 3.0, 4.0, 5.0, 6.0, 7.0, 8.0, 9.0])
+        m = (Q * lam) @ Q.T
+        mats, first = torch.from_numpy(((m + m.T) / 2).astype(np.float32))[None], None
+    counts = {}
+    vec = LA.smallest_eigvec_plain(mats, counts)
+    if first is None:
+        low = Q[:, :2]                                   # the tied eigenspace
+        resid = vec[0].numpy() - low @ (low.T @ vec[0].numpy())
+        assert np.abs(resid).max() <= 1e-4 and counts["rotations"] > 0
+    else:
+        assert counts == {"tests": 36, "rotations": 0}
+        assert torch.equal(vec, torch.eye(9)[first:first + 1])
+    np.testing.assert_allclose(np.linalg.norm(vec.numpy(), axis=1), 1.0, rtol=0, atol=1e-6)
+
+
+def _four_point_construction(ps, qs):
+    """The 4-point systems as ``ransac._solve_homography_4pt`` built them
+    in torch before K11 had a 4-point entry, solved by ``solve8_plain``:
+    (..., 3, 3)."""
+    x, y, u, v = ps[..., 0], ps[..., 1], qs[..., 0], qs[..., 1]
+    z, o = torch.zeros_like(x), torch.ones_like(x)
+    A = torch.cat([torch.stack([x, y, o, z, z, z, -x * u, -y * u], -1),
+                   torch.stack([z, z, z, x, y, o, -x * v, -y * v], -1)], -2)
+    A = A + 1e-12 * torch.eye(8, dtype=A.dtype, device=A.device)
+    b = torch.cat([u, v], -1)
+    h = LA.solve8_plain(A.reshape(-1, 8, 8), b.reshape(-1, 8)).reshape(b.shape)
+    return torch.cat([h, torch.ones_like(h[..., :1])], -1).reshape(*h.shape[:-1], 3, 3)
+
+
+def _draws(rng, pairs, n_hyp, n_pts=60, zeros=True):
+    """(ps, qs) (pairs, n_hyp, 4, 2) float32: 4-point draws with replacement
+    from n_pts correspondences a pair (repeated points among them); with
+    ``zeros``, some coordinates +0 or -0 (so -x * u is a signed zero)."""
+    p, q = _correspondences(rng, pairs, n_pts)
+    if zeros:
+        p[:, :6, 0] = np.array([0.0, -0.0, 0.0, -0.0, 0.0, -0.0], np.float32)
+        q[:, 3:9, 1] = np.array([-0.0, 0.0, -0.0, 0.0, -0.0, 0.0], np.float32)
+        q[:, 5:8, 0] = -0.0
+    idx = rng.integers(0, n_pts, (pairs, n_hyp, 4))
+    return (np.take_along_axis(p[:, None], idx[..., None], 2), np.take_along_axis(q[:, None], idx[..., None], 2))
+
+
+def _same(a, b) -> bool:
+    """torch.equal, NaN where NaN."""
+    nan_a, nan_b = torch.isnan(a), torch.isnan(b)
+    return bool(torch.equal(nan_a, nan_b)) and bool(torch.equal(a[~nan_a], b[~nan_b]))
+
+
+@pytest.mark.parametrize("pairs,n_hyp", [(3, 512), (1, 1), (2, 77)])
+def test_homography_4pt_plain_equals_the_construction(pairs, n_hyp):
+    """K11's 4-point twin (and ``ransac._solve_homography_4pt`` on the CPU)
+    against the construction written out, torch.equal, NaN where NaN, on
+    draws with repeated points and signed zeros."""
+    ps, qs = (torch.from_numpy(t) for t in _draws(np.random.default_rng(pairs * 1000 + n_hyp), pairs, n_hyp))
+    ref = _four_point_construction(ps, qs)
+    out = LA.homography_4pt_plain(ps, qs)
+    assert out.shape == (pairs, n_hyp, 3, 3)
+    assert _same(out, ref) and _same(TRS._solve_homography_4pt(ps, qs), ref)
+    if n_hyp == 512:
+        assert not bool(torch.isfinite(ref).all()), "no repeated draw came out non-finite"
+    with pytest.raises(cuda_build.KernelArgumentError):
+        LA.solve_homography_4pt(ps[..., :3, :], qs[..., :3, :])
 
 
 @pytest.mark.parametrize("case", ["quads", "irls"])
@@ -350,12 +461,6 @@ def cuda():
     return torch.device("cuda", 0)
 
 
-def _same(a, b) -> bool:
-    """torch.equal, NaN where NaN."""
-    nan_a, nan_b = torch.isnan(a), torch.isnan(b)
-    return bool(torch.equal(nan_a, nan_b)) and bool(torch.equal(a[~nan_a], b[~nan_b]))
-
-
 @pytest.mark.cuda
 @pytest.mark.parametrize("b", [79, 127])
 def test_k10_equals_plain(cuda, b):
@@ -373,31 +478,49 @@ def test_k10_equals_plain(cuda, b):
 @pytest.mark.cuda
 @pytest.mark.parametrize("pairs", [79, 127])
 def test_k11_equals_plain_on_hypotheses(cuda, pairs):
-    """The pairs' 512 4-point systems each (40,448 and 65,024), drawn with
+    """The pairs' 512 4-point sets each (40,448 and 65,024), drawn with
     replacement from 60 points, so repeated draws (singular but for the
-    ridge) are among them."""
-    rng = np.random.default_rng(pairs)
-    p, q = _correspondences(rng, pairs, 60)
-    idx = rng.integers(0, 60, (pairs, TRS.DEFAULT_HYPOTHESES, 4))
-    ps = torch.from_numpy(np.take_along_axis(p[:, None], idx[..., None], 2)).to(cuda)
-    qs = torch.from_numpy(np.take_along_axis(q[:, None], idx[..., None], 2)).to(cuda)
+    ridge) are among them: the 4-point entry (one launch) against its
+    twin, and the general entry on the systems built from them."""
+    ps, qs = (torch.from_numpy(t).to(cuda) for t in _draws(np.random.default_rng(pairs), pairs,
+                                                           TRS.DEFAULT_HYPOTHESES))
     cuda_build.reset_launches()
     hyps = TRS._solve_homography_4pt(ps, qs)
     torch.cuda.synchronize()
-    assert cuda_build.LAUNCHES["solve8"] == 1 and hyps.shape == (pairs, TRS.DEFAULT_HYPOTHESES, 3, 3)
+    assert cuda_build.LAUNCHES["homography_4pt"] == 1 and cuda_build.LAUNCHES["solve8"] == 0
+    assert hyps.shape == (pairs, TRS.DEFAULT_HYPOTHESES, 3, 3)
+    assert _same(hyps, LA.homography_4pt_plain(ps, qs))
+    assert not bool(torch.isfinite(hyps).all()), "no repeated draw came out non-finite"
     x, y, u, v = ps[..., 0], ps[..., 1], qs[..., 0], qs[..., 1]
     z, o = torch.zeros_like(x), torch.ones_like(x)
     A = torch.cat([torch.stack([x, y, o, z, z, z, -x * u, -y * u], -1),
                    torch.stack([z, z, z, x, y, o, -x * v, -y * v], -1)], -2) + 1e-12 * torch.eye(8, device=cuda)
     b = torch.cat([u, v], -1)
     assert _same(LA.solve8(A, b), LA.solve8_plain(A.reshape(-1, 8, 8), b.reshape(-1, 8)).reshape(b.shape))
-    assert not bool(torch.isfinite(hyps).all()), "no repeated draw came out non-finite"
 
 
 @pytest.mark.cuda
 def test_k11_equals_plain_on_irls_systems(cuda):
     A, b = (torch.from_numpy(t).to(cuda) for t in _irls_systems(np.random.default_rng(2), 79))
     assert torch.equal(LA.solve8(A, b), LA.solve8_plain(A, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 127, 129, 1000])
+def test_k11_entries_equal_plain_at_partial_blocks(cuda, n):
+    """Both entries where the last block of 128 is part full (n = 1 a
+    single system), and on inputs that are not 16-byte aligned (the
+    wrappers copy them)."""
+    ps, qs = (torch.from_numpy(t.reshape(n, 4, 2)).to(cuda) for t in _draws(np.random.default_rng(n), 1, n))
+    assert _same(LA.solve_homography_4pt(ps, qs), LA.homography_4pt_plain(ps, qs))
+    A, b = (torch.from_numpy(t).to(cuda) for t in _irls_systems(np.random.default_rng(n), min(n, 8)))
+    A, b = A.repeat((n + 7) // 8, 1, 1)[:n].contiguous(), b.repeat((n + 7) // 8, 1)[:n].contiguous()
+    assert torch.equal(LA.solve8(A, b), LA.solve8_plain(A, b))
+    flat_p = torch.cat([torch.zeros(1, device=cuda), ps.reshape(-1)])[1:].reshape(n, 4, 2)
+    assert flat_p.data_ptr() % 16 != 0
+    assert _same(LA.solve_homography_4pt(flat_p, qs), LA.homography_4pt_plain(ps, qs))
+    flat_a = torch.cat([torch.zeros(1, device=cuda), A.reshape(-1)])[1:].reshape(n, 8, 8)
+    assert torch.equal(LA.solve8(flat_a, b), LA.solve8_plain(A, b))
 
 
 @pytest.mark.cuda
@@ -409,6 +532,17 @@ def test_k10_k11_refuse_bad_arguments(cuda):
     with pytest.raises(cuda_build.KernelTypeError):
         LA.solve8(torch.eye(8, dtype=torch.float64, device=cuda)[None], torch.ones((1, 8), dtype=torch.float64,
                                                                                    device=cuda))
+    pts = torch.zeros((5, 4, 2), device=cuda)
+    with pytest.raises(cuda_build.KernelTypeError):
+        LA.solve_homography_4pt(pts.double(), pts.double())
+    with pytest.raises(cuda_build.KernelArgumentError):
+        LA.solve_homography_4pt(pts[:, :3], pts[:, :3])
+    with pytest.raises(cuda_build.KernelArgumentError):
+        LA.solve_homography_4pt(pts, pts[:4])
+    with pytest.raises(cuda_build.KernelArgumentError):
+        LA.solve_homography_4pt(pts[:0], pts[:0])
+    with pytest.raises(cuda_build.KernelArgumentError):
+        LA.solve_homography_4pt(pts, pts.cpu())
 
 
 @pytest.mark.cuda
@@ -436,7 +570,8 @@ def test_perspective_estimation_makes_no_host_sync(cuda, kind):
 def test_perspective_graph_equals_eager(cuda, monkeypatch, kind):
     """Perspective crop_and_pad from its CUDA graph (captured once, then
     replayed) against CVST_FUSED=0: frames, masks and meta bitwise, the
-    same launches, K10 twice and K11 at least once."""
+    same launches, K10 twice, K11's 4-point entry once and its general
+    entry three times a DIS level fit (Flow; never for Classic)."""
     from comfyui_video_stabilizer_tpu_torch.models.classic import stabilize_classic
     from comfyui_video_stabilizer_tpu_torch.models.flow import stabilize_flow
     from comfyui_video_stabilizer_tpu_torch.utils.video_io import normalize_video_input
@@ -456,7 +591,8 @@ def test_perspective_graph_equals_eager(cuda, monkeypatch, kind):
     launches = dict(cuda_build.LAUNCHES)
     assert FP.GRAPH_STATS["captures"] == stats["captures"] + 1
     assert FP.GRAPH_STATS["replays"] == stats["replays"] + 2
-    assert launches["smallest_eigvec"] == 2 and launches["solve8"] >= 1, launches
+    assert launches["smallest_eigvec"] == 2 and launches["homography_4pt"] == 1, launches
+    assert launches["solve8"] % 3 == 0 and (launches["solve8"] > 0) == (kind == "flow"), launches
     monkeypatch.setenv("CVST_FUSED", "0")
     cuda_build.reset_launches()
     eager = run(normalize_video_input(frames, device=cuda), *args, device=cuda)
