@@ -74,6 +74,7 @@ from ..ops import ransac as RS
 from ..ops import resize as R
 from ..ops import warp as W
 from ..parallel.mesh import FrameShards, frame_shards, lead_device
+from ..utils import profiling as P
 from ..utils.device import device_constant, fetch_packed
 from ..utils.meshinfo import active_mesh, data_shards
 from . import classic as CL
@@ -111,6 +112,12 @@ GRAPH_STATS = {"captures": 0, "rebuilds": 0, "recaptures": 0, "replays": 0}
 # leaving the call to the host engine), and of those the ones that ran by
 # shard on a mesh ("mesh"); chip_smoke.py checks them
 SERVED = {"flow": 0, "classic": 0, "mesh": 0}
+
+# a call's growth of these, on its root span (utils/profiling.py)
+P.watch("fastpath.captures", lambda: GRAPH_STATS["captures"])
+P.watch("fastpath.recaptures", lambda: GRAPH_STATS["recaptures"])
+P.watch("fastpath.replays", lambda: GRAPH_STATS["replays"])
+P.watch("fastpath.served", lambda: SERVED["flow"] + SERVED["classic"])
 
 # set while a graph is captured, so offer() raises what the capture raised
 _CAPTURE = threading.local()
@@ -912,6 +919,7 @@ def _fused_estimate(kind: str, grays, strength: float, keep_fov: float, kw: dict
     key = (kind, tuple(grays.shape), str(grays.device)) + tuple(sorted(kw.items()))
     entry = _GRAPHS.get(key)
     if entry is None:
+        P.count("fastpath.capture", 1)
         entry = _FusedGraph(kind, grays, kw)
         try:
             entry.capture(grays, strength, keep_fov)
@@ -958,15 +966,17 @@ def run_flow_fast(
     want_persp = transform_mode == "perspective"
     strength_c, smooth_c, keep_fov_c, window, scale_xy = _trajectory_args(
         strength, smooth, fps, camera_lock, keep_fov, width, height, working_size)
-    grays = R.gray_for_estimation(frames, working_size, decimation=decimation)
+    with P.span("fastpath.gray", dev):
+        grays = R.gray_for_estimation(frames, working_size, decimation=decimation)
     kw = dict(decimation=decimation, seed=seed, mode=transform_mode, camera_lock=camera_lock,
               window=window, width=width, height=height, scale_xy=scale_xy)
     factors = _gray_pool_factors(width, height, working_size, decimation)
-    if factors is not None and _fused_enabled(framing, tick_pairs, frames):
-        out = _fused_estimate("flow", grays, strength_c, keep_fov_c, kw)
-    else:
-        out = _flow_estimate(grays, _scalar(strength_c, dev), _scalar(keep_fov_c, dev),
-                             tick_pairs=tick_pairs, framing=framing, bucket=(out_h_b, out_w_b), **kw)
+    with P.span("fastpath.estimate", dev):
+        if factors is not None and _fused_enabled(framing, tick_pairs, frames):
+            out = _fused_estimate("flow", grays, strength_c, keep_fov_c, kw)
+        else:
+            out = _flow_estimate(grays, _scalar(strength_c, dev), _scalar(keep_fov_c, dev),
+                                 tick_pairs=tick_pairs, framing=framing, bucket=(out_h_b, out_w_b), **kw)
     del grays
     return _dispatch_and_collect(
         frames, out, width, height, padding_rgb,
@@ -1005,14 +1015,16 @@ def run_classic_fast(
     want_persp = transform_mode == "perspective"
     strength_c, smooth_c, keep_fov_c, window, scale_xy = _trajectory_args(
         strength, smooth, fps, camera_lock, keep_fov, width, height, working_size)
-    grays = R.gray_for_estimation(frames, working_size, decimation=decimation)
+    with P.span("fastpath.gray", dev):
+        grays = R.gray_for_estimation(frames, working_size, decimation=decimation)
     kw = dict(seed=seed, mode=transform_mode, camera_lock=camera_lock, window=window, width=width,
               height=height, scale_xy=scale_xy)
-    if _fused_enabled(framing, tick_pairs, frames):
-        out = _fused_estimate("classic", grays, strength_c, keep_fov_c, kw)
-    else:
-        out = _classic_estimate(grays, _scalar(strength_c, dev), _scalar(keep_fov_c, dev),
-                                tick_pairs=tick_pairs, framing=framing, bucket=(out_h_b, out_w_b), **kw)
+    with P.span("fastpath.estimate", dev):
+        if _fused_enabled(framing, tick_pairs, frames):
+            out = _fused_estimate("classic", grays, strength_c, keep_fov_c, kw)
+        else:
+            out = _classic_estimate(grays, _scalar(strength_c, dev), _scalar(keep_fov_c, dev),
+                                    tick_pairs=tick_pairs, framing=framing, bucket=(out_h_b, out_w_b), **kw)
     del grays
     return _dispatch_and_collect(
         frames, out, width, height, padding_rgb, extra_meta={}, strength_c=strength_c,
@@ -1038,30 +1050,31 @@ def _dispatch_and_collect(
     shard, and its results come back as tensors)."""
     dev = lead_device(frames)
     sharded = isinstance(frames, FrameShards)
-    shards = (frames if sharded else FrameShards([frames])).map(lambda f: f.to(_F32).contiguous())
-    out_h_b, out_w_b = out_dims
-    n = int(frames.shape[0])
-    crop_fin = None
-    if framing == "crop":
-        _, iters = _crop_search_iters(width, height)
-        crop_fin = _crop_finalize(out["final"], _crop_w_table(width, height, dev),
-                                  width=width, height=height, iters=iters)
-        out = {**out, "final": crop_fin["final"], "coeffs": crop_fin["coeffs"]}
-    border = np.asarray(padding_rgb, np.float32) / 255.0
-    border_t = device_constant([float(v) for v in border], dev)
-    src = shards if sharded else shards.shards[0]
-    masks = stabilized = None
-    ratios = torch.zeros(n, dtype=_F32, device=dev)  # crop: made after the fetch
-    if framing == "crop_and_pad":
-        # the stats are queued before K1, so the fetch waits for them only
-        masks, ratios = W.padding_stats_sharded(out["coeffs"], shards, height, width, height, width)
-        stabilized = W.warp_frames_sharded(shards, out["coeffs"], border_t, height, width, "bilinear")
-    elif framing == "expand":
-        stabilized = W.warp_frames_sharded(shards, out["coeffs"], border_t, out_h_b, out_w_b, "bilinear")
-        masks, ratios = W.padding_stats_bucket_sharded(out["coeffs"], out["out_wh"], shards, out_h_b, out_w_b,
-                                                       height, width)
-    if not sharded and stabilized is not None:
-        stabilized, masks = stabilized.shards[0], masks.shards[0]
+    with P.span("fastpath.warp", dev):  # K8's stats and K1 queued
+        shards = (frames if sharded else FrameShards([frames])).map(lambda f: f.to(_F32).contiguous())
+        out_h_b, out_w_b = out_dims
+        n = int(frames.shape[0])
+        crop_fin = None
+        if framing == "crop":
+            _, iters = _crop_search_iters(width, height)
+            crop_fin = _crop_finalize(out["final"], _crop_w_table(width, height, dev),
+                                      width=width, height=height, iters=iters)
+            out = {**out, "final": crop_fin["final"], "coeffs": crop_fin["coeffs"]}
+        border = np.asarray(padding_rgb, np.float32) / 255.0
+        border_t = device_constant([float(v) for v in border], dev)
+        src = shards if sharded else shards.shards[0]
+        masks = stabilized = None
+        ratios = torch.zeros(n, dtype=_F32, device=dev)  # crop: made after the fetch
+        if framing == "crop_and_pad":
+            # the stats are queued before K1, so the fetch waits for them only
+            masks, ratios = W.padding_stats_sharded(out["coeffs"], shards, height, width, height, width)
+            stabilized = W.warp_frames_sharded(shards, out["coeffs"], border_t, height, width, "bilinear")
+        elif framing == "expand":
+            stabilized = W.warp_frames_sharded(shards, out["coeffs"], border_t, out_h_b, out_w_b, "bilinear")
+            masks, ratios = W.padding_stats_bucket_sharded(out["coeffs"], out["out_wh"], shards, out_h_b, out_w_b,
+                                                           height, width)
+        if not sharded and stabilized is not None:
+            stabilized, masks = stabilized.shards[0], masks.shards[0]
 
     # ONE host fetch, after K1 is queued
     bundle = {k: out[k] for k in DIAG_KEYS}
@@ -1071,7 +1084,8 @@ def _dispatch_and_collect(
                                            "crop_best_scale", "crop_s_star")})
         bundle.update(ratio_final=crop_fin["ratio_final"], refine_ok=crop_fin["refine_ok"],
                       rect=crop_fin["rect"])
-    diag = fetch_packed(bundle)
+    with P.span("fastpath.fetch", dev):
+        diag = fetch_packed(bundle)
     final = diag["final"]
     if not np.isfinite(final).all():
         return None  # the engine re-runs the host path
@@ -1080,9 +1094,10 @@ def _dispatch_and_collect(
     output_size = None
     if framing == "crop":
         # stats and warp from the fetched matrices, as the host engine
-        stabilized, masks, ratios_dev = W.warp_clip_with_mask(
-            src, np.asarray(final, np.float64), (width, height), "bilinear", border, device=dev)
-        ratios_np = ratios_dev.cpu().numpy()
+        with P.span("fastpath.warp", dev):
+            stabilized, masks, ratios_dev = W.warp_clip_with_mask(
+                src, np.asarray(final, np.float64), (width, height), "bilinear", border, device=dev)
+            ratios_np = ratios_dev.cpu().numpy()
     elif framing == "expand":
         out_w_e, out_h_e = int(diag["out_wh"][0]), int(diag["out_wh"][1])
         if out_w_e <= 0 or out_h_e <= 0:
@@ -1099,9 +1114,10 @@ def _dispatch_and_collect(
             # the canvas is past the bucket: re-warp at its exact size,
             # the trajectory kept (the bucket outputs released first)
             stabilized = masks = None
-            stabilized, masks, ratios_dev = W.warp_clip_with_mask(
-                src, np.asarray(final, np.float64), output_size, "bilinear", border, device=dev)
-            ratios_np = ratios_dev.cpu().numpy()
+            with P.span("fastpath.warp", dev):
+                stabilized, masks, ratios_dev = W.warp_clip_with_mask(
+                    src, np.asarray(final, np.float64), output_size, "bilinear", border, device=dev)
+                ratios_np = ratios_dev.cpu().numpy()
 
     result = dict(
         matrices=np.asarray(diag["matrices"], np.float32),

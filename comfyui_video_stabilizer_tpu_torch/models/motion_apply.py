@@ -47,8 +47,8 @@ from ..meta.motion_meta import (
 )
 from ..ops import warp as W
 from ..parallel.mesh import FrameShards
+from ..utils import profiling as P
 from ..utils.device import resolve_device
-from ..utils.profiling import StageTimer
 from ..utils.video_io import VideoContext
 from . import geometry as G
 
@@ -278,8 +278,16 @@ def apply_motion(
     device: str | torch.device = "cuda",
 ) -> MotionApplyResult:
     dev = resolve_device(device)
-    timer = StageTimer()
-    with timer.stage("resolve_meta"):
+    with P.span("motion_apply.call", dev) as call:
+        result = _apply_motion(context, meta, padding_rgb, framing_mode, interpolation, motion_blur,
+                               motion_blur_samples, progress_callback, dev)
+    P.attach(result.meta, call)
+    return result
+
+
+def _apply_motion(context, meta, padding_rgb, framing_mode, interpolation, motion_blur, motion_blur_samples,
+                  progress_callback, dev) -> MotionApplyResult:
+    with P.span("motion_apply.resolve_meta", dev):
         motion = resolve_motion_for_context(meta, context)
     _validate_context(context, motion)
 
@@ -297,7 +305,7 @@ def apply_motion(
         n, h, w, c = context.frames.shape
         streams = W.will_stream(n, h, w, int(out_size[1]), int(out_size[0]), c)
         frames = context.frames if streams else context.frames.to(dev)
-        with timer.stage("warp"):
+        with P.span("motion_apply.warp", dev):
             return _warp_blur(
                 frames, context, mats, out_size, interp, padding_rgb,
                 motion_blur, motion_blur_samples, masks_zero, progress_callback, dev,
@@ -334,4 +342,4 @@ def apply_motion(
         "motion_blur_samples": motion_blur_samples,
         "source": motion.source,
     }
-    return MotionApplyResult(out, masks, timer.attach(result_meta))
+    return MotionApplyResult(out, masks, result_meta)

@@ -61,8 +61,8 @@ from ..meta.motion_meta import (
 from ..ops import resize as R
 from ..ops import warp as W
 from ..parallel.mesh import FrameShards
+from ..utils import profiling as P
 from ..utils.device import resolve_device, strict_fp32
-from ..utils.profiling import StageTimer
 from ..utils.video_io import VideoContext
 from . import framing as F
 from . import geometry as G
@@ -225,6 +225,37 @@ def stabilize_clip(
     device: str | torch.device = "cuda",
 ) -> StabilizationResult:
     dev = resolve_device(device)
+    with P.span("engine.call", dev) as call:
+        result = _stabilize_clip(
+            context, dev, estimator=estimator, source_name=source_name, framing_mode=framing_mode,
+            transform_mode=transform_mode, camera_lock=camera_lock, strength=strength, smooth=smooth,
+            keep_fov=keep_fov, padding_rgb=padding_rgb, frame_rate=frame_rate, extra_meta=extra_meta,
+            progress=progress, interrupt_check=interrupt_check,
+        )
+    # the call's root when no node is above it: its spans whose events have
+    # completed (the rest stay in the ring for profiling.drain())
+    P.attach(result.meta, call)
+    return result
+
+
+def _stabilize_clip(
+    context: VideoContext,
+    dev: torch.device,
+    *,
+    estimator: Estimator,
+    source_name: str,
+    framing_mode: G.FramingMode,
+    transform_mode: G.TransformMode,
+    camera_lock: bool,
+    strength: float,
+    smooth: float,
+    keep_fov: float,
+    padding_rgb: Tuple[int, int, int],
+    frame_rate: float,
+    extra_meta: Dict[str, Any] | None,
+    progress: ProgressCallback | None,
+    interrupt_check: InterruptCheck | None,
+) -> StabilizationResult:
     strict_fp32()
     total_frames = context.frame_count
     width, height = context.width, context.height
@@ -309,7 +340,6 @@ def stabilize_clip(
         return StabilizationResult(frames.clone(), zero_mask, _attach_motion_meta(meta))
 
     # ---- estimation at working resolution (batched, on the device) ----
-    timer = StageTimer()
     working_size, decimation = estimation_plan(width, height, estimator)
     base_mode = transform_mode
 
@@ -325,15 +355,14 @@ def stabilize_clip(
     fast = None
     fast_fn = getattr(estimator, "fast_path", None)
     if fast_fn is not None and framing_mode in ("crop", "crop_and_pad", "expand"):
-        with timer.stage("estimation"):
-            try:
-                fast = fast_fn(
-                    frames, framing_mode, transform_mode, camera_lock, strength, smooth,
-                    fps_effective, (width, height), working_size, decimation, padding_rgb,
-                    tick_pairs=tick_pairs_cb, keep_fov=keep_fov,
-                )
-            except EstimationInterrupted as ei:
-                raise ei.original
+        try:
+            fast = fast_fn(
+                frames, framing_mode, transform_mode, camera_lock, strength, smooth,
+                fps_effective, (width, height), working_size, decimation, padding_rgb,
+                tick_pairs=tick_pairs_cb, keep_fov=keep_fov,
+            )
+        except EstimationInterrupted as ei:
+            raise ei.original
     if fast is not None:
         matrices = fast["matrices"]
         modes_used = fast["modes_used"]
@@ -348,9 +377,9 @@ def stabilize_clip(
         target_path = fast["target_path"]
         delta_params_full = fast["diffs"]
     else:
-        with timer.stage("grayscale_downscale"):
+        with P.span("engine.gray", dev):
             grays = R.gray_for_estimation(frames, working_size, decimation=decimation, device=dev)
-        with timer.stage("estimation"):
+        with P.span("engine.estimate", dev):
             try:
                 fits = estimator(grays, transform_mode, decimation=decimation, tick_pairs=tick_pairs_cb)
             except EstimationInterrupted as ei:
@@ -443,7 +472,7 @@ def stabilize_clip(
             crop_origin = list(fast["crop_origin"])
             crop_size = list(fast["crop_size"])
         else:
-            with timer.stage("framing"):
+            with P.span("engine.framing", dev):
                 safety_margin_px = max(0.5, 0.02 * max(width, height))
                 (
                     final_matrices,
@@ -537,12 +566,12 @@ def stabilize_clip(
     border = np.asarray(padding_rgb, np.float32) / 255.0
     if W.will_stream(total_frames, height, width, int(output_size[1]), int(output_size[0]), channels):
         frames = context.frames  # drop the engine's own upload, if any: the warp streams
-    with timer.stage("warp"):
-        if fast is not None:
-            # queued (and its ratios fetched) by the fast path
-            stabilized, padding_masks = fast["stabilized"], fast["padding_masks"]
-            padded_ratios = fast["padded_ratios"]
-        else:
+    if fast is not None:
+        # queued (and its ratios fetched) by the fast path
+        stabilized, padding_masks = fast["stabilized"], fast["padding_masks"]
+        padded_ratios = fast["padded_ratios"]
+    else:
+        with P.span("engine.warp", dev):
             # unstreamed, the ratio fetch waits for the mask pass only; the
             # frame warp is queued after it and runs while the host
             # assembles the meta
@@ -552,46 +581,47 @@ def stabilize_clip(
             padded_ratios = ratios.cpu().numpy()
     framing_meta["padding_detected"] = bool((padded_ratios > 0).any())
     _tick(progress_total, progress_total)
+    with P.span("engine.meta"):
+        per_transition = []
+        for idx, (mode, confidence) in enumerate(zip(modes_used, confidences)):
+            entry = {
+                "index": idx,
+                "mode": mode,
+                "confidence": confidence,
+                "matrix": matrices[idx].astype(np.float32).tolist(),
+            }
+            if residuals is not None:
+                entry["residual"] = residuals[idx]
+            per_transition.append(entry)
 
-    per_transition = []
-    for idx, (mode, confidence) in enumerate(zip(modes_used, confidences)):
-        entry = {
-            "index": idx,
-            "mode": mode,
-            "confidence": confidence,
-            "matrix": matrices[idx].astype(np.float32).tolist(),
+        meta = {
+            "frames": total_frames,
+            "transform_mode_requested": transform_mode,
+            "transform_mode_applied": active_mode,
+            "camera_lock": camera_lock,
+            "strength": strength,
+            "strength_effective": strength_effective,
+            "smooth": smooth,
+            "fps_requested": fps_requested,
+            "fps_effective": fps_effective,
+            "framing": framing_meta,
+            "keep_fov_applied": keep_fov_applied,
+            "padding_color_rgb": [int(c) for c in padding_rgb],
+            **extra_meta,
+            "stabilization_warp": build_stabilization_warp_meta(
+                source_size=(width, height),
+                output_size=output_size,
+                framing_mode=framing_mode,
+                applied_matrices=final_matrices,
+            ),
+            "estimated_motion": {
+                "per_transition": per_transition,
+                "path": path.tolist(),
+                "target_path": target_path.tolist(),
+                "target_path_effective": effective_target_path.tolist(),
+            },
+            "padding_fraction_mean": float(padded_ratios.mean()),
+            "padding_fraction_max": float(padded_ratios.max()),
         }
-        if residuals is not None:
-            entry["residual"] = residuals[idx]
-        per_transition.append(entry)
-
-    meta = {
-        "frames": total_frames,
-        "transform_mode_requested": transform_mode,
-        "transform_mode_applied": active_mode,
-        "camera_lock": camera_lock,
-        "strength": strength,
-        "strength_effective": strength_effective,
-        "smooth": smooth,
-        "fps_requested": fps_requested,
-        "fps_effective": fps_effective,
-        "framing": framing_meta,
-        "keep_fov_applied": keep_fov_applied,
-        "padding_color_rgb": [int(c) for c in padding_rgb],
-        **extra_meta,
-        "stabilization_warp": build_stabilization_warp_meta(
-            source_size=(width, height),
-            output_size=output_size,
-            framing_mode=framing_mode,
-            applied_matrices=final_matrices,
-        ),
-        "estimated_motion": {
-            "per_transition": per_transition,
-            "path": path.tolist(),
-            "target_path": target_path.tolist(),
-            "target_path_effective": effective_target_path.tolist(),
-        },
-        "padding_fraction_mean": float(padded_ratios.mean()),
-        "padding_fraction_max": float(padded_ratios.max()),
-    }
-    return StabilizationResult(stabilized, padding_masks, timer.attach(_attach_motion_meta(meta)))
+        meta = _attach_motion_meta(meta)
+    return StabilizationResult(stabilized, padding_masks, meta)

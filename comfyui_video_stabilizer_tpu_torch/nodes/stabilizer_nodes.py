@@ -13,7 +13,9 @@ from typing import Any
 
 from ..models.classic import stabilize_classic
 from ..models.flow import stabilize_flow
+from ..utils import profiling as P
 from ..utils.color import parse_padding_color
+from ..utils.device import resolve_device
 from ..utils.video_io import (
     convert_masks_for_output,
     normalize_video_input,
@@ -106,6 +108,17 @@ _STAB_OUTPUTS = lambda: [  # noqa: E731
 
 def _run_stabilizer(engine, frames, frame_rate, framing_mode, transform_mode,
                     camera_lock, strength, smooth, keep_fov, padding_color, device):
+    dev = resolve_device(device)
+    with P.span("node.call", dev) as call:
+        video_payload, mask_payload, meta = _stabilizer_call(
+            engine, frames, frame_rate, framing_mode, transform_mode,
+            camera_lock, strength, smooth, keep_fov, padding_color, dev)
+    # after the egress's copies to the host every event of the call has completed
+    return io.NodeOutput(video_payload, mask_payload, P.attach(meta, call))
+
+
+def _stabilizer_call(engine, frames, frame_rate, framing_mode, transform_mode,
+                     camera_lock, strength, smooth, keep_fov, padding_color, device):
     context = normalize_video_input(frames, device=device)
     padding_rgb = parse_padding_color(padding_color)
     n = context.frame_count
@@ -132,7 +145,7 @@ def _run_stabilizer(engine, frames, frame_rate, framing_mode, transform_mode,
     pbar.update_absolute(progress_total, progress_total)
     video_payload = reconstruct_video(result.frames, context)
     mask_payload = convert_masks_for_output(result.masks)
-    return io.NodeOutput(video_payload, mask_payload, result.meta)
+    return video_payload, mask_payload, result.meta
 
 
 class VideoStabilizerClassic(io.ComfyNode):

@@ -1,4 +1,4 @@
-"""Video I/O bridge, device policy and stage timing.
+"""Video I/O bridge, device policy, and the spans and counters of utils/profiling.py.
 
 Exports the JAX package's ``utils`` names.  The video_io ones load at
 first use (PEP 562): an eager import would loop, as ``ops/warp.py``

@@ -32,7 +32,8 @@ import numpy as np
 import torch
 
 from ..ops.warp import will_stream
-from ..parallel.mesh import FrameShards
+from ..parallel.mesh import FrameShards, lead_device
+from . import profiling as P
 from .device import resolve_device
 
 _FRAME_KEYS = ("frames", "images", "video")
@@ -141,7 +142,7 @@ def _normalize_sequence(frames_seq: Any, dev: torch.device):
     for frame in frames_seq:
         t, origin = _as_tensor(frame)
         hwc, channel_first, squeeze_last_dim = _frame_layout(t)
-        rgb, frame_adapter = _normalize_batch(hwc[None].to(dev), origin, detect_chw=False)
+        rgb, frame_adapter = _normalize_batch(_upload(hwc[None], dev), origin, detect_chw=False)
         frame_adapter.channel_first = channel_first
         frame_adapter.squeeze_last_dim = squeeze_last_dim
         if adapter is None:
@@ -161,10 +162,24 @@ def _streams(n: int, first_frame: Any) -> bool:
     return will_stream(n, int(hwc.shape[0]), int(hwc.shape[1]), int(hwc.shape[0]), int(hwc.shape[1]), 3)
 
 
+def _upload(t: torch.Tensor, dev: torch.device) -> torch.Tensor:
+    """``t`` on ``dev``, in an ``io.ingest.copy`` span that counts the bytes
+    the copy moves from another device (``io.h2d_bytes``; 0 from ``dev``)."""
+    with P.span("io.ingest.copy", dev) as s:
+        out = t.to(dev)
+        s.count("io.h2d_bytes", t.nbytes if t.device != out.device else 0)
+    return out
+
+
 def normalize_video_input(value: Any, device: str | torch.device = "cuda") -> VideoContext:
     """Normalize any accepted video payload into a VideoContext on ``device``
     (on the host instead for a clip that streams)."""
     dev = resolve_device(device)
+    with P.span("io.ingest", dev):
+        return _normalize_video_input(value, dev)
+
+
+def _normalize_video_input(value: Any, dev: torch.device) -> VideoContext:
     if isinstance(value, dict):
         frames_seq = next((value[k] for k in _FRAME_KEYS if k in value), None)
         if frames_seq is None:
@@ -183,7 +198,9 @@ def normalize_video_input(value: Any, device: str | torch.device = "cuda") -> Vi
     if isinstance(frames_seq, torch.Tensor) and frames_seq.ndim == 4:
         if frames_seq.shape[0] and _streams(frames_seq.shape[0], frames_seq[0]):
             dev = frames_seq.device
-        batch, adapter = _normalize_batch(frames_seq.to(dev), origin)
+        uploaded = _upload(frames_seq, dev)
+        with P.span("io.ingest.normalize", dev):
+            batch, adapter = _normalize_batch(uploaded, origin)
     else:
         if isinstance(frames_seq, torch.Tensor) and frames_seq.ndim < 3:
             raise ValueError("Video input must have at least 3 dimensions (frames, height, width).")
@@ -207,14 +224,26 @@ def normalize_video_input(value: Any, device: str | torch.device = "cuda") -> Vi
 
 
 def _to_cpu_f32(x: Any) -> torch.Tensor:
-    if isinstance(x, FrameShards):
-        x = x.gather("cpu")
-    t = x if isinstance(x, torch.Tensor) else torch.from_numpy(np.asarray(x))
-    return t.detach().to("cpu", torch.float32).contiguous()
+    """``x`` as a contiguous float32 CPU tensor, in an ``io.egress.copy``
+    span that counts the bytes the copy moves from a device (``io.d2h_bytes``;
+    0 from the host)."""
+    on_device = isinstance(x, (torch.Tensor, FrameShards)) and lead_device(x).type != "cpu"
+    with P.span("io.egress.copy", lead_device(x) if on_device else None) as s:
+        if isinstance(x, FrameShards):
+            x = x.gather("cpu")
+        t = x if isinstance(x, torch.Tensor) else torch.from_numpy(np.asarray(x))
+        out = t.detach().to("cpu", torch.float32).contiguous()
+        s.count("io.d2h_bytes", out.nbytes if on_device else 0)
+    return out
 
 
 def reconstruct_video(frames: Any, context: VideoContext) -> Any:
     """Pack frames into a contiguous float32 BHWC CPU tensor payload."""
+    with P.span("io.egress"):
+        return _reconstruct_video(frames, context)
+
+
+def _reconstruct_video(frames: Any, context: VideoContext) -> Any:
     if getattr(frames, "ndim", None) == 4:
         stacked = _to_cpu_f32(frames)
     else:
@@ -231,6 +260,11 @@ def reconstruct_video(frames: Any, context: VideoContext) -> Any:
 
 def convert_masks_for_output(masks: Any) -> torch.Tensor:
     """Internal masks -> (N, H, W) float32 CPU tensor."""
+    with P.span("io.egress"):
+        return _convert_masks_for_output(masks)
+
+
+def _convert_masks_for_output(masks: Any) -> torch.Tensor:
     if getattr(masks, "ndim", None) in (3, 4):
         stacked = _to_cpu_f32(masks)
         if stacked.shape[0] == 0:

@@ -251,21 +251,6 @@ def test_timing_enabled_follows_enable_timing():
         TP.enable_timing(before)
 
 
-def test_device_trace_writes_a_chrome_trace(tmp_path, monkeypatch):
-    monkeypatch.delenv("CVST_TRACE_DIR", raising=False)
-    with TP.device_trace():
-        torch.ones(4).sum()
-    assert not list(tmp_path.iterdir())
-    monkeypatch.setenv("CVST_TRACE_DIR", str(tmp_path / "env"))
-    with TP.device_trace():
-        torch.ones(4).sum()
-    with TP.device_trace(str(tmp_path / "arg")):
-        torch.ones(4).sum()
-    for sub in ("env", "arg"):
-        traces = list((tmp_path / sub).glob("cvst_trace_*.json"))
-        assert len(traces) == 1 and traces[0].stat().st_size > 0
-
-
 def test_lazy_apply_inverse_export():
     """The package exports apply_inverse_stabilization lazily: importing the
     package loads no engine; the export runs models/inverse.py's."""
