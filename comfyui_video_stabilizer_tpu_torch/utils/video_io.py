@@ -15,7 +15,14 @@ host, and the engines upload it chunk by chunk.
 
 At the node boundary the output is what the JAX package emits: a
 contiguous float32 BHWC CPU tensor (the dict template refilled) and
-(N, H, W) float32 CPU masks.
+(N, H, W) float32 CPU masks.  A contiguous float32 CUDA tensor reaches
+the host through its device's ring of pinned slots (``RING_SLOTS`` of
+``RING_SLOT_BYTES``, made at the device's first egress and kept): chunk
+by chunk, each chunk's copy queued on the device's current stream, the
+host placing a finished slot into new pageable memory (mapped in one
+call, ``_new_host_f32``) on torch's intra-op threads while the next
+slots' copies run.  Any other tensor takes one ``.to("cpu",
+torch.float32)``.
 
 A context may hold frame shards (parallel/mesh.py::FrameShards, made by
 parallel/production.py::sharded_video_context), and a result on a mesh
@@ -25,8 +32,11 @@ of more than one shard holds them too; :func:`reconstruct_video` and
 
 from __future__ import annotations
 
+import math
+import mmap
+import threading
 from dataclasses import dataclass
-from typing import Any, Dict, List, Literal
+from typing import Any, Dict, List, Literal, Tuple
 
 import numpy as np
 import torch
@@ -37,6 +47,11 @@ from . import profiling as P
 from .device import resolve_device
 
 _FRAME_KEYS = ("frames", "images", "video")
+
+# The egress's pinned ring a CUDA device keeps (sizes timed on an H100's
+# host: PERF.md section 6).
+RING_SLOT_BYTES = 32 << 20
+RING_SLOTS = 3
 
 
 @dataclass
@@ -223,17 +238,104 @@ def _normalize_video_input(value: Any, dev: torch.device) -> VideoContext:
     )
 
 
+def plan_chunks(n: int, slot_elems: int, slots: int) -> List[Tuple[int, int, int]]:
+    """(slot, start, stop) of each chunk of a flat range ``[0, n)`` cut into
+    pieces of at most ``slot_elems`` elements, in order, the ``slots``
+    slots taken in turn."""
+    return [(i % slots, a, min(a + slot_elems, n)) for i, a in enumerate(range(0, n, slot_elems))]
+
+
+class _PinnedRing:
+    """One CUDA device's pinned float32 host slots, each with the event of
+    the last copy queued into it; the lock gives them to one egress at a
+    time."""
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        self.slots = [torch.empty(RING_SLOT_BYTES // 4, dtype=torch.float32, pin_memory=True)
+                      for _ in range(RING_SLOTS)]
+        self.copied = [torch.cuda.Event() for _ in range(RING_SLOTS)]
+
+
+_RINGS: Dict[torch.device, _PinnedRing] = {}
+_RINGS_LOCK = threading.Lock()
+
+
+def _ring(device: torch.device) -> _PinnedRing:
+    with _RINGS_LOCK:
+        ring = _RINGS.get(device)
+        if ring is None:
+            ring = _RINGS[device] = _PinnedRing()
+    return ring
+
+
+_MAP_POPULATE = getattr(mmap, "MAP_POPULATE", None)
+
+
+def _new_host_f32(shape) -> torch.Tensor:
+    """An uninitialised contiguous float32 CPU tensor of ``shape`` in new
+    pageable memory whose pages are already mapped: where the platform has
+    ``MAP_POPULATE``, one private anonymous mapping that the kernel fills
+    in one call (not a page fault a page, as the first write into
+    ``torch.empty``'s memory takes), unmapped when the tensor's storage is
+    freed (a storage that cannot grow by ``resize_``); elsewhere
+    ``torch.empty``."""
+    nbytes = 4 * math.prod(shape)
+    if _MAP_POPULATE is None or nbytes == 0:
+        return torch.empty(shape, dtype=torch.float32)
+    buf = mmap.mmap(-1, nbytes, flags=mmap.MAP_PRIVATE | mmap.MAP_ANONYMOUS | _MAP_POPULATE)
+    return torch.frombuffer(buf, dtype=torch.float32).view(shape)
+
+
+def _staged_to_cpu(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous float32 CUDA tensor copied into new pageable host memory
+    through its device's pinned ring.  A chunk's copy into its slot is
+    queued on the device's current stream, so it follows the work that
+    wrote the tensor; the host waits for the chunk's event, places the slot
+    into its range of the output (a CPU ``copy_``, which the intra-op
+    threads share) and only then queues the copy that refills the slot, so
+    the other slots' copies run behind the host's work."""
+    out = _new_host_f32(t.shape)
+    src, dst = t.view(-1), out.view(-1)
+    ring = _ring(t.device)
+    depth = len(ring.slots)
+    plan = plan_chunks(src.numel(), ring.slots[0].numel(), depth)
+    stream = torch.cuda.current_stream(t.device)
+
+    def queue(i):
+        slot, a, b = plan[i]
+        ring.slots[slot][:b - a].copy_(src[a:b], non_blocking=True)
+        ring.copied[slot].record(stream)
+
+    with ring.lock:
+        try:
+            for i in range(min(depth, len(plan))):
+                queue(i)
+            for i, (slot, a, b) in enumerate(plan):
+                ring.copied[slot].synchronize()
+                dst[a:b].copy_(ring.slots[slot][:b - a])
+                if i + depth < len(plan):
+                    queue(i + depth)
+        except BaseException:
+            stream.synchronize()  # no queued copy into a slot outlives the egress that queued it
+            raise
+    return out
+
+
 def _to_cpu_f32(x: Any) -> torch.Tensor:
     """``x`` as a contiguous float32 CPU tensor, in an ``io.egress.copy``
     span that counts the bytes the copy moves from a device (``io.d2h_bytes``;
-    0 from the host)."""
+    0 from the host) and those of them staged through the pinned ring
+    (``io.d2h_staged_bytes``)."""
     on_device = isinstance(x, (torch.Tensor, FrameShards)) and lead_device(x).type != "cpu"
     with P.span("io.egress.copy", lead_device(x) if on_device else None) as s:
         if isinstance(x, FrameShards):
             x = x.gather("cpu")
-        t = x if isinstance(x, torch.Tensor) else torch.from_numpy(np.asarray(x))
-        out = t.detach().to("cpu", torch.float32).contiguous()
+        t = (x if isinstance(x, torch.Tensor) else torch.from_numpy(np.asarray(x))).detach()
+        staged = t.is_cuda and t.dtype == torch.float32 and t.is_contiguous()
+        out = _staged_to_cpu(t) if staged else t.to("cpu", torch.float32).contiguous()
         s.count("io.d2h_bytes", out.nbytes if on_device else 0)
+        s.count("io.d2h_staged_bytes", out.nbytes if staged else 0)
     return out
 
 
