@@ -80,6 +80,7 @@ from ..utils.meshinfo import active_mesh, data_shards
 from . import classic as CL
 from . import flow as FL
 from . import geometry as G
+from .stabilize import count_gray
 
 PERSP_MIN_RATIO = 0.15
 SIM_MIN_RATIO = 0.1
@@ -717,7 +718,7 @@ def _flow_estimate(grays, strength, keep_fov, *, decimation, seed, mode, camera_
     gh, gw = int(grays.shape[1]), int(grays.shape[2])
     h_work, w_work = gh * decimation, gw * decimation
     samples = FL._dis_samples_chunked(
-        grays, FL.SAMPLE_STEP // decimation, 0 if decimation > 1 else FD.FINEST_SCALE,
+        grays, FL.SAMPLE_STEP // decimation, FL.finest_scale(decimation),
         "homography" if want_persp else "similarity", tick_pairs,
     )
     if decimation > 1:
@@ -966,12 +967,16 @@ def run_flow_fast(
     want_persp = transform_mode == "perspective"
     strength_c, smooth_c, keep_fov_c, window, scale_xy = _trajectory_args(
         strength, smooth, fps, camera_lock, keep_fov, width, height, working_size)
-    with P.span("fastpath.gray", dev):
+    with P.span("fastpath.gray", dev) as sp:
         grays = R.gray_for_estimation(frames, working_size, decimation=decimation)
+        count_gray(sp, frames, grays)
     kw = dict(decimation=decimation, seed=seed, mode=transform_mode, camera_lock=camera_lock,
               window=window, width=width, height=height, scale_xy=scale_xy)
     factors = _gray_pool_factors(width, height, working_size, decimation)
-    with P.span("fastpath.estimate", dev):
+    with P.span("fastpath.estimate", dev) as sp:
+        if P.timing_enabled():  # from the shapes, outside any capture: a graph replay counts it too
+            sp.count("flow.dis_level_pairs", FL.dis_pairs(grays, tick_pairs is not None) * FD.refined_levels(
+                int(grays.shape[1]), int(grays.shape[2]), FL.finest_scale(decimation)))
         if factors is not None and _fused_enabled(framing, tick_pairs, frames):
             out = _fused_estimate("flow", grays, strength_c, keep_fov_c, kw)
         else:
@@ -1015,8 +1020,9 @@ def run_classic_fast(
     want_persp = transform_mode == "perspective"
     strength_c, smooth_c, keep_fov_c, window, scale_xy = _trajectory_args(
         strength, smooth, fps, camera_lock, keep_fov, width, height, working_size)
-    with P.span("fastpath.gray", dev):
+    with P.span("fastpath.gray", dev) as sp:
         grays = R.gray_for_estimation(frames, working_size, decimation=decimation)
+        count_gray(sp, frames, grays)
     kw = dict(seed=seed, mode=transform_mode, camera_lock=camera_lock, window=window, width=width,
               height=height, scale_xy=scale_xy)
     with P.span("fastpath.estimate", dev):

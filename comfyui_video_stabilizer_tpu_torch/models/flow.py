@@ -50,7 +50,8 @@ from ..ops import ransac as RS
 from ..ops import tvl1 as TV
 from ..ops.cuda_build import KernelError
 from ..ops.resize import can_decimate
-from ..parallel.mesh import FrameShards, lead_device, sharded_pairs
+from ..parallel.mesh import FrameShards, halo_lengths, lead_device, sharded_pairs
+from ..utils import profiling as P
 from ..utils.video_io import VideoContext
 from . import geometry as G
 from .stabilize import PairFits, StabilizationResult, estimation_chunk_spans, stabilize_clip
@@ -137,15 +138,45 @@ def _dis_samples_chunked(grays, step_local, finest_scale, model, tick_pairs):
         parts = sharded_pairs(
             grays, lambda g, tick: _dis_samples_chunked(g, step_local, finest_scale, model, tick), tick_pairs)
         return torch.cat(parts, dim=0)
-    spans = estimation_chunk_spans(int(grays.shape[0]))
-    if len(spans) == 1 or tick_pairs is None:
-        return FD.dis_flow_fit(grays, step_local, finest_scale=finest_scale, model=model)
+    spans = _dis_spans(int(grays.shape[0]), tick_pairs is not None)
+    if len(spans) == 1:
+        return _dis_chunk(grays, step_local, finest_scale, model)
     parts = []
     for s, e, drop in spans:
-        part = FD.dis_flow_fit(grays[s:e], step_local, finest_scale=finest_scale, model=model)
+        part = _dis_chunk(grays[s:e], step_local, finest_scale, model)
         parts.append(part[drop:] if drop else part)
         tick_pairs(e - 1)
     return torch.cat(parts, dim=0)
+
+
+def _dis_chunk(grays, step_local, finest_scale, model):
+    """DIS over one chunk's adjacent pairs, in span ``flow.dis.chunk``
+    counting them (``flow.dis_pairs``)."""
+    with P.span("flow.dis.chunk", grays.device) as sp:
+        sp.count("flow.dis_pairs", max(int(grays.shape[0]) - 1, 0))
+        return FD.dis_flow_fit(grays, step_local, finest_scale=finest_scale, model=model)
+
+
+def _dis_spans(n_frames: int, chunked: bool):
+    """The frame slices [(start, end, drop)] :func:`_dis_samples_chunked`
+    hands to DIS, one dispatch each: the 32-pair chunks when ``chunked``
+    (a progress observer waits between them), else the whole clip."""
+    spans = estimation_chunk_spans(n_frames)
+    return spans if chunked and len(spans) > 1 else [(0, n_frames, 0)]
+
+
+def dis_pairs(grays, chunked: bool) -> int:
+    """The adjacent pairs :func:`_dis_samples_chunked` hands to DIS, from
+    the grays' shape alone: each shard with its halo, and the pairs the
+    last chunk recomputes and drops."""
+    sizes = halo_lengths(grays) if isinstance(grays, FrameShards) else [int(grays.shape[0])]
+    return sum(max(e - s - 1, 0) for n in sizes for s, e, _ in _dis_spans(n, chunked))
+
+
+def finest_scale(decimation: int) -> int:
+    """The finest level DIS refines: the decimated gray is already that
+    level (level 0), the full gray builds it (``FD.FINEST_SCALE``)."""
+    return 0 if decimation > 1 else FD.FINEST_SCALE
 
 
 def flow_estimator(
@@ -163,7 +194,7 @@ def flow_estimator(
 
     try:
         samples = _dis_samples_chunked(
-            grays, step_local, 0 if decimation > 1 else FD.FINEST_SCALE,
+            grays, step_local, finest_scale(decimation),
             "homography" if want_persp else "similarity", tick_pairs,
         )
         if decimation > 1:

@@ -48,6 +48,7 @@ then come back as FrameShards.
 from __future__ import annotations
 
 import logging
+import math
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Tuple
 
@@ -96,6 +97,18 @@ class EstimationInterrupted(BaseException):
     @property
     def original(self) -> BaseException:
         return self.args[0]
+
+
+def count_gray(sp, frames, grays) -> None:
+    """The bytes ``R.gray_for_estimation`` read and wrote, from the shapes
+    alone, on its span ``sp``: ``gray.read_bytes`` the float32 clip (what
+    K9 reads), ``gray.written_bytes`` its float32 grays.  Their ratio is
+    C x fy x fx: 3 at a 1 x 1 pool of RGB, 192 at 8 x 8.  Off, nothing
+    is worked out."""
+    if not P.timing_enabled():
+        return
+    sp.count("gray.read_bytes", 4 * math.prod(frames.shape))
+    sp.count("gray.written_bytes", 4 * math.prod(grays.shape))
 
 
 def estimation_chunk_spans(n_frames: int, chunk: int = ESTIMATION_CHUNK_PAIRS):
@@ -377,8 +390,9 @@ def _stabilize_clip(
         target_path = fast["target_path"]
         delta_params_full = fast["diffs"]
     else:
-        with P.span("engine.gray", dev):
+        with P.span("engine.gray", dev) as sp:
             grays = R.gray_for_estimation(frames, working_size, decimation=decimation, device=dev)
+            count_gray(sp, frames, grays)
         with P.span("engine.estimate", dev):
             try:
                 fits = estimator(grays, transform_mode, decimation=decimation, tick_pairs=tick_pairs_cb)

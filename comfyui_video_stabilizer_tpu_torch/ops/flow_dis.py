@@ -31,6 +31,7 @@ from typing import List, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..utils import profiling as P
 from ..utils.device import device_constant
 from . import cv_cuda as CV
 from . import linalg_cuda as LA
@@ -64,6 +65,19 @@ def num_levels(h: int, w: int, min_dim: int = 12) -> int:
     while min(h >> (lvl + 1), w >> (lvl + 1)) >= min_dim and lvl < 6:
         lvl += 1
     return lvl
+
+
+def level_range(h: int, w: int, finest_scale: int = FINEST_SCALE) -> Tuple[int, int]:
+    """(coarsest, finest): the pyramid levels DIS refines for h x w grays,
+    down to ``finest_scale`` or the coarsest level, if that is coarser."""
+    coarsest = num_levels(h, w)
+    return coarsest, min(finest_scale, coarsest)
+
+
+def refined_levels(h: int, w: int, finest_scale: int = FINEST_SCALE) -> int:
+    """How many levels :func:`dis_flow_fit` refines for h x w grays."""
+    coarsest, finest = level_range(h, w, finest_scale)
+    return coarsest - finest + 1
 
 
 # ---------------------------------------------------------------------------
@@ -455,7 +469,10 @@ def _dis_levels(grays, coarsest, finest, radius, patch, refine_rounds,
     level ``finest`` resolution in level-pixel units.
     """
     b = grays.shape[0] - 1
-    pyr = build_pyramid(grays, coarsest)
+    with P.span("flow.dis.pyramid", grays.device) as sp:
+        pyr = build_pyramid(grays, coarsest)
+        if P.timing_enabled():
+            sp.count("flow.dis.pyramid_bytes", 4 * sum(lvl.numel() for lvl in pyr[1:]))
     pyr_I = [lvl[:-1] for lvl in pyr]
     pyr_J = [lvl[1:] for lvl in pyr]
     M = torch.eye(3, dtype=torch.float32, device=grays.device).expand(b, 3, 3).contiguous()
@@ -504,8 +521,7 @@ def dis_flow(grays: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         return (torch.zeros((0, h, w, 2), dtype=torch.float32, device=grays.device),
                 torch.zeros((0, h, w), dtype=torch.float32, device=grays.device))
     grays = grays.to(torch.float32)
-    coarsest = num_levels(h, w)
-    finest = min(FINEST_SCALE, coarsest)
+    coarsest, finest = level_range(h, w)
     flow_level, conf_level, M, pyr_I, pyr_J = _dis_levels(grays, coarsest, finest, RADIUS, PATCH, 3)
     polish = finest - 1
     if polish >= 0:
@@ -545,8 +561,7 @@ def dis_flow_fit(
     if n < 2:
         return torch.zeros((0, 0, 2), dtype=torch.float32, device=grays.device)
     grays = grays.to(torch.float32)
-    coarsest = num_levels(h, w)
-    finest = min(finest_scale, coarsest)
+    coarsest, finest = level_range(h, w, finest_scale)
     flow_level = _dis_levels(grays, coarsest, finest, min(radius, 2), patch, 2, model, lk_mid=True)[0]
     scale = float(1 << finest)
     lh, lw = flow_level.shape[1], flow_level.shape[2]

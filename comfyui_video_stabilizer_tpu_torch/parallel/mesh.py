@@ -224,6 +224,12 @@ def _with_halo(shards: FrameShards, k: int) -> torch.Tensor:
     return torch.cat([part, halo], dim=0)
 
 
+def halo_lengths(shards: FrameShards) -> List[int]:
+    """The frames :func:`_with_halo` gives each shard, from the shapes."""
+    sizes = [int(s.shape[0]) for s in shards.shards]
+    return [n + min(nxt, 1) for n, nxt in zip(sizes, sizes[1:] + [0])]
+
+
 def sharded_pairs(shards: FrameShards, per_pair, tick_pairs=None):
     """``per_pair(frames_k, tick_k)`` over each frame shard with its halo,
     on the shard's device, in shard order; ``tick_pairs`` (when given)
@@ -233,11 +239,11 @@ def sharded_pairs(shards: FrameShards, per_pair, tick_pairs=None):
     it."""
     lead = shards.lead
     parts, done = [], 0
-    for k in range(len(shards.shards)):
-        frames_k = _with_halo(shards, k)
-        pairs = int(frames_k.shape[0]) - 1
+    for k, n_k in enumerate(halo_lengths(shards)):
+        pairs = n_k - 1
         if pairs < 1:
             continue
+        frames_k = _with_halo(shards, k)
         tick_k = None if tick_pairs is None else (lambda p, base=done: tick_pairs(base + p))
         out = per_pair(frames_k, tick_k)
         if isinstance(out, tuple):

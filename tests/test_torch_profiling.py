@@ -41,6 +41,15 @@ FAST_TREE = {
 }
 HOST_TREE = {**{k: v for k, v in FAST_TREE.items() if not k.startswith("fastpath.")},
              "engine.gray": "engine.call", "engine.estimate": "engine.call", "engine.warp": "engine.call"}
+# Flow's DIS, under the estimation span of its engine
+DIS_TREE = {"flow.dis.chunk": None, "flow.dis.pyramid": "flow.dis.chunk"}
+
+
+def _tree(kind, fast):
+    tree = FAST_TREE if fast else HOST_TREE
+    if kind != "flow":
+        return tree
+    return {**tree, **DIS_TREE, "flow.dis.chunk": "fastpath.estimate" if fast else "engine.estimate"}
 
 
 def _clip(n=5, h=64, w=80, seed=3):
@@ -93,7 +102,7 @@ def test_node_call_span_tree_on_the_cpu(recorder, monkeypatch, kind, fast):
     clip = _clip()
     frames, masks, meta = _node(kind, clip)
     recs = P.drain()
-    tree = FAST_TREE if fast else HOST_TREE
+    tree = _tree(kind, fast)
     assert {r.name: r.parent for r in recs} == tree
     assert len({r.call for r in recs}) == 1
     assert all(r.device_ms is None and r.end_ns >= r.start_ns for r in recs)
@@ -119,7 +128,7 @@ def test_api_call_attaches_its_own_spans(recorder, monkeypatch):
     result = stabilize_flow(context, *WIDGETS[1:7], (127, 127, 127), 16.0, device="cpu")
     assert result.meta["timing"]["engine.call"]["parent"] is None
     assert set(result.meta["timing"]) == {k for k, v in FAST_TREE.items() if v and v.startswith("engine")} \
-        | {"engine.call"}
+        | {"engine.call"} | set(DIS_TREE)
     calls = {r.call for r in P.drain()}
     assert len(calls) == 2  # the ingest, then the engine: two roots
 
@@ -233,6 +242,69 @@ def test_outputs_and_meta_equal_with_the_recorder_on_and_off(recorder, monkeypat
     assert timing and json.dumps(on[2], sort_keys=True) == json.dumps(off[2], sort_keys=True)
 
 
+def _counters(recs, name):
+    return [r.counters for r in recs if r.name == name]
+
+
+def test_gray_and_dis_counters_at_decimation_one(recorder, monkeypatch):
+    """A Flow node call on 9 frames of 122 x 216 (2 mod 4 rows: no
+    decimation, as at 864 x 486): the gray's bytes at a 1 x 1 pool, DIS's
+    pairs, its own pyramid's levels 1-3 and the pairs x levels refined
+    (levels 3 and 2), all from the shapes."""
+    monkeypatch.setenv("CVST_FASTPATH", "1")
+    recorder.enable_timing(True)
+    n, h, w = 9, 122, 216
+    _node("flow", _clip(n=n, h=h, w=w))
+    recs = P.drain()
+    assert _counters(recs, "fastpath.gray") == [{"gray.read_bytes": 4 * n * h * w * 3,
+                                                 "gray.written_bytes": 4 * n * h * w}]
+    assert _counters(recs, "flow.dis.chunk") == [{"flow.dis_pairs": n - 1}]
+    assert _counters(recs, "flow.dis.pyramid") == [{"flow.dis.pyramid_bytes": 4 * n * (61 * 108 + 30 * 54 + 15 * 27)}]
+    assert _counters(recs, "fastpath.estimate") == [{"flow.dis_level_pairs": (n - 1) * 2}]
+
+
+def test_gray_counters_of_a_pooled_plan_and_the_host_engine(recorder, monkeypatch):
+    """64 x 80 decimates by 4: the gray reads 3 x 16 times what it writes;
+    the host engine counts the same bytes on ``engine.gray``."""
+    recorder.enable_timing(True)
+    n, h, w = 5, 64, 80
+    for fast, span in (("1", "fastpath.gray"), ("0", "engine.gray")):
+        monkeypatch.setenv("CVST_FASTPATH", fast)
+        _node("classic" if fast == "0" else "flow", _clip(n=n, h=h, w=w))
+        assert _counters(P.drain(), span) == [{"gray.read_bytes": 4 * n * h * w * 3, "gray.written_bytes": 4 * n *
+                                               (h * w if fast == "0" else (h // 4) * (w // 4))}]
+
+
+@pytest.mark.parametrize("shards", [1, 2])
+def test_dis_chunks_count_the_pairs_the_plan_gives(recorder, shards):
+    """In 32-pair chunks with a tick (the node's eager path), the chunks'
+    ``flow.dis_pairs`` add up to ``dis_pairs``: 40 frames in two chunks of
+    32 pairs, the last recomputing 25 it drops; on shards of 22 and 18
+    frames, 22 pairs (the first with its halo) and 17, a chunk each."""
+    from comfyui_video_stabilizer_tpu_torch.models import flow as FL
+    from comfyui_video_stabilizer_tpu_torch.parallel.mesh import FrameShards
+
+    recorder.enable_timing(True)
+    grays = torch.floor(torch.rand((40, 30, 40), generator=torch.Generator().manual_seed(5)) * 255.0)
+    if shards == 2:
+        grays = FrameShards([grays[:22], grays[22:]])
+    FL._dis_samples_chunked(grays, 8, 2, "similarity", lambda done: None)
+    recs = P.drain()
+    pairs = [c["flow.dis_pairs"] for c in _counters(recs, "flow.dis.chunk")]
+    assert sum(pairs) == FL.dis_pairs(grays, True) == (64 if shards == 1 else 22 + 17)
+    assert len(_counters(recs, "flow.dis.pyramid")) == len(pairs)
+    assert FL.dis_pairs(grays, False) == 39
+
+
+def test_off_the_new_spans_are_the_shared_null_context(recorder, monkeypatch):
+    monkeypatch.setenv("CVST_FASTPATH", "1")
+    recorder.enable_timing(False)
+    assert P.span("flow.dis.chunk") is P.span("flow.dis.pyramid") is P._NULL
+    _refuse_cuda(monkeypatch)
+    _, _, meta = _node("flow", _clip(n=5, h=122, w=216))
+    assert "timing" not in meta and P.drain() == []
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -286,3 +358,33 @@ def test_spans_on_the_card_take_device_time_and_never_wait(recorder, monkeypatch
     assert sum(r.counters.get("io.d2h_staged_bytes", 0) for r in recs) == frames.nbytes + masks.nbytes
     assert meta["timing"]["node.call"]["fastpath.served"] == 1
     assert all(r.device_ms is not None for r in recs if r.name.startswith(("io.ingest", "io.egress.", "fastpath.")))
+
+
+@pytest.mark.cuda
+def test_a_replay_counts_its_dis_level_pairs_and_records_no_span_inside(recorder, cuda):
+    """A Flow API call at 864 x 486 from its graph: ``fastpath.estimate``
+    counts 80 pairs x 4 levels on the capture call and on the replay; the
+    capture call's only DIS spans are its eager warm-up's, and the replay
+    records none."""
+    clip = _clip(n=81, h=486, w=864)
+    args = (*WIDGETS[1:7], (127, 127, 127), 16.0)
+    context = normalize_video_input(clip.to(cuda), device=cuda)
+    fastpath.clear_graph_cache()
+    recorder.enable_timing(True)
+    replays = fastpath.GRAPH_STATS["replays"]
+    stabilize_flow(context, *args, device=cuda)  # warm-up, capture, replay
+    stabilize_flow(context, *args, device=cuda)  # replay
+    torch.cuda.synchronize()
+    assert fastpath.GRAPH_STATS["replays"] == replays + 2
+    recs = P.drain()
+    calls = sorted({r.call for r in recs if r.name == "engine.call"})
+    assert len(calls) == 2
+    for call, captured in zip(calls, (1, 0)):
+        mine = [r for r in recs if r.call == call]
+        est = _counters(mine, "fastpath.estimate")
+        assert len(est) == 1 and est[0]["flow.dis_level_pairs"] == 80 * 4
+        assert est[0].get("fastpath.capture", 0) == captured
+        dis_spans = captured  # the warm-up's, eager on its side stream
+        assert len(_counters(mine, "flow.dis.chunk")) == len(_counters(mine, "flow.dis.pyramid")) == dis_spans
+        assert _counters(mine, "fastpath.gray") == [{"gray.read_bytes": clip.nbytes,
+                                                     "gray.written_bytes": clip.nbytes // 3}]
