@@ -38,6 +38,15 @@ JAX package's fused programs hold it: its 8x8 solves (the 4-point
 hypotheses and, for Flow, the IRLS pre-warp) run K11 and its DLT refit
 K10 (ops/linalg_cuda.py), neither of which reads the card on the host.
 
+A call with a progress observer (the ComfyUI node always passes one)
+estimates Flow in 32-pair chunks with a tick and an interrupt poll
+between them (models/flow.py::_dis_samples_chunked).  There each
+chunk's DIS replays a CUDA graph of ``flow_dis.dis_flow_fit_level`` on
+the chunk's finest refined level (:func:`_dis_from_graph`): every chunk
+has the same frames (models/stabilize.py::estimation_chunk_spans), so
+one graph serves them all; the halvings to that level, the fits and
+the trajectory program stay eager.
+
 Under an active mesh (utils/meshinfo.py) the fast path runs by shard, the
 counterpart of the JAX package's ``_mesh_defer`` branch: a clip the
 mesh's data axis splits evenly (parallel/mesh.py::FrameShards) makes its
@@ -699,27 +708,32 @@ def _scalar(v: float, device) -> torch.Tensor:
     return torch.full((), v, dtype=_F32, device=device)
 
 
-def _fused_enabled(framing: str, tick_pairs, frames) -> bool:
-    """The fused graph's conditions: crop_and_pad, no progress observer,
-    one CUDA device (not frame shards: the graph stays single-device),
-    and ``CVST_FUSED`` not 0, in every transform mode.  Flow also needs
-    integer pool factors (its caller checks them)."""
-    return (framing == "crop_and_pad" and tick_pairs is None
-            and not isinstance(frames, FrameShards) and frames.device.type == "cuda"
+def _graphs_enabled(frames) -> bool:
+    """Every graph's conditions: one CUDA device (not frame shards: a graph
+    stays single-device) and ``CVST_FUSED`` not 0."""
+    return (not isinstance(frames, FrameShards) and frames.device.type == "cuda"
             and os.environ.get("CVST_FUSED", "1") not in ("0", "false"))
 
 
+def _fused_enabled(framing: str, tick_pairs, frames) -> bool:
+    """The fused graph's conditions: crop_and_pad, no progress observer and
+    :func:`_graphs_enabled`, in every transform mode.  Flow also needs
+    integer pool factors (its caller checks them)."""
+    return framing == "crop_and_pad" and tick_pairs is None and _graphs_enabled(frames)
+
+
 def _flow_estimate(grays, strength, keep_fov, *, decimation, seed, mode, camera_lock, window,
-                   width, height, scale_xy, tick_pairs=None, framing="crop_and_pad", bucket=None):
-    """DIS on the working grays, the device fits and the trajectory
-    program: the whole Flow estimation, with no host read.  With no
-    ``tick_pairs`` it is what the fused graph captures."""
+                   width, height, scale_xy, tick_pairs=None, dis=None, framing="crop_and_pad", bucket=None):
+    """DIS on the working grays (each dispatch by ``dis``, as
+    models/flow.py::_dis_samples_chunked takes it), the device fits and
+    the trajectory program: the whole Flow estimation, with no host read.
+    With no ``tick_pairs`` it is what the fused graph captures."""
     want_persp = mode == "perspective"
     gh, gw = int(grays.shape[1]), int(grays.shape[2])
     h_work, w_work = gh * decimation, gw * decimation
     samples = FL._dis_samples_chunked(
         grays, FL.SAMPLE_STEP // decimation, FL.finest_scale(decimation),
-        "homography" if want_persp else "similarity", tick_pairs,
+        "homography" if want_persp else "similarity", tick_pairs, dis,
     )
     if decimation > 1:
         samples = samples * float(decimation)  # back to working px units
@@ -754,28 +768,28 @@ _PROGRAMS = {"flow": _flow_estimate, "classic": _classic_estimate}
 
 
 class _FusedGraph:
-    """One captured estimation (``kind`` 'flow' or 'classic'): static grays,
-    strength and keep_fov in, the trajectory program's tensors out, and
-    the kernel launches the capture recorded, added to
-    ``cuda_build.LAUNCHES`` on every replay.
+    """One captured ``program(*inputs, **kw)``: static inputs of the
+    example's shapes and dtypes in (a float is a 0-d float32 tensor), the
+    program's tensor or dict of tensors out, and the kernel launches the
+    capture recorded, added to ``cuda_build.LAUNCHES`` on every replay.
 
     The static inputs are allocated inside the capture, in the shared
     pool, as the outputs are: a long-lived input made outside it could
     land in a large free block of the allocator's own pool (the last
     call's frames) and keep that whole segment reserved."""
 
-    def __init__(self, kind: str, grays: torch.Tensor, kw: dict):
-        self.program = _PROGRAMS[kind]
-        self.device = grays.device
-        self.shape, self.dtype = tuple(grays.shape), grays.dtype
+    def __init__(self, program, example: tuple, kw: dict):
+        self.program = program
+        self.device = example[0].device
+        self.specs = [(tuple(v.shape), v.dtype) if torch.is_tensor(v) else ((), _F32) for v in example]
         self.kw = kw
-        self.grays = self.strength = self.keep_fov = None
+        self.inputs = None
         self.graph = None
         self.out = None
         self.launches = {}
         self.pool_growth = 0
 
-    def capture(self, grays: torch.Tensor, strength: float, keep_fov: float) -> None:
+    def capture(self, *args) -> None:
         """Run the program once eagerly on the device's warm-up stream (so
         cuBLAS handles and the allocator's state exist, as PyTorch's graph
         guide asks), then capture it."""
@@ -783,7 +797,7 @@ class _FusedGraph:
         side = _warmup_stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
-            self.program(grays, _scalar(strength, dev), _scalar(keep_fov, dev), **self.kw)
+            self.program(*(v if torch.is_tensor(v) else _scalar(v, dev) for v in args), **self.kw)
         torch.cuda.current_stream(dev).wait_stream(side)
         self.record()
         GRAPH_STATS["captures"] += 1
@@ -811,10 +825,8 @@ class _FusedGraph:
         # between harms no result.
         with torch.cuda.device(dev), torch.cuda.graph(graph, pool=_graph_pool(dev)):
             # torch.empty records no kernel: replay() alone writes them
-            self.grays = torch.empty(self.shape, dtype=self.dtype, device=dev)
-            self.strength = torch.empty((), dtype=_F32, device=dev)
-            self.keep_fov = torch.empty((), dtype=_F32, device=dev)
-            out = self.program(self.grays, self.strength, self.keep_fov, **self.kw)
+            self.inputs = [torch.empty(shape, dtype=dtype, device=dev) for shape, dtype in self.specs]
+            out = self.program(*self.inputs, **self.kw)
         _CAPTURE.open = False
         # the wrappers counted the captured launches, which ran nothing
         self.launches = {k: cuda_build.LAUNCHES[k] - before[k] for k in before}
@@ -825,20 +837,23 @@ class _FusedGraph:
     def release(self) -> None:
         """Drop the captured graph, its static inputs and its outputs (its
         share of the pool)."""
-        self.graph = self.out = None
-        self.grays = self.strength = self.keep_fov = None
+        self.graph = self.out = self.inputs = None
 
-    def replay(self, grays: torch.Tensor, strength: float, keep_fov: float) -> Dict[str, torch.Tensor]:
+    def replay(self, *args):
         """The program on these inputs; every output copied out of the
         graph's memory, so two calls never share a result."""
-        self.grays.copy_(grays)
-        self.strength.fill_(strength)
-        self.keep_fov.fill_(keep_fov)
+        for static, v in zip(self.inputs, args):
+            if torch.is_tensor(v):
+                static.copy_(v)
+            else:
+                static.fill_(v)
         with torch.cuda.device(self.device):
             self.graph.replay()
         for k, v in self.launches.items():
             cuda_build.LAUNCHES[k] += v
         GRAPH_STATS["replays"] += 1
+        if torch.is_tensor(self.out):
+            return self.out.clone()
         return {k: v.clone() for k, v in self.out.items()}
 
 
@@ -913,17 +928,15 @@ def _rebuild_pool(key: tuple) -> None:
     _GRAPHS.move_to_end(key)
 
 
-def _fused_estimate(kind: str, grays, strength: float, keep_fov: float, kw: dict) -> Dict[str, torch.Tensor]:
-    """``kind``'s estimation from its CUDA graph, captured at the first call
-    of each static key (the kind, the shapes, every static argument, the
-    device)."""
-    key = (kind, tuple(grays.shape), str(grays.device)) + tuple(sorted(kw.items()))
+def _cached_graph(key: tuple, program, example: tuple, kw: dict) -> _FusedGraph:
+    """The cached graph of ``key`` (every static argument, the shapes, the
+    device), captured from ``example`` on its first call."""
     entry = _GRAPHS.get(key)
     if entry is None:
         P.count("fastpath.capture", 1)
-        entry = _FusedGraph(kind, grays, kw)
+        entry = _FusedGraph(program, example, kw)
         try:
-            entry.capture(grays, strength, keep_fov)
+            entry.capture(*example)
         except BaseException:
             _drop_unused_pools()
             raise
@@ -936,7 +949,41 @@ def _fused_estimate(kind: str, grays, strength: float, keep_fov: float, kw: dict
             _rebuild_pool(key)
     else:
         _GRAPHS.move_to_end(key)
-    return entry.replay(grays, strength, keep_fov)
+    return entry
+
+
+def _fused_estimate(kind: str, grays, strength: float, keep_fov: float, kw: dict) -> Dict[str, torch.Tensor]:
+    """``kind``'s estimation from its CUDA graph, captured at the first call
+    of each static key (the kind, the shapes, every static argument, the
+    device)."""
+    key = (kind, tuple(grays.shape), str(grays.device)) + tuple(sorted(kw.items()))
+    args = (grays, strength, keep_fov)
+    return _cached_graph(key, _PROGRAMS[kind], args, kw).replay(*args)
+
+
+def _dis_from_graph(grays, step: int, finest_scale: int, model: str) -> torch.Tensor:
+    """``FD.dis_flow_fit`` of one chunk of grays, from a CUDA graph: the
+    halvings to the finest level refined run eagerly (``FD.fit_level``,
+    its span and counter outside any capture), then the graph of
+    ``FD.dis_flow_fit_level`` replays on that level.  The graph keeps the
+    level and the samples (:func:`dis_graph_bytes`)."""
+    level = FD.fit_level(grays, finest_scale)
+    kw = dict(size=(int(grays.shape[1]), int(grays.shape[2])), step=step, finest_scale=finest_scale, model=model)
+    key = ("flow_dis", tuple(level.shape), str(level.device)) + tuple(sorted(kw.items()))
+    return _cached_graph(key, FD.dis_flow_fit_level, (level,), kw).replay(level)
+
+
+def dis_graph_bytes(n: int, h: int, w: int, decimation: int) -> int:
+    """The bytes the DIS graph of an (n, h, w) gray clip's chunks keeps
+    between calls, from the shapes: its static input, a chunk's frames at
+    the finest level refined, and its output, the chunk's pairs' samples
+    (pairs, grid points, 2), all float32."""
+    start, end, _ = FL._dis_spans(n, True)[0]
+    frames = end - start
+    _, finest = FD.level_range(h, w, FL.finest_scale(decimation))
+    step = FL.SAMPLE_STEP // decimation
+    points = -(-h // step) * -(-w // step)
+    return 4 * frames * (h >> finest) * (w >> finest) + 4 * (frames - 1) * points * 2
 
 
 def run_flow_fast(
@@ -980,8 +1027,10 @@ def run_flow_fast(
         if factors is not None and _fused_enabled(framing, tick_pairs, frames):
             out = _fused_estimate("flow", grays, strength_c, keep_fov_c, kw)
         else:
-            out = _flow_estimate(grays, _scalar(strength_c, dev), _scalar(keep_fov_c, dev),
-                                 tick_pairs=tick_pairs, framing=framing, bucket=(out_h_b, out_w_b), **kw)
+            # under an observer each chunk's DIS replays its graph
+            dis = _dis_from_graph if tick_pairs is not None and _graphs_enabled(frames) else None
+            out = _flow_estimate(grays, _scalar(strength_c, dev), _scalar(keep_fov_c, dev), tick_pairs=tick_pairs,
+                                 dis=dis, framing=framing, bucket=(out_h_b, out_w_b), **kw)
     del grays
     return _dispatch_and_collect(
         frames, out, width, height, padding_rgb,

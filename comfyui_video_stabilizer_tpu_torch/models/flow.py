@@ -128,33 +128,36 @@ def _gray_decimation(width: int, height: int, working_size) -> int:
     return dec if can_decimate(width, height, working_size, dec) else 1
 
 
-def _dis_samples_chunked(grays, step_local, finest_scale, model, tick_pairs):
+def _dis_samples_chunked(grays, step_local, finest_scale, model, tick_pairs, dis=None):
     """DIS flow over all adjacent pairs, in 32-pair chunks with a progress
     tick + interrupt poll between chunks (identical to one dispatch:
-    DIS is per pair).  Frame-sharded grays run by shard
+    DIS is per pair).  ``dis`` runs each dispatch (``FD.dis_flow_fit``'s
+    arguments; that function when None; the fast path's CUDA graph of a
+    chunk).  Frame-sharded grays run by shard
     (parallel/mesh.py::sharded_pairs), the samples gathered to the lead
     device."""
     if isinstance(grays, FrameShards):
         parts = sharded_pairs(
-            grays, lambda g, tick: _dis_samples_chunked(g, step_local, finest_scale, model, tick), tick_pairs)
+            grays, lambda g, tick: _dis_samples_chunked(g, step_local, finest_scale, model, tick, dis), tick_pairs)
         return torch.cat(parts, dim=0)
     spans = _dis_spans(int(grays.shape[0]), tick_pairs is not None)
     if len(spans) == 1:
-        return _dis_chunk(grays, step_local, finest_scale, model)
+        return _dis_chunk(grays, step_local, finest_scale, model, dis)
     parts = []
     for s, e, drop in spans:
-        part = _dis_chunk(grays[s:e], step_local, finest_scale, model)
+        part = _dis_chunk(grays[s:e], step_local, finest_scale, model, dis)
         parts.append(part[drop:] if drop else part)
         tick_pairs(e - 1)
     return torch.cat(parts, dim=0)
 
 
-def _dis_chunk(grays, step_local, finest_scale, model):
-    """DIS over one chunk's adjacent pairs, in span ``flow.dis.chunk``
-    counting them (``flow.dis_pairs``)."""
+def _dis_chunk(grays, step_local, finest_scale, model, dis=None):
+    """DIS over one chunk's adjacent pairs (by ``dis``, else
+    ``FD.dis_flow_fit``), in span ``flow.dis.chunk`` counting them
+    (``flow.dis_pairs``)."""
     with P.span("flow.dis.chunk", grays.device) as sp:
         sp.count("flow.dis_pairs", max(int(grays.shape[0]) - 1, 0))
-        return FD.dis_flow_fit(grays, step_local, finest_scale=finest_scale, model=model)
+        return (dis or FD.dis_flow_fit)(grays, step_local, finest_scale=finest_scale, model=model)
 
 
 def _dis_spans(n_frames: int, chunked: bool):

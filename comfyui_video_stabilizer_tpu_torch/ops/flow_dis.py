@@ -461,36 +461,31 @@ def _guarded_fit(flow_level, conf, M_prev, model):
     return torch.where(ok[:, None, None], Mn, M_prev)
 
 
-def _dis_levels(grays, coarsest, finest, radius, patch, refine_rounds,
-                model="similarity", lk_mid=False):
-    """Coarse-to-fine solve down to ``finest`` (no polish).
+def _dis_levels(pyr, radius, patch, refine_rounds, model="similarity", lk_mid=False):
+    """Coarse-to-fine solve over ``pyr``, the level stacks from the finest
+    level refined (``pyr[0]``) to the coarsest (no polish).
 
-    Returns (flow_level, conf_level, M, pyr_I, pyr_J) with flow at
-    level ``finest`` resolution in level-pixel units.
+    Returns (flow_level, conf_level, M) with flow at ``pyr[0]``'s
+    resolution in its pixel units.
     """
-    b = grays.shape[0] - 1
-    with P.span("flow.dis.pyramid", grays.device) as sp:
-        pyr = build_pyramid(grays, coarsest)
-        if P.timing_enabled():
-            sp.count("flow.dis.pyramid_bytes", 4 * sum(lvl.numel() for lvl in pyr[1:]))
-    pyr_I = [lvl[:-1] for lvl in pyr]
-    pyr_J = [lvl[1:] for lvl in pyr]
-    M = torch.eye(3, dtype=torch.float32, device=grays.device).expand(b, 3, 3).contiguous()
+    top = len(pyr) - 1
+    b = pyr[0].shape[0] - 1
+    M = torch.eye(3, dtype=torch.float32, device=pyr[0].device).expand(b, 3, 3).contiguous()
 
-    def refine_at(lvl, M, lk_only=False, level_radius=None):
-        Jw = _warp_similarity_device(pyr_J[lvl], M, pad_t=32, radius=4)
+    def refine_at(i, M, lk_only=False, level_radius=None):
+        Jw = _warp_similarity_device(pyr[i][1:], M, pad_t=32, radius=4)
         residual, conf = _residual_flow(
-            pyr_I[lvl], Jw, radius if level_radius is None else level_radius, patch, lk_only
+            pyr[i][:-1], Jw, radius if level_radius is None else level_radius, patch, lk_only
         )
         return _compose_flow(M, residual), conf
 
     flow_level = conf_level = None
-    for lvl in range(coarsest, finest - 1, -1):
-        if lvl != coarsest:
+    for i in range(top, -1, -1):
+        if i != top:
             M = _scale_up_matrix(M)
-        mid = lk_mid and lvl != coarsest and lvl > finest
-        flow_level, conf_level = refine_at(lvl, M, lk_only=mid)
-        if lvl > finest:
+        mid = lk_mid and i != top and i > 0
+        flow_level, conf_level = refine_at(i, M, lk_only=mid)
+        if i > 0:
             M = _guarded_fit(flow_level, conf_level, M, model)
 
     # fit -> prewarp -> re-estimate rounds at the finest level
@@ -498,8 +493,8 @@ def _dis_levels(grays, coarsest, finest, radius, patch, refine_rounds,
         M = _guarded_fit(flow_level, conf_level, M, model)
         lk_only = 0 < rnd < refine_rounds - 1
         level_radius = radius if rnd == 0 else min(radius, 2)
-        flow_level, conf_level = refine_at(finest, M, lk_only=lk_only, level_radius=level_radius)
-    return flow_level, conf_level, M, pyr_I, pyr_J
+        flow_level, conf_level = refine_at(0, M, lk_only=lk_only, level_radius=level_radius)
+    return flow_level, conf_level, M
 
 
 def dis_flow(grays: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -520,14 +515,17 @@ def dis_flow(grays: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     if n < 2:
         return (torch.zeros((0, h, w, 2), dtype=torch.float32, device=grays.device),
                 torch.zeros((0, h, w), dtype=torch.float32, device=grays.device))
-    grays = grays.to(torch.float32)
     coarsest, finest = level_range(h, w)
-    flow_level, conf_level, M, pyr_I, pyr_J = _dis_levels(grays, coarsest, finest, RADIUS, PATCH, 3)
+    with P.span("flow.dis.pyramid", grays.device) as sp:
+        pyr = build_pyramid(grays, coarsest)
+        if P.timing_enabled():
+            sp.count("flow.dis.pyramid_bytes", pyramid_bytes(n, h, w, coarsest))
+    flow_level, conf_level, M = _dis_levels(pyr[finest:], RADIUS, PATCH, 3)
     polish = finest - 1
     if polish >= 0:
         M = _scale_up_matrix(_guarded_fit(flow_level, conf_level, M, "similarity"))
-        Il = pyr_I[polish]
-        Jw = _warp_similarity_device(pyr_J[polish], M, pad_t=32, radius=4)
+        Il = pyr[polish][:-1]
+        Jw = _warp_similarity_device(pyr[polish][1:], M, pad_t=32, radius=4)
         r_lk, conf_lk = _lk_refine(Il * (1.0 / 255.0), Jw * (1.0 / 255.0), _make_agg(PATCH))
         f_up = _upsample2_flow(flow_level, Il.shape[1], Il.shape[2])
         glob = _compose_flow(M, torch.zeros_like(f_up))
@@ -538,7 +536,7 @@ def dis_flow(grays: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         finest = polish
     flow = flow_level
     for lvl in range(finest, 0, -1):
-        flow = _upsample2_flow(flow, pyr_I[lvl - 1].shape[1], pyr_I[lvl - 1].shape[2])
+        flow = _upsample2_flow(flow, pyr[lvl - 1].shape[1], pyr[lvl - 1].shape[2])
     return flow, conf_level
 
 
@@ -555,19 +553,57 @@ def dis_flow_fit(
     grays (N, H, W) float 0..255 on any device.  Returns (N-1, P, 2)
     working-res px flow at the grid of models/flow._grid_points(h, w,
     step), on the grays' device.  Two refine rounds and radius-2 cost
-    volumes, as the reference's fit path.
+    volumes, as the reference's fit path.  The halvings to the finest
+    level refined (:func:`fit_level`), then :func:`dis_flow_fit_level`.
     """
     n, h, w = grays.shape
     if n < 2:
         return torch.zeros((0, 0, 2), dtype=torch.float32, device=grays.device)
-    grays = grays.to(torch.float32)
+    return dis_flow_fit_level(fit_level(grays, finest_scale), (h, w), step, finest_scale, radius, patch, model)
+
+
+def pyramid_bytes(n: int, h: int, w: int, coarsest: int) -> int:
+    """The float32 bytes of levels 1 to ``coarsest`` of an (n, h, w)
+    stack's pyramid, from the shapes (:func:`_down2` floors each half)."""
+    return 4 * n * sum((h >> lvl) * (w >> lvl) for lvl in range(1, coarsest + 1))
+
+
+def fit_level(grays: torch.Tensor, finest_scale: int = FINEST_SCALE) -> torch.Tensor:
+    """Level ``finest`` of the grays' pyramid, the finest that
+    :func:`dis_flow_fit` refines (the float32 grays themselves at
+    ``finest_scale`` 0), in span ``flow.dis.pyramid``, which counts every
+    level's bytes (``flow.dis.pyramid_bytes``) from the shapes."""
+    n, h, w = grays.shape
     coarsest, finest = level_range(h, w, finest_scale)
-    flow_level = _dis_levels(grays, coarsest, finest, min(radius, 2), patch, 2, model, lk_mid=True)[0]
+    with P.span("flow.dis.pyramid", grays.device) as sp:
+        level = build_pyramid(grays, finest)[finest]
+        if P.timing_enabled():
+            sp.count("flow.dis.pyramid_bytes", pyramid_bytes(n, h, w, coarsest))
+    return level
+
+
+def dis_flow_fit_level(
+    level: torch.Tensor,
+    size: Tuple[int, int],
+    step: int,
+    finest_scale: int = FINEST_SCALE,
+    radius: int = RADIUS,
+    patch: int = PATCH,
+    model: str = "similarity",
+) -> torch.Tensor:
+    """:func:`dis_flow_fit` from :func:`fit_level`'s level of (h, w)
+    ``size`` grays: the coarser levels, the solve and the sampling, with
+    no span and no host read (the fast path captures it as a CUDA
+    graph, models/fastpath.py::_dis_from_graph)."""
+    h, w = size
+    coarsest, finest = level_range(h, w, finest_scale)
+    pyr = build_pyramid(level, coarsest - finest)
+    flow_level = _dis_levels(pyr, min(radius, 2), patch, 2, model, lk_mid=True)[0]
     scale = float(1 << finest)
     lh, lw = flow_level.shape[1], flow_level.shape[2]
     # level-grid indices of the working-res grid, clamped where
     # floor-halving dropped a trailing row/col
-    ys_t = torch.clamp(torch.arange(0, h, step, device=grays.device) // (1 << finest), max=lh - 1)
-    xs_t = torch.clamp(torch.arange(0, w, step, device=grays.device) // (1 << finest), max=lw - 1)
+    ys_t = torch.clamp(torch.arange(0, h, step, device=level.device) // (1 << finest), max=lh - 1)
+    xs_t = torch.clamp(torch.arange(0, w, step, device=level.device) // (1 << finest), max=lw - 1)
     sub = flow_level.index_select(1, ys_t).index_select(2, xs_t) * scale
     return sub.reshape(sub.shape[0], -1, 2)
