@@ -41,11 +41,10 @@ import torch
 from ..ops import lk as LK
 from ..ops import prng
 from ..ops import ransac as RS
-from ..parallel.mesh import FrameShards, sharded_pairs
 from ..utils.device import fetch_packed
 from ..utils.video_io import VideoContext
 from . import geometry as G
-from .stabilize import PairFits, StabilizationResult, estimation_chunk_spans, stabilize_clip
+from .stabilize import PairFits, StabilizationResult, chunked_pairs, stabilize_clip
 
 MIN_FEATURES = 12
 MIN_TRACKS = 8
@@ -87,32 +86,15 @@ def _tracks(grays: torch.Tensor):
     return pts, det_counts, tracked, status
 
 
-def _lk_tracks_chunked(grays: torch.Tensor, tick_pairs):
-    """_tracks over all adjacent pairs in 32-pair chunks, with a progress
-    tick + interrupt poll between chunks (models/stabilize.py::
-    estimation_chunk_spans).  GFTT is per frame and LK per pair, so the
-    concatenation equals one whole-clip call.  Frame-sharded grays run by
-    shard, the tracks gathered to the lead device."""
-    if isinstance(grays, FrameShards):
-        parts = sharded_pairs(grays, _lk_tracks_chunked, tick_pairs)
-        return tuple(torch.cat(xs, dim=0) for xs in zip(*parts))
-    spans = estimation_chunk_spans(int(grays.shape[0]))
-    if len(spans) == 1 or tick_pairs is None:
-        return _tracks(grays)
-    parts = []
-    for s, e, drop in spans:
-        part = _tracks(grays[s:e])
-        parts.append(tuple(x[drop:] for x in part) if drop else part)
-        tick_pairs(e - 1)
-    return tuple(torch.cat(xs, dim=0) for xs in zip(*parts))
-
-
 def _tracks_and_fits(grays, tick_pairs, seed: int, want_persp: bool,
-                     n_hyp: int = RS.DEFAULT_HYPOTHESES):
+                     n_hyp: int = RS.DEFAULT_HYPOTHESES, per_chunk=None):
     """((pts, det_counts, tracked, status), fits) on the device, with no
-    host read: the tracks (:func:`_lk_tracks_chunked`), then the fits of
+    host read: the tracks of every pair by ``per_chunk`` (:func:`_tracks`
+    when None) through the shared chunk loop (models/stabilize.py::
+    chunked_pairs; GFTT is per frame and LK per pair, so the chunks equal
+    one whole-clip call), then the fits of
     :func:`_fused_classic_fits_device`."""
-    pts, det_counts, tracked, status = _lk_tracks_chunked(grays, tick_pairs)
+    pts, det_counts, tracked, status = chunked_pairs(grays, per_chunk or _tracks, tick_pairs)
     fits = _fused_classic_fits_device(pts, tracked, status, seed, want_persp, n_hyp)
     return (pts, det_counts, tracked, status), fits
 
@@ -176,7 +158,7 @@ def _classic_fast_path(*args, **kwargs):
     (models/fastpath.py); None leaves the call to the host engine."""
     from . import fastpath
 
-    return fastpath.offer("classic", fastpath.run_classic_fast, *args, **kwargs)
+    return fastpath.offer("classic", *args, **kwargs)
 
 
 classic_estimator.fast_path = _classic_fast_path

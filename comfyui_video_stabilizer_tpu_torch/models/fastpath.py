@@ -39,13 +39,14 @@ hypotheses and, for Flow, the IRLS pre-warp) run K11 and its DLT refit
 K10 (ops/linalg_cuda.py), neither of which reads the card on the host.
 
 A call with a progress observer (the ComfyUI node always passes one)
-estimates Flow in 32-pair chunks with a tick and an interrupt poll
-between them (models/flow.py::_dis_samples_chunked).  There each
-chunk's DIS replays a CUDA graph of ``flow_dis.dis_flow_fit_level`` on
-the chunk's finest refined level (:func:`_dis_from_graph`): every chunk
-has the same frames (models/stabilize.py::estimation_chunk_spans), so
-one graph serves them all; the halvings to that level, the fits and
-the trajectory program stay eager.
+estimates in 32-pair chunks with a tick and an interrupt poll between
+them (models/stabilize.py::chunked_pairs, the loop both estimators
+share).  There each of Flow's chunks replays a CUDA graph of
+``flow_dis.dis_flow_fit_level`` on the chunk's finest refined level
+(:func:`_dis_from_graph`): every chunk has the same frames, so one
+graph serves them all; the halvings to that level, the fits and the
+trajectory program stay eager.  Classic's chunks run eagerly.
+:func:`_route` makes the choice from what the call shows.
 
 Under an active mesh (utils/meshinfo.py) the fast path runs by shard, the
 counterpart of the JAX package's ``_mesh_defer`` branch: a clip the
@@ -89,13 +90,6 @@ from ..utils.meshinfo import active_mesh, data_shards
 from . import classic as CL
 from . import flow as FL
 from . import geometry as G
-from .stabilize import count_gray
-
-PERSP_MIN_RATIO = 0.15
-SIM_MIN_RATIO = 0.1
-MIN_VALID = 12           # flow: min valid grid samples (models/flow.py)
-CL_MIN_FEATURES = 12     # classic: min detected corners (models/classic.py)
-CL_MIN_TRACKS = 8        # classic: min surviving LK tracks
 
 _MODE_IDX = {"perspective": 0, "similarity": 1, "translation": 2}
 _MODE_NAMES = ("perspective", "similarity", "translation")
@@ -137,9 +131,9 @@ _F32 = torch.float32
 logger = logging.getLogger(__name__)
 
 
-def offer(kind: str, runner, *args, **kwargs):
-    """The estimators' ``fast_path`` hooks: ``runner`` is ``run_flow_fast``
-    or ``run_classic_fast``.  None leaves the call to the host engine,
+def offer(kind: str, *args, **kwargs):
+    """The estimators' ``fast_path`` hooks: :func:`run_fast` of ``kind``
+    ('flow' or 'classic').  None leaves the call to the host engine,
     whose backend chain then runs; so does any exception but a kernel's
     or the card's (models/flow.py::NOT_DEGRADED, re-raised), unless
     ``CVST_FASTPATH_STRICT`` is set.  An exception from a graph's capture
@@ -149,7 +143,7 @@ def offer(kind: str, runner, *args, **kwargs):
     counts the calls that returned a result."""
     _CAPTURE.open = False
     try:
-        out = runner(*args, **kwargs)
+        out = run_fast(kind, *args, **kwargs)
     except FL.NOT_DEGRADED:
         raise
     except Exception as exc:
@@ -318,13 +312,13 @@ def _traj_program(
     if kind == "flow":
         gate_counts = next(it)  # valid grid samples per pair
         b = gate_counts.shape[0]
-        deg = gate_counts < MIN_VALID
+        deg = gate_counts < FL.MIN_VALID
         n_per_fit = 4  # (M, n_inliers, n_valid, residual)
     else:  # classic (sparse tracks); no residual diagnostics
         det_counts = next(it)
         gate_counts = next(it)  # surviving tracks per pair
         b = gate_counts.shape[0]
-        deg = (det_counts < CL_MIN_FEATURES) | (gate_counts < CL_MIN_TRACKS)
+        deg = (det_counts < CL.MIN_FEATURES) | (gate_counts < CL.MIN_TRACKS)
         n_per_fit = 3
     dev = gate_counts.device
     eye = _eye(dev)
@@ -339,12 +333,12 @@ def _traj_program(
         return M.to(_F32), conf.to(_F32), r.to(_F32), ok
 
     if want_persp:
-        Mp, cp, rp, op_ = fit_block(4, PERSP_MIN_RATIO)
+        Mp, cp, rp, op_ = fit_block(4, FL.PERSP_MIN_RATIO)
     else:
         Mp = eye.expand(b, 3, 3)
         cp = rp = zeros_b
         op_ = torch.zeros(b, dtype=torch.bool, device=dev)
-    Ms, cs, rs, os_ = fit_block(3, SIM_MIN_RATIO)
+    Ms, cs, rs, os_ = fit_block(3, FL.SIM_MIN_RATIO)
     Mt = next(it).to(_F32)
     if kind == "flow":
         rt = next(it).to(_F32)
@@ -708,32 +702,36 @@ def _scalar(v: float, device) -> torch.Tensor:
     return torch.full((), v, dtype=_F32, device=device)
 
 
-def _graphs_enabled(frames) -> bool:
-    """Every graph's conditions: one CUDA device (not frame shards: a graph
+def _route(kind: str, frames, framing: str, tick_pairs, size, working_size, decimation: int) -> str:
+    """How a call's estimation runs, from what the call shows: "graph", the
+    whole estimation replayed from one CUDA graph (crop_and_pad with no
+    progress observer; Flow only with integer pool factors, as the JAX
+    package's fused program requires); "chunks", Flow under an observer,
+    each chunk's DIS from one graph (:func:`_dis_from_graph`); else
+    "eager".  A graph needs one CUDA device (not frame shards: a graph
     stays single-device) and ``CVST_FUSED`` not 0."""
-    return (not isinstance(frames, FrameShards) and frames.device.type == "cuda"
-            and os.environ.get("CVST_FUSED", "1") not in ("0", "false"))
-
-
-def _fused_enabled(framing: str, tick_pairs, frames) -> bool:
-    """The fused graph's conditions: crop_and_pad, no progress observer and
-    :func:`_graphs_enabled`, in every transform mode.  Flow also needs
-    integer pool factors (its caller checks them)."""
-    return framing == "crop_and_pad" and tick_pairs is None and _graphs_enabled(frames)
+    if (isinstance(frames, FrameShards) or frames.device.type != "cuda"
+            or os.environ.get("CVST_FUSED", "1") in ("0", "false")):
+        return "eager"
+    if tick_pairs is not None:
+        return "chunks" if kind == "flow" else "eager"
+    pooled = kind != "flow" or _gray_pool_factors(int(size[0]), int(size[1]), working_size, decimation) is not None
+    return "graph" if framing == "crop_and_pad" and pooled else "eager"
 
 
 def _flow_estimate(grays, strength, keep_fov, *, decimation, seed, mode, camera_lock, window,
-                   width, height, scale_xy, tick_pairs=None, dis=None, framing="crop_and_pad", bucket=None):
-    """DIS on the working grays (each dispatch by ``dis``, as
-    models/flow.py::_dis_samples_chunked takes it), the device fits and
-    the trajectory program: the whole Flow estimation, with no host read.
-    With no ``tick_pairs`` it is what the fused graph captures."""
+                   width, height, scale_xy, tick_pairs=None, per_chunk=None, framing="crop_and_pad", bucket=None):
+    """DIS on the working grays through the shared chunk loop, each
+    chunk's dispatch by ``per_chunk`` (``FD.dis_flow_fit``'s arguments;
+    that function when None), the device fits and the trajectory
+    program: the whole Flow estimation, with no host read.  With no
+    ``tick_pairs`` it is what the fused graph captures."""
     want_persp = mode == "perspective"
     gh, gw = int(grays.shape[1]), int(grays.shape[2])
     h_work, w_work = gh * decimation, gw * decimation
     samples = FL._dis_samples_chunked(
         grays, FL.SAMPLE_STEP // decimation, FL.finest_scale(decimation),
-        "homography" if want_persp else "similarity", tick_pairs, dis,
+        "homography" if want_persp else "similarity", tick_pairs, per_chunk,
     )
     if decimation > 1:
         samples = samples * float(decimation)  # back to working px units
@@ -750,12 +748,13 @@ def _flow_estimate(grays, strength, keep_fov, *, decimation, seed, mode, camera_
 
 
 def _classic_estimate(grays, strength, keep_fov, *, seed, mode, camera_lock, window, width, height, scale_xy,
-                      tick_pairs=None, framing="crop_and_pad", bucket=None):
-    """GFTT, LK and the fits (models/classic.py::_tracks_and_fits), then
-    the trajectory program: the whole Classic estimation, with no host
-    read.  With no ``tick_pairs`` it is what the fused graph captures."""
+                      tick_pairs=None, per_chunk=None, framing="crop_and_pad", bucket=None):
+    """GFTT, LK and the fits (models/classic.py::_tracks_and_fits, each
+    chunk's tracks by ``per_chunk``, ``CL._tracks`` when None), then the
+    trajectory program: the whole Classic estimation, with no host read.
+    With no ``tick_pairs`` it is what the fused graph captures."""
     want_persp = mode == "perspective"
-    (_, det_counts, _, _), fits = CL._tracks_and_fits(grays, tick_pairs, seed, want_persp)
+    (_, det_counts, _, _), fits = CL._tracks_and_fits(grays, tick_pairs, seed, want_persp, per_chunk=per_chunk)
     return _traj_program(
         strength, keep_fov, det_counts, *fits,
         kind="classic", mode=mode, want_persp=want_persp, camera_lock=camera_lock, window=window,
@@ -964,29 +963,17 @@ def _fused_estimate(kind: str, grays, strength: float, keep_fov: float, kw: dict
 def _dis_from_graph(grays, step: int, finest_scale: int, model: str) -> torch.Tensor:
     """``FD.dis_flow_fit`` of one chunk of grays, from a CUDA graph: the
     halvings to the finest level refined run eagerly (``FD.fit_level``,
-    its span and counter outside any capture), then the graph of
+    its span outside any capture), then the graph of
     ``FD.dis_flow_fit_level`` replays on that level.  The graph keeps the
-    level and the samples (:func:`dis_graph_bytes`)."""
+    level and the samples."""
     level = FD.fit_level(grays, finest_scale)
     kw = dict(size=(int(grays.shape[1]), int(grays.shape[2])), step=step, finest_scale=finest_scale, model=model)
     key = ("flow_dis", tuple(level.shape), str(level.device)) + tuple(sorted(kw.items()))
     return _cached_graph(key, FD.dis_flow_fit_level, (level,), kw).replay(level)
 
 
-def dis_graph_bytes(n: int, h: int, w: int, decimation: int) -> int:
-    """The bytes the DIS graph of an (n, h, w) gray clip's chunks keeps
-    between calls, from the shapes: its static input, a chunk's frames at
-    the finest level refined, and its output, the chunk's pairs' samples
-    (pairs, grid points, 2), all float32."""
-    start, end, _ = FL._dis_spans(n, True)[0]
-    frames = end - start
-    _, finest = FD.level_range(h, w, FL.finest_scale(decimation))
-    step = FL.SAMPLE_STEP // decimation
-    points = -(-h // step) * -(-w // step)
-    return 4 * frames * (h >> finest) * (w >> finest) + 4 * (frames - 1) * points * 2
-
-
-def run_flow_fast(
+def run_fast(
+    kind: str,
     frames,
     framing: str,
     transform_mode: str,
@@ -1002,8 +989,10 @@ def run_flow_fast(
     tick_pairs=None,
     keep_fov: float = 1.0,
 ) -> Dict | None:
-    """The Flow crop / crop_and_pad / expand pipeline with no host read
-    before K1; returns the host-value dict models/stabilize.py's meta
+    """The ``kind`` ('flow' or 'classic') crop / crop_and_pad / expand
+    pipeline with no host read before K1: the gray, the kind's estimation
+    program (``_PROGRAMS``) by its :func:`_route`, then K8's stats, K1 and
+    the one fetch.  Returns the host-value dict models/stabilize.py's meta
     assembly consumes, or None to leave the call to the host engine."""
     gated = _gates(frames, framing, size, keep_fov)
     if gated is None:
@@ -1011,80 +1000,29 @@ def run_flow_fast(
     frames, _, out_h_b, out_w_b = gated
     dev = lead_device(frames)
     width, height = int(size[0]), int(size[1])
-    want_persp = transform_mode == "perspective"
+    flow = kind == "flow"
     strength_c, smooth_c, keep_fov_c, window, scale_xy = _trajectory_args(
         strength, smooth, fps, camera_lock, keep_fov, width, height, working_size)
-    with P.span("fastpath.gray", dev) as sp:
+    with P.span("fastpath.gray", dev):
         grays = R.gray_for_estimation(frames, working_size, decimation=decimation)
-        count_gray(sp, frames, grays)
-    kw = dict(decimation=decimation, seed=seed, mode=transform_mode, camera_lock=camera_lock,
-              window=window, width=width, height=height, scale_xy=scale_xy)
-    factors = _gray_pool_factors(width, height, working_size, decimation)
-    with P.span("fastpath.estimate", dev) as sp:
-        if P.timing_enabled():  # from the shapes, outside any capture: a graph replay counts it too
-            sp.count("flow.dis_level_pairs", FL.dis_pairs(grays, tick_pairs is not None) * FD.refined_levels(
-                int(grays.shape[1]), int(grays.shape[2]), FL.finest_scale(decimation)))
-        if factors is not None and _fused_enabled(framing, tick_pairs, frames):
-            out = _fused_estimate("flow", grays, strength_c, keep_fov_c, kw)
+    kw = dict(seed=seed, mode=transform_mode, camera_lock=camera_lock, window=window, width=width,
+              height=height, scale_xy=scale_xy)
+    if flow:
+        kw["decimation"] = decimation
+    route = _route(kind, frames, framing, tick_pairs, size, working_size, decimation)
+    with P.span("fastpath.estimate", dev):
+        if route == "graph":
+            out = _fused_estimate(kind, grays, strength_c, keep_fov_c, kw)
         else:
-            # under an observer each chunk's DIS replays its graph
-            dis = _dis_from_graph if tick_pairs is not None and _graphs_enabled(frames) else None
-            out = _flow_estimate(grays, _scalar(strength_c, dev), _scalar(keep_fov_c, dev), tick_pairs=tick_pairs,
-                                 dis=dis, framing=framing, bucket=(out_h_b, out_w_b), **kw)
+            out = _PROGRAMS[kind](grays, _scalar(strength_c, dev), _scalar(keep_fov_c, dev), tick_pairs=tick_pairs,
+                                  per_chunk=_dis_from_graph if route == "chunks" else None, framing=framing,
+                                  bucket=(out_h_b, out_w_b), **kw)
     del grays
     return _dispatch_and_collect(
         frames, out, width, height, padding_rgb,
-        extra_meta={"flow_backend": "DIS", "flow_fallback_reason": None},
-        strength_c=strength_c, smooth_c=smooth_c, has_resid=True,
+        extra_meta={"flow_backend": "DIS", "flow_fallback_reason": None} if flow else {},
+        strength_c=strength_c, smooth_c=smooth_c, has_resid=flow,
         framing=framing, out_dims=(out_h_b, out_w_b), keep_fov_c=keep_fov_c,
-    )
-
-
-def run_classic_fast(
-    frames,
-    framing: str,
-    transform_mode: str,
-    camera_lock: bool,
-    strength: float,
-    smooth: float,
-    fps: float,
-    size: Tuple[int, int],
-    working_size,
-    decimation: int,
-    padding_rgb: Tuple[int, int, int],
-    seed: int = 0,
-    tick_pairs=None,
-    keep_fov: float = 1.0,
-) -> Dict | None:
-    """Classic counterpart of :func:`run_flow_fast`: GFTT, pyramidal LK and
-    the device fits feed the same trajectory program, with no host read
-    before K1; crop_and_pad under :func:`_fused_enabled` replays the
-    estimation from its CUDA graph."""
-    gated = _gates(frames, framing, size, keep_fov)
-    if gated is None:
-        return None
-    frames, _, out_h_b, out_w_b = gated
-    dev = lead_device(frames)
-    width, height = int(size[0]), int(size[1])
-    want_persp = transform_mode == "perspective"
-    strength_c, smooth_c, keep_fov_c, window, scale_xy = _trajectory_args(
-        strength, smooth, fps, camera_lock, keep_fov, width, height, working_size)
-    with P.span("fastpath.gray", dev) as sp:
-        grays = R.gray_for_estimation(frames, working_size, decimation=decimation)
-        count_gray(sp, frames, grays)
-    kw = dict(seed=seed, mode=transform_mode, camera_lock=camera_lock, window=window, width=width,
-              height=height, scale_xy=scale_xy)
-    with P.span("fastpath.estimate", dev):
-        if _fused_enabled(framing, tick_pairs, frames):
-            out = _fused_estimate("classic", grays, strength_c, keep_fov_c, kw)
-        else:
-            out = _classic_estimate(grays, _scalar(strength_c, dev), _scalar(keep_fov_c, dev),
-                                    tick_pairs=tick_pairs, framing=framing, bucket=(out_h_b, out_w_b), **kw)
-    del grays
-    return _dispatch_and_collect(
-        frames, out, width, height, padding_rgb, extra_meta={}, strength_c=strength_c,
-        smooth_c=smooth_c, has_resid=False, framing=framing, out_dims=(out_h_b, out_w_b),
-        keep_fov_c=keep_fov_c,
     )
 
 

@@ -50,11 +50,11 @@ from ..ops import ransac as RS
 from ..ops import tvl1 as TV
 from ..ops.cuda_build import KernelError
 from ..ops.resize import can_decimate
-from ..parallel.mesh import FrameShards, halo_lengths, lead_device, sharded_pairs
+from ..parallel.mesh import FrameShards, lead_device
 from ..utils import profiling as P
 from ..utils.video_io import VideoContext
 from . import geometry as G
-from .stabilize import PairFits, StabilizationResult, estimation_chunk_spans, stabilize_clip
+from .stabilize import PairFits, StabilizationResult, chunked_pairs, stabilize_clip
 
 SAMPLE_STEP = 8
 MIN_VALID = 12
@@ -129,51 +129,17 @@ def _gray_decimation(width: int, height: int, working_size) -> int:
 
 
 def _dis_samples_chunked(grays, step_local, finest_scale, model, tick_pairs, dis=None):
-    """DIS flow over all adjacent pairs, in 32-pair chunks with a progress
-    tick + interrupt poll between chunks (identical to one dispatch:
-    DIS is per pair).  ``dis`` runs each dispatch (``FD.dis_flow_fit``'s
-    arguments; that function when None; the fast path's CUDA graph of a
-    chunk).  Frame-sharded grays run by shard
-    (parallel/mesh.py::sharded_pairs), the samples gathered to the lead
-    device."""
-    if isinstance(grays, FrameShards):
-        parts = sharded_pairs(
-            grays, lambda g, tick: _dis_samples_chunked(g, step_local, finest_scale, model, tick, dis), tick_pairs)
-        return torch.cat(parts, dim=0)
-    spans = _dis_spans(int(grays.shape[0]), tick_pairs is not None)
-    if len(spans) == 1:
-        return _dis_chunk(grays, step_local, finest_scale, model, dis)
-    parts = []
-    for s, e, drop in spans:
-        part = _dis_chunk(grays[s:e], step_local, finest_scale, model, dis)
-        parts.append(part[drop:] if drop else part)
-        tick_pairs(e - 1)
-    return torch.cat(parts, dim=0)
+    """DIS flow over all adjacent pairs through the shared chunk loop
+    (models/stabilize.py::chunked_pairs: 32-pair chunks with a progress
+    tick + interrupt poll between them under an observer, by shard on
+    frame shards).  Each chunk's dispatch runs in span ``flow.dis.chunk``
+    by ``dis`` (``FD.dis_flow_fit``'s arguments; that function when None;
+    the fast path's CUDA graph of a chunk)."""
+    def per_chunk(chunk):
+        with P.span("flow.dis.chunk", chunk.device):
+            return (dis or FD.dis_flow_fit)(chunk, step_local, finest_scale=finest_scale, model=model)
 
-
-def _dis_chunk(grays, step_local, finest_scale, model, dis=None):
-    """DIS over one chunk's adjacent pairs (by ``dis``, else
-    ``FD.dis_flow_fit``), in span ``flow.dis.chunk`` counting them
-    (``flow.dis_pairs``)."""
-    with P.span("flow.dis.chunk", grays.device) as sp:
-        sp.count("flow.dis_pairs", max(int(grays.shape[0]) - 1, 0))
-        return (dis or FD.dis_flow_fit)(grays, step_local, finest_scale=finest_scale, model=model)
-
-
-def _dis_spans(n_frames: int, chunked: bool):
-    """The frame slices [(start, end, drop)] :func:`_dis_samples_chunked`
-    hands to DIS, one dispatch each: the 32-pair chunks when ``chunked``
-    (a progress observer waits between them), else the whole clip."""
-    spans = estimation_chunk_spans(n_frames)
-    return spans if chunked and len(spans) > 1 else [(0, n_frames, 0)]
-
-
-def dis_pairs(grays, chunked: bool) -> int:
-    """The adjacent pairs :func:`_dis_samples_chunked` hands to DIS, from
-    the grays' shape alone: each shard with its halo, and the pairs the
-    last chunk recomputes and drops."""
-    sizes = halo_lengths(grays) if isinstance(grays, FrameShards) else [int(grays.shape[0])]
-    return sum(max(e - s - 1, 0) for n in sizes for s, e, _ in _dis_spans(n, chunked))
+    return chunked_pairs(grays, per_chunk, tick_pairs)
 
 
 def finest_scale(decimation: int) -> int:
@@ -278,7 +244,7 @@ def _flow_fast_path(*args, **kwargs):
     (models/fastpath.py); None leaves the call to the host engine."""
     from . import fastpath
 
-    return fastpath.offer("flow", fastpath.run_flow_fast, *args, **kwargs)
+    return fastpath.offer("flow", *args, **kwargs)
 
 
 flow_estimator.fast_path = _flow_fast_path

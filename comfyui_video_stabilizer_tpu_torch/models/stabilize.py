@@ -48,7 +48,6 @@ then come back as FrameShards.
 from __future__ import annotations
 
 import logging
-import math
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Tuple
 
@@ -61,7 +60,7 @@ from ..meta.motion_meta import (
 )
 from ..ops import resize as R
 from ..ops import warp as W
-from ..parallel.mesh import FrameShards
+from ..parallel.mesh import FrameShards, sharded_pairs
 from ..utils import profiling as P
 from ..utils.device import resolve_device, strict_fp32
 from ..utils.video_io import VideoContext
@@ -99,18 +98,6 @@ class EstimationInterrupted(BaseException):
         return self.args[0]
 
 
-def count_gray(sp, frames, grays) -> None:
-    """The bytes ``R.gray_for_estimation`` read and wrote, from the shapes
-    alone, on its span ``sp``: ``gray.read_bytes`` the float32 clip (what
-    K9 reads), ``gray.written_bytes`` its float32 grays.  Their ratio is
-    C x fy x fx: 3 at a 1 x 1 pool of RGB, 192 at 8 x 8.  Off, nothing
-    is worked out."""
-    if not P.timing_enabled():
-        return
-    sp.count("gray.read_bytes", 4 * math.prod(frames.shape))
-    sp.count("gray.written_bytes", 4 * math.prod(grays.shape))
-
-
 def estimation_chunk_spans(n_frames: int, chunk: int = ESTIMATION_CHUNK_PAIRS):
     """Frame-slice plan [(start, end, drop_leading_pairs)] covering all
     n_frames-1 adjacent pairs in ``chunk``-pair chunks.
@@ -131,6 +118,38 @@ def estimation_chunk_spans(n_frames: int, chunk: int = ESTIMATION_CHUNK_PAIRS):
     start = b - chunk
     spans.append((start, n_frames, s - start))
     return spans
+
+
+def _cat(parts):
+    """Per-chunk results joined along the pair axis: tensors, or tuples of
+    tensors element by element."""
+    if isinstance(parts[0], tuple):
+        return tuple(torch.cat(xs, dim=0) for xs in zip(*parts))
+    return torch.cat(parts, dim=0)
+
+
+def chunked_pairs(grays, per_chunk, tick_pairs):
+    """``per_chunk(frames)`` over every adjacent pair of ``grays``: in the
+    chunks of :func:`estimation_chunk_spans`, the leading pairs a chunk
+    recomputes dropped and ``tick_pairs(end - 1)`` after each, the results
+    (a tensor, or a tuple of tensors, per pair along dim 0) concatenated.
+    An estimator's work is per pair, so this equals one whole-clip
+    dispatch, which runs when nobody observes (no ``tick_pairs``) or the
+    clip is one chunk.  Frame-sharded grays run by shard
+    (parallel/mesh.py::sharded_pairs), gathered to the lead device."""
+    if isinstance(grays, FrameShards):
+        return _cat(sharded_pairs(grays, lambda g, tick: chunked_pairs(g, per_chunk, tick), tick_pairs))
+    spans = estimation_chunk_spans(int(grays.shape[0]))
+    if tick_pairs is None or len(spans) == 1:
+        return per_chunk(grays)
+    parts = []
+    for s, e, drop in spans:
+        part = per_chunk(grays[s:e])
+        if drop:
+            part = tuple(x[drop:] for x in part) if isinstance(part, tuple) else part[drop:]
+        parts.append(part)
+        tick_pairs(e - 1)
+    return _cat(parts)
 
 
 @dataclass
@@ -390,9 +409,8 @@ def _stabilize_clip(
         target_path = fast["target_path"]
         delta_params_full = fast["diffs"]
     else:
-        with P.span("engine.gray", dev) as sp:
+        with P.span("engine.gray", dev):
             grays = R.gray_for_estimation(frames, working_size, decimation=decimation, device=dev)
-            count_gray(sp, frames, grays)
         with P.span("engine.estimate", dev):
             try:
                 fits = estimator(grays, transform_mode, decimation=decimation, tick_pairs=tick_pairs_cb)

@@ -74,12 +74,6 @@ def level_range(h: int, w: int, finest_scale: int = FINEST_SCALE) -> Tuple[int, 
     return coarsest, min(finest_scale, coarsest)
 
 
-def refined_levels(h: int, w: int, finest_scale: int = FINEST_SCALE) -> int:
-    """How many levels :func:`dis_flow_fit` refines for h x w grays."""
-    coarsest, finest = level_range(h, w, finest_scale)
-    return coarsest - finest + 1
-
-
 # ---------------------------------------------------------------------------
 # Residual matching
 # ---------------------------------------------------------------------------
@@ -516,10 +510,8 @@ def dis_flow(grays: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         return (torch.zeros((0, h, w, 2), dtype=torch.float32, device=grays.device),
                 torch.zeros((0, h, w), dtype=torch.float32, device=grays.device))
     coarsest, finest = level_range(h, w)
-    with P.span("flow.dis.pyramid", grays.device) as sp:
+    with P.span("flow.dis.pyramid", grays.device):
         pyr = build_pyramid(grays, coarsest)
-        if P.timing_enabled():
-            sp.count("flow.dis.pyramid_bytes", pyramid_bytes(n, h, w, coarsest))
     flow_level, conf_level, M = _dis_levels(pyr[finest:], RADIUS, PATCH, 3)
     polish = finest - 1
     if polish >= 0:
@@ -562,24 +554,13 @@ def dis_flow_fit(
     return dis_flow_fit_level(fit_level(grays, finest_scale), (h, w), step, finest_scale, radius, patch, model)
 
 
-def pyramid_bytes(n: int, h: int, w: int, coarsest: int) -> int:
-    """The float32 bytes of levels 1 to ``coarsest`` of an (n, h, w)
-    stack's pyramid, from the shapes (:func:`_down2` floors each half)."""
-    return 4 * n * sum((h >> lvl) * (w >> lvl) for lvl in range(1, coarsest + 1))
-
-
 def fit_level(grays: torch.Tensor, finest_scale: int = FINEST_SCALE) -> torch.Tensor:
     """Level ``finest`` of the grays' pyramid, the finest that
     :func:`dis_flow_fit` refines (the float32 grays themselves at
-    ``finest_scale`` 0), in span ``flow.dis.pyramid``, which counts every
-    level's bytes (``flow.dis.pyramid_bytes``) from the shapes."""
-    n, h, w = grays.shape
-    coarsest, finest = level_range(h, w, finest_scale)
-    with P.span("flow.dis.pyramid", grays.device) as sp:
-        level = build_pyramid(grays, finest)[finest]
-        if P.timing_enabled():
-            sp.count("flow.dis.pyramid_bytes", pyramid_bytes(n, h, w, coarsest))
-    return level
+    ``finest_scale`` 0), in span ``flow.dis.pyramid``."""
+    _, finest = level_range(int(grays.shape[1]), int(grays.shape[2]), finest_scale)
+    with P.span("flow.dis.pyramid", grays.device):
+        return build_pyramid(grays, finest)[finest]
 
 
 def dis_flow_fit_level(

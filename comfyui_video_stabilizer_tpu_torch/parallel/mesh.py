@@ -224,12 +224,6 @@ def _with_halo(shards: FrameShards, k: int) -> torch.Tensor:
     return torch.cat([part, halo], dim=0)
 
 
-def halo_lengths(shards: FrameShards) -> List[int]:
-    """The frames :func:`_with_halo` gives each shard, from the shapes."""
-    sizes = [int(s.shape[0]) for s in shards.shards]
-    return [n + min(nxt, 1) for n, nxt in zip(sizes, sizes[1:] + [0])]
-
-
 def sharded_pairs(shards: FrameShards, per_pair, tick_pairs=None):
     """``per_pair(frames_k, tick_k)`` over each frame shard with its halo,
     on the shard's device, in shard order; ``tick_pairs`` (when given)
@@ -239,8 +233,9 @@ def sharded_pairs(shards: FrameShards, per_pair, tick_pairs=None):
     it."""
     lead = shards.lead
     parts, done = [], 0
-    for k, n_k in enumerate(halo_lengths(shards)):
-        pairs = n_k - 1
+    sizes = [int(s.shape[0]) for s in shards.shards]
+    for k, nxt in enumerate(sizes[1:] + [0]):
+        pairs = sizes[k] + min(nxt, 1) - 1  # the halo is the next shard's first frame, if it has one
         if pairs < 1:
             continue
         frames_k = _with_halo(shards, k)

@@ -631,9 +631,8 @@ def test_fast_path_on_cuda_matches_cpu_fast_path(cuda, monkeypatch, estimator, f
     monkeypatch.setenv("CVST_FASTPATH", "1")
     monkeypatch.setenv("CVST_FASTPATH_STRICT", "1")
     ran = []
-    for name in ("run_flow_fast", "run_classic_fast"):
-        real = getattr(FP, name)
-        monkeypatch.setattr(FP, name, lambda *a, _r=real, **k: ran.append(_r(*a, **k)) or ran[-1])
+    real = FP.run_fast
+    monkeypatch.setattr(FP, "run_fast", lambda kind, *a, **k: ran.append(real(kind, *a, **k)) or ran[-1])
     run = stabilize_flow if estimator == "flow" else stabilize_classic
     frames = _small_clip(17)
     args = (framing, transform, lock, 0.8, 0.6, 0.6, (127, 127, 127), 24.0)

@@ -9,10 +9,10 @@ On the CPU: the split entry from a fresh copy of that level gives
 samples bitwise equal to ``dis_flow_fit`` (decimation 1 with finest 2,
 as at 864x486; decimation 4 with finest 0, as 1080p's grays pooled
 8 x 8; both pre-warp models); the bytes the graph
-keeps and the pyramid's bytes, from the shapes; with the gate opened
-on the CPU and the graph's program run eagerly, an observed call goes
-through the entry, one key for every chunk, bitwise equal to the eager
-chunks with the same ticks.
+keeps, from the shapes (:func:`dis_graph_bytes`); with the route
+opened on the CPU and the graph's program run eagerly, an observed call
+goes through the entry, one key for every chunk, bitwise equal to the
+eager chunks with the same ticks.
 
 The ``cuda`` cases run on the card (this file imports no JAX):
 
@@ -21,6 +21,8 @@ The ``cuda`` cases run on the card (this file imports no JAX):
 Tolerance: bitwise.  The graph holds the same kernels in the same order
 as the eager chunks.
 """
+
+import types
 
 import numpy as np
 import pytest
@@ -66,6 +68,25 @@ def _clip(n=8, h=128, w=256, seed=5):
                        (0.5,) * 3)
 
 
+def dis_graph_bytes(n: int, h: int, w: int, decimation: int) -> int:
+    """The bytes the DIS graph of an (n, h, w) gray clip's chunks keeps
+    between calls, from the shapes: its static input, a chunk's frames at
+    the finest level refined, and its output, the chunk's pairs' samples
+    (pairs, grid points, 2), all float32."""
+    start, end, _ = ST.estimation_chunk_spans(n)[0]
+    frames = end - start
+    _, finest = FD.level_range(h, w, FL.finest_scale(decimation))
+    step = FL.SAMPLE_STEP // decimation
+    points = -(-h // step) * -(-w // step)
+    return 4 * frames * (h >> finest) * (w >> finest) + 4 * (frames - 1) * points * 2
+
+
+def _two_pair_chunks(monkeypatch):
+    """The chunk plan cut to 2 pairs a chunk, as the shared loop reads it."""
+    spans = ST.estimation_chunk_spans
+    monkeypatch.setattr(ST, "estimation_chunk_spans", lambda n: spans(n, chunk=2))
+
+
 @pytest.mark.parametrize("model", ["similarity", "homography"])
 @pytest.mark.parametrize("shape,step,finest", [((9, 122, 216), 8, 2), ((9, 68, 120), 2, 0)],
                          ids=["decimation1", "decimation4"])
@@ -89,17 +110,8 @@ def test_graph_keeps_its_level_and_samples(n, h, w, decimation, kept):
     """The DIS graph's static input (a chunk of chunk + 1 frames at the
     finest level refined) and its samples, float32, from the shapes:
     5,136,480 bytes at 864x486 and 6,365,760 at 1080p."""
-    assert FP.dis_graph_bytes(n, h, w, decimation) == kept
-    assert FP.dis_graph_bytes(81, 486, 864, 1) == 5_136_480 and FP.dis_graph_bytes(81, 135, 240, 4) == 6_365_760
-
-
-def test_pyramid_bytes_from_the_shapes():
-    """``pyramid_bytes`` counts the levels ``build_pyramid`` builds: three
-    33-frame chunks at 864x486 make 55,288,332 bytes."""
-    grays = torch.zeros((2, 486, 864))
-    levels = FD.build_pyramid(grays, 5)
-    assert FD.pyramid_bytes(2, 486, 864, 5) == 4 * sum(lvl.numel() for lvl in levels[1:])
-    assert 3 * FD.pyramid_bytes(33, 486, 864, FD.num_levels(486, 864)) == 55_288_332
+    assert dis_graph_bytes(n, h, w, decimation) == kept
+    assert dis_graph_bytes(81, 486, 864, 1) == 5_136_480 and dis_graph_bytes(81, 135, 240, 4) == 6_365_760
 
 
 def _observed(frames, device):
@@ -110,13 +122,13 @@ def _observed(frames, device):
 
 
 def test_observed_call_goes_through_the_chunk_graph_entry(monkeypatch):
-    """2-pair chunks and an observer, the gate opened on the CPU and the
-    graph's program run eagerly on a copy of its input: every chunk
-    reaches the cache with one key, and the call equals the eager chunks
-    bitwise, ticks included."""
+    """2-pair chunks and an observer, the route opened on the CPU (the
+    frames taken for a card's) and the graph's program run eagerly on a
+    copy of its input: every chunk reaches the cache with one key, and
+    the call equals the eager chunks bitwise, ticks included."""
     monkeypatch.setenv("CVST_FASTPATH", "1")
     monkeypatch.setenv("CVST_FASTPATH_STRICT", "1")
-    monkeypatch.setattr(FL, "estimation_chunk_spans", lambda n: ST.estimation_chunk_spans(n, chunk=2))
+    _two_pair_chunks(monkeypatch)
     frames = _clip()
     eager, eager_ticks = _observed(frames, "cpu")
 
@@ -128,10 +140,11 @@ def test_observed_call_goes_through_the_chunk_graph_entry(monkeypatch):
             return self.program(level.clone(), **self.kw)
 
     keys = []
-    monkeypatch.setattr(FP, "_graphs_enabled", lambda frames: True)
+    route, card = FP._route, types.SimpleNamespace(device=torch.device("cuda", 0))
+    monkeypatch.setattr(FP, "_route", lambda kind, frames, *a: route(kind, card, *a))
     monkeypatch.setattr(FP, "_cached_graph", lambda key, program, example, kw: keys.append(key) or Eager(program, kw))
     graph, ticks = _observed(frames, "cpu")
-    assert len(keys) == len(ST.estimation_chunk_spans(8, chunk=2)) == 4 and len(set(keys)) == 1
+    assert len(keys) == len(ST.estimation_chunk_spans(8)) == 4 and len(set(keys)) == 1
     assert torch.equal(graph.frames, eager.frames) and torch.equal(graph.masks, eager.masks)
     assert graph.meta == eager.meta
     assert ticks == eager_ticks and ticks
@@ -155,12 +168,12 @@ def test_observed_call_replays_one_graph_a_chunk_bitwise(cuda, monkeypatch):
     same call with CVST_FUSED=0 bitwise (frames, masks, meta) with the
     same ticks; one capture and a replay a chunk; and the memory it
     leaves allocated exceeds the eager call's by at most what
-    ``dis_graph_bytes`` says the graph keeps (the clip's tensors are
+    :func:`dis_graph_bytes` says the graph keeps (the clip's tensors are
     whole 512-byte blocks) and what any capture keeps."""
     monkeypatch.setenv("CVST_FASTPATH_STRICT", "1")
-    monkeypatch.setattr(FL, "estimation_chunk_spans", lambda n: ST.estimation_chunk_spans(n, chunk=2))
+    _two_pair_chunks(monkeypatch)
     frames = _clip().to(cuda)
-    chunks = len(ST.estimation_chunk_spans(8, chunk=2))
+    chunks = len(ST.estimation_chunk_spans(8))
 
     def grown(run):
         torch.cuda.synchronize()
@@ -187,7 +200,7 @@ def test_observed_call_replays_one_graph_a_chunk_bitwise(cuda, monkeypatch):
         assert torch.equal(res.frames, eager.frames) and torch.equal(res.masks, eager.masks)
         assert res.meta == eager.meta
     assert first_ticks == again_ticks == eager_ticks and eager_ticks
-    assert graph_bytes - eager_bytes <= FP.dis_graph_bytes(8, 32, 64, 4) + CAPTURE_BYTES
+    assert graph_bytes - eager_bytes <= dis_graph_bytes(8, 32, 64, 4) + CAPTURE_BYTES
     FP.clear_graph_cache()
 
 
@@ -197,7 +210,7 @@ def test_interrupt_at_the_first_replayed_chunk(cuda, monkeypatch):
     replay, reaches the caller as itself; neither the host engine (its
     Flow fits, TV-L1) nor the trajectory program runs."""
     monkeypatch.setenv("CVST_FASTPATH_STRICT", "1")
-    monkeypatch.setattr(FL, "estimation_chunk_spans", lambda n: ST.estimation_chunk_spans(n, chunk=2))
+    _two_pair_chunks(monkeypatch)
     calls = []
     for mod, name in ((FL, "_fused_fits_sampled"), (FL.TV, "tvl1_flow"), (FP, "_traj_program")):
         real = getattr(mod, name)

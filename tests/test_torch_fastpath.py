@@ -3,9 +3,10 @@ package's, and against the port's own host engine, on the CPU.
 
 Both fast paths are forced on with ``CVST_FASTPATH=1`` (the CPU default
 keeps the host engine) and ``CVST_FASTPATH_STRICT=1`` (a failure raises
-instead of falling back), and a spy on each package's ``run_*_fast``
-counts the calls that returned a result, so no case compares the host
-engine with itself.  Inputs are made from a seed with numpy; the clips
+instead of falling back), and a spy on each package's runners (the JAX
+package's ``run_flow_fast`` / ``run_classic_fast``, the port's
+``run_fast``) counts the calls of each kind that returned a result, so
+no case compares the host engine with itself.  Inputs are made from a seed with numpy; the clips
 are 8 frames of 144x256 (tests/test_fastpath.py::_shaken_clip for Flow,
 tests/test_classic.py::_shaken_clip for Classic), one shape per
 estimator so the JAX compiles are shared.
@@ -77,21 +78,23 @@ def classic_clip():
 
 @pytest.fixture()
 def taken(monkeypatch):
-    """Fast paths forced on and strict; counts of the calls of each
-    package's run_flow_fast / run_classic_fast that returned a result."""
+    """Fast paths forced on and strict; counts, by package and kind, of the
+    runner calls that returned a result: the JAX package's run_flow_fast /
+    run_classic_fast, the port's one run_fast."""
     monkeypatch.setenv("CVST_FASTPATH", "1")
     monkeypatch.setenv("CVST_FASTPATH_STRICT", "1")
     counts = {}
-    for pkg, mod in (("jax", JFP), ("torch", TFP)):
-        for name in ("run_flow_fast", "run_classic_fast"):
-            real = getattr(mod, name)
 
-            def spy(*a, _real=real, _key=(pkg, name), **k):
-                out = _real(*a, **k)
-                counts[_key] = counts.get(_key, 0) + (out is not None)
-                return out
+    def count(key, out):
+        counts[key] = counts.get(key, 0) + (out is not None)
+        return out
 
-            monkeypatch.setattr(mod, name, spy)
+    for kind in ("flow", "classic"):
+        name = f"run_{kind}_fast"
+        real = getattr(JFP, name)
+        monkeypatch.setattr(JFP, name, lambda *a, _r=real, _k=kind, **k: count(("jax", _k), _r(*a, **k)))
+    real = TFP.run_fast
+    monkeypatch.setattr(TFP, "run_fast", lambda kind, *a, **k: count(("torch", kind), real(kind, *a, **k)))
     return counts
 
 
@@ -315,8 +318,7 @@ def test_fast_path_matches_jax_fast_path(taken, flow_clip, classic_clip, kind, f
     frames = flow_clip if kind == "flow" else classic_clip
     ref = _stabilize("jax", kind, frames, framing, mode, lock)
     ours = _stabilize("torch", kind, frames, framing, mode, lock)
-    name = f"run_{kind}_fast"
-    assert taken.get(("jax", name)) == 1 and taken.get(("torch", name)) == 1, taken
+    assert taken.get(("jax", kind)) == 1 and taken.get(("torch", kind)) == 1, taken
     jm, tm = ref.meta, ours.meta
     assert _modes(tm) == _modes(jm)
     assert tm["transform_mode_applied"] == jm["transform_mode_applied"]
@@ -366,7 +368,7 @@ def test_classic_fused_program_matches_jax_fast_path(taken, classic_clip):
     for key in ("matrices", "path", "target", "final", "apply"):
         assert np.abs(ours[key] - ref[key]).max() <= 1e-3, key
     jm, tm = _stabilize("jax", "classic", classic_clip).meta, _stabilize("torch", "classic", classic_clip).meta
-    assert taken[("jax", "run_classic_fast")] == 1 and taken[("torch", "run_classic_fast")] == 1
+    assert taken[("jax", "classic")] == 1 and taken[("torch", "classic")] == 1
     assert _modes(tm) == _modes(jm) and np.abs(_applied(tm) - _applied(jm)).max() <= 1e-3
 
 
@@ -394,7 +396,7 @@ HOST = [
 def test_fast_path_matches_host_engine(taken, monkeypatch, flow_clip, classic_clip, kind, framing, mode, lock):
     frames = flow_clip if kind == "flow" else classic_clip
     fast = _stabilize("torch", kind, frames, framing, mode, lock)
-    assert taken.get(("torch", f"run_{kind}_fast")) == 1, taken
+    assert taken.get(("torch", kind)) == 1, taken
     monkeypatch.setenv("CVST_FASTPATH", "0")
     host = _stabilize("torch", kind, frames, framing, mode, lock)
     fm, hm = fast.meta, host.meta
@@ -419,8 +421,8 @@ def test_cpu_default_keeps_host_engine(monkeypatch, flow_clip):
     """Without CVST_FASTPATH the CPU frames take the host engine."""
     monkeypatch.delenv("CVST_FASTPATH", raising=False)
     calls = []
-    real = TFP.run_flow_fast
-    monkeypatch.setattr(TFP, "run_flow_fast", lambda *a, **k: calls.append(real(*a, **k)) or calls[-1])
+    real = TFP.run_fast
+    monkeypatch.setattr(TFP, "run_fast", lambda *a, **k: calls.append(real(*a, **k)) or calls[-1])
     _stabilize("torch", "flow", flow_clip[:4])
     assert calls == [None] and not TFP.enabled(torch.zeros(1))
 
@@ -434,10 +436,10 @@ def test_expand_bucket_miss_rewarps_exact(taken, monkeypatch, flow_clip):
     real = TW.warp_clip_with_mask
     monkeypatch.setattr(TW, "warp_clip_with_mask", lambda *a, **k: rewarps.append(a[2]) or real(*a, **k))
     held = _stabilize("torch", "flow", flow_clip, "expand")
-    assert taken[("torch", "run_flow_fast")] == 1 and rewarps == []      # the bucket held: sliced
+    assert taken[("torch", "flow")] == 1 and rewarps == []      # the bucket held: sliced
     monkeypatch.setattr(TFP, "EXPAND_MARGIN_PX", 0)
     missed = _stabilize("torch", "flow", flow_clip, "expand")
-    assert taken[("torch", "run_flow_fast")] == 2
+    assert taken[("torch", "flow")] == 2
     size = tuple(missed.meta["framing"]["expanded_size"])
     assert rewarps == [size] and size[0] > W and size[1] > H             # re-warped at the exact canvas
     # the same canvas and matrices; the re-warp inverts them on the host in float64
@@ -511,12 +513,16 @@ def test_capture_failure_raises_and_served_counts_results(monkeypatch):
     def broken():
         raise RuntimeError("synthetic fast-path failure")
 
+    def offer(runner):
+        monkeypatch.setattr(TFP, "run_fast", lambda kind: runner())
+        return TFP.offer("flow")
+
     served = TFP.SERVED["flow"]
     with pytest.raises(RuntimeError, match="capture failure"):
-        TFP.offer("flow", capturing)
-    assert TFP.offer("flow", broken) is None
-    assert TFP.offer("flow", lambda: None) is None
-    assert TFP.offer("flow", lambda: {"ok": 1}) == {"ok": 1}
+        offer(capturing)
+    assert offer(broken) is None
+    assert offer(lambda: None) is None
+    assert offer(lambda: {"ok": 1}) == {"ok": 1}
     assert TFP.SERVED["flow"] == served + 1
 
 
@@ -525,8 +531,8 @@ def test_interrupt_passes_through_fast_path(taken, monkeypatch, flow_clip, kind)
     """2-pair estimation chunks, so the fast path's chunked estimation
     ticks; the interrupt raised at the first tick reaches the caller as
     itself and neither the rest of the fast path nor the host engine runs."""
-    mod = TFL if kind == "flow" else TCL
-    monkeypatch.setattr(mod, "estimation_chunk_spans", lambda n: TST.estimation_chunk_spans(n, chunk=2))
+    spans = TST.estimation_chunk_spans
+    monkeypatch.setattr(TST, "estimation_chunk_spans", lambda n: spans(n, chunk=2))
     host = _host_spies(monkeypatch)
     traj = []
     real = TFP._traj_program
@@ -541,7 +547,7 @@ def test_interrupt_passes_through_fast_path(taken, monkeypatch, flow_clip, kind)
     with pytest.raises(Stop):
         _stabilize("torch", kind, flow_clip, interrupt_check=interrupt)
     assert host == [] and traj == []
-    assert taken.get(("torch", f"run_{kind}_fast"), 0) == 0
+    assert taken.get(("torch", kind), 0) == 0
 
 
 def test_progress_ticks_match_host_engine(taken, monkeypatch, flow_clip):
@@ -550,7 +556,7 @@ def test_progress_ticks_match_host_engine(taken, monkeypatch, flow_clip):
         monkeypatch.setenv("CVST_FASTPATH", flag)
         ticks[flag] = []
         _stabilize("torch", "flow", flow_clip, progress=lambda d, t, _l=ticks[flag]: _l.append((d, t)))
-    assert taken[("torch", "run_flow_fast")] == 1
+    assert taken[("torch", "flow")] == 1
     assert ticks["1"] == ticks["0"] and ticks["1"]
 
 

@@ -68,15 +68,15 @@ _CPU_SLICE = textwrap.dedent(
     import os
     os.environ["CVST_FASTPATH"] = "1"
     fast_runs = []
-    for name in ("run_flow_fast", "run_classic_fast"):
-        real = getattr(fastpath, name)
-        setattr(fastpath, name, lambda *a, _r=real, **k: fast_runs.append(_r(*a, **k)) or fast_runs[-1])
+    real = fastpath.run_fast
+    fastpath.run_fast = lambda kind, *a, **k: fast_runs.append((kind, real(kind, *a, **k))) or fast_runs[-1][1]
     for node in (nodes.VideoStabilizerFlow, nodes.VideoStabilizerClassic):
         for framing in ("crop_and_pad", "expand", "crop"):
             out = node.execute(torch.from_numpy(frames), 16.0, framing, "similarity", False,
                                0.8, 0.6, 0.6, "#7F7F7F", device="cpu")
             assert out[0].shape[0] == 5 and out[2]["framing"]["mode"] == framing
-    assert len(fast_runs) == 6 and all(r is not None for r in fast_runs), fast_runs
+    assert [kind for kind, _ in fast_runs] == ["flow"] * 3 + ["classic"] * 3, fast_runs
+    assert all(r is not None for _, r in fast_runs), fast_runs
     del os.environ["CVST_FASTPATH"]
     def outage(*_a, **_k):
         raise RuntimeError("synthetic backend outage")

@@ -404,17 +404,26 @@ def test_perspective_estimation_runs_without_library_solvers(no_library_solvers,
 
 
 def test_fused_enabled_admits_perspective(monkeypatch):
-    """The graph's gate takes crop_and_pad on one CUDA device whatever the
-    transform mode (it has no mode argument any more), and still refuses
-    a progress observer, other framings and CVST_FUSED=0."""
+    """The route takes the graph for crop_and_pad on one CUDA device
+    whatever the transform mode (it has no mode argument), and still
+    refuses it under a progress observer (Flow's DIS chunks from their
+    graph, Classic eager), for other framings, on the CPU and with
+    CVST_FUSED=0."""
     card = types.SimpleNamespace(device=torch.device("cuda", 0))
+    plan = ((256, 64), None, 4)  # integer pool factors, as Flow's whole graph needs
+    observed = {"flow": "chunks", "classic": "eager"}
     monkeypatch.delenv("CVST_FUSED", raising=False)
-    assert FP._fused_enabled("crop_and_pad", None, card)
-    assert not FP._fused_enabled("crop_and_pad", lambda i: None, card)
-    assert not FP._fused_enabled("expand", None, card)
-    assert not FP._fused_enabled("crop_and_pad", None, torch.zeros(1))
+    for kind in ("flow", "classic"):
+        assert FP._route(kind, card, "crop_and_pad", None, *plan) == "graph"
+        assert FP._route(kind, card, "crop_and_pad", lambda i: None, *plan) == observed[kind]
+        assert FP._route(kind, card, "expand", None, *plan) == "eager"
+        assert FP._route(kind, torch.zeros(1), "crop_and_pad", None, *plan) == "eager"
+    assert FP._route("flow", card, "crop_and_pad", None, (1200, 500), (960, 400), 1) == "eager"
+    assert FP._route("classic", card, "crop_and_pad", None, (1200, 500), (960, 400), 1) == "graph"
     monkeypatch.setenv("CVST_FUSED", "0")
-    assert not FP._fused_enabled("crop_and_pad", None, card)
+    for kind in ("flow", "classic"):
+        assert FP._route(kind, card, "crop_and_pad", None, *plan) == "eager"
+        assert FP._route(kind, card, "crop_and_pad", lambda i: None, *plan) == "eager"
 
 
 @pytest.mark.parametrize("kind", ["flow", "classic"])
@@ -441,8 +450,8 @@ def test_perspective_crop_and_pad_goes_through_the_graph_entry(no_library_solver
                                    **kw)
 
     monkeypatch.setattr(FP, "_fused_estimate", fused)
-    monkeypatch.setattr(FP, "_fused_enabled", lambda framing, tick_pairs, frames: tick_pairs is None
-                        and framing == "crop_and_pad")
+    route, card = FP._route, types.SimpleNamespace(device=torch.device("cuda", 0))
+    monkeypatch.setattr(FP, "_route", lambda kind_, frames, *a: route(kind_, card, *a))
     graph = run(normalize_video_input(frames, device="cpu"), *args, device="cpu")
     assert seen == [(kind, "perspective")]
     assert torch.equal(graph.frames, eager.frames) and torch.equal(graph.masks, eager.masks)

@@ -35,6 +35,7 @@ from comfyui_video_stabilizer_tpu.parallel import production as JPR  # noqa: E40
 from comfyui_video_stabilizer_tpu_torch.models import fastpath as TFP  # noqa: E402
 from comfyui_video_stabilizer_tpu_torch.models import flow as TFL  # noqa: E402
 from comfyui_video_stabilizer_tpu_torch.models import classic as TCL  # noqa: E402
+from comfyui_video_stabilizer_tpu_torch.models import stabilize as TST  # noqa: E402
 from comfyui_video_stabilizer_tpu_torch.ops import cuda_build  # noqa: E402
 from comfyui_video_stabilizer_tpu_torch.ops import flow_dis as TFD  # noqa: E402
 from comfyui_video_stabilizer_tpu_torch.ops import lk as TLK  # noqa: E402
@@ -205,7 +206,7 @@ def test_ransac_keys_use_the_global_pair_index(clips):
              for s in range(0, 15, 2)]
     assert not torch.equal(torch.cat([part[1] for part in local]), full[1])
     shards = TM.split_frames(grays, CPU8)
-    gathered = TFL._dis_samples_chunked(shards, TFL.SAMPLE_STEP, TFD.FINEST_SCALE, "similarity", None)
+    gathered = TST.chunked_pairs(shards, lambda g: TFD.dis_flow_fit(g, TFL.SAMPLE_STEP), None)
     assert torch.equal(gathered, samples)
     assert torch.equal(TFL._fused_fits_device(gathered, pts, 0, False, TRS.DEFAULT_HYPOTHESES)[1], full[1])
 

@@ -248,52 +248,75 @@ def _counters(recs, name):
 
 def test_gray_and_dis_counters_at_decimation_one(recorder, monkeypatch):
     """A Flow node call on 9 frames of 122 x 216 (2 mod 4 rows: no
-    decimation, as at 864 x 486): the gray's bytes at a 1 x 1 pool, DIS's
-    pairs, its own pyramid's levels 1-3 and the pairs x levels refined
-    (levels 3 and 2), all from the shapes."""
+    decimation, as at 864 x 486): one chunk of the whole clip, so one
+    gray span, one DIS chunk with its own pyramid, under the estimation;
+    the spans carry no counter (their bytes and pairs follow from the
+    shapes)."""
+    from comfyui_video_stabilizer_tpu_torch.models import stabilize as ST
+    from comfyui_video_stabilizer_tpu_torch.models.flow import flow_estimator
+
     monkeypatch.setenv("CVST_FASTPATH", "1")
     recorder.enable_timing(True)
     n, h, w = 9, 122, 216
+    assert ST.estimation_plan(w, h, flow_estimator) == (None, 1)
+    assert ST.estimation_chunk_spans(n) == [(0, n, 0)]
     _node("flow", _clip(n=n, h=h, w=w))
     recs = P.drain()
-    assert _counters(recs, "fastpath.gray") == [{"gray.read_bytes": 4 * n * h * w * 3,
-                                                 "gray.written_bytes": 4 * n * h * w}]
-    assert _counters(recs, "flow.dis.chunk") == [{"flow.dis_pairs": n - 1}]
-    assert _counters(recs, "flow.dis.pyramid") == [{"flow.dis.pyramid_bytes": 4 * n * (61 * 108 + 30 * 54 + 15 * 27)}]
-    assert _counters(recs, "fastpath.estimate") == [{"flow.dis_level_pairs": (n - 1) * 2}]
+    for span in ("fastpath.gray", "flow.dis.chunk", "flow.dis.pyramid", "fastpath.estimate"):
+        assert _counters(recs, span) == [{}], span
+    assert [r.parent for r in recs if r.name == "flow.dis.chunk"] == ["fastpath.estimate"]
 
 
 def test_gray_counters_of_a_pooled_plan_and_the_host_engine(recorder, monkeypatch):
-    """64 x 80 decimates by 4: the gray reads 3 x 16 times what it writes;
-    the host engine counts the same bytes on ``engine.gray``."""
+    """64 x 80 decimates Flow's gray by 4 and not Classic's; the fast path
+    records its gray on ``fastpath.gray``, the host engine on
+    ``engine.gray``, once a call and with no counter."""
+    from comfyui_video_stabilizer_tpu_torch.models import stabilize as ST
+    from comfyui_video_stabilizer_tpu_torch.models.classic import classic_estimator
+    from comfyui_video_stabilizer_tpu_torch.models.flow import flow_estimator
+
     recorder.enable_timing(True)
     n, h, w = 5, 64, 80
+    assert ST.estimation_plan(w, h, flow_estimator) == (None, 4)
+    assert ST.estimation_plan(w, h, classic_estimator) == (None, 1)
     for fast, span in (("1", "fastpath.gray"), ("0", "engine.gray")):
         monkeypatch.setenv("CVST_FASTPATH", fast)
         _node("classic" if fast == "0" else "flow", _clip(n=n, h=h, w=w))
-        assert _counters(P.drain(), span) == [{"gray.read_bytes": 4 * n * h * w * 3, "gray.written_bytes": 4 * n *
-                                               (h * w if fast == "0" else (h // 4) * (w // 4))}]
+        recs = P.drain()
+        assert _counters(recs, span) == [{}]
+        assert not any(r.name.endswith(".gray") and r.name != span for r in recs)
 
 
 @pytest.mark.parametrize("shards", [1, 2])
 def test_dis_chunks_count_the_pairs_the_plan_gives(recorder, shards):
-    """In 32-pair chunks with a tick (the node's eager path), the chunks'
-    ``flow.dis_pairs`` add up to ``dis_pairs``: 40 frames in two chunks of
-    32 pairs, the last recomputing 25 it drops; on shards of 22 and 18
-    frames, 22 pairs (the first with its halo) and 17, a chunk each."""
+    """In 32-pair chunks with a tick (the node's eager path), each DIS
+    dispatch receives the frames ``estimation_chunk_spans`` gives its
+    shard, one ``flow.dis.chunk`` span (and pyramid) each: 40 frames in
+    two chunks of 33, the last recomputing 25 pairs it drops; on shards
+    of 22 and 18 frames, 23 (the first with its halo) and 18, a chunk
+    each.  The ticks count the pairs done."""
     from comfyui_video_stabilizer_tpu_torch.models import flow as FL
+    from comfyui_video_stabilizer_tpu_torch.models import stabilize as ST
+    from comfyui_video_stabilizer_tpu_torch.ops import flow_dis as FD
     from comfyui_video_stabilizer_tpu_torch.parallel.mesh import FrameShards
 
     recorder.enable_timing(True)
     grays = torch.floor(torch.rand((40, 30, 40), generator=torch.Generator().manual_seed(5)) * 255.0)
+    sizes = [40] if shards == 1 else [23, 18]
     if shards == 2:
         grays = FrameShards([grays[:22], grays[22:]])
-    FL._dis_samples_chunked(grays, 8, 2, "similarity", lambda done: None)
+    frames, ticks = [], []
+
+    def dis(g, *a, **k):
+        frames.append(int(g.shape[0]))
+        return FD.dis_flow_fit(g, *a, **k)
+
+    samples = FL._dis_samples_chunked(grays, 8, 2, "similarity", ticks.append, dis)
     recs = P.drain()
-    pairs = [c["flow.dis_pairs"] for c in _counters(recs, "flow.dis.chunk")]
-    assert sum(pairs) == FL.dis_pairs(grays, True) == (64 if shards == 1 else 22 + 17)
-    assert len(_counters(recs, "flow.dis.pyramid")) == len(pairs)
-    assert FL.dis_pairs(grays, False) == 39
+    assert frames == [e - s for n in sizes for s, e, _ in ST.estimation_chunk_spans(n)]
+    assert frames == ([33, 33] if shards == 1 else [23, 18])
+    assert len(_counters(recs, "flow.dis.chunk")) == len(_counters(recs, "flow.dis.pyramid")) == len(frames)
+    assert ticks == ([32, 39] if shards == 1 else [22, 39]) and samples.shape[0] == 39
 
 
 def test_off_the_new_spans_are_the_shared_null_context(recorder, monkeypatch):
@@ -363,9 +386,10 @@ def test_spans_on_the_card_take_device_time_and_never_wait(recorder, monkeypatch
 @pytest.mark.cuda
 def test_a_replay_counts_its_dis_level_pairs_and_records_no_span_inside(recorder, cuda):
     """A Flow API call at 864 x 486 from its graph: ``fastpath.estimate``
-    counts 80 pairs x 4 levels on the capture call and on the replay; the
-    capture call's only DIS spans are its eager warm-up's, and the replay
-    records none."""
+    counts the capture on the capture call and nothing else on either
+    call (its pairs and levels follow from the shapes); the capture
+    call's only DIS spans are its eager warm-up's, and the replay records
+    none."""
     clip = _clip(n=81, h=486, w=864)
     args = (*WIDGETS[1:7], (127, 127, 127), 16.0)
     context = normalize_video_input(clip.to(cuda), device=cuda)
@@ -382,9 +406,7 @@ def test_a_replay_counts_its_dis_level_pairs_and_records_no_span_inside(recorder
     for call, captured in zip(calls, (1, 0)):
         mine = [r for r in recs if r.call == call]
         est = _counters(mine, "fastpath.estimate")
-        assert len(est) == 1 and est[0]["flow.dis_level_pairs"] == 80 * 4
-        assert est[0].get("fastpath.capture", 0) == captured
+        assert len(est) == 1 and est[0] == ({"fastpath.capture": 1} if captured else {})
         dis_spans = captured  # the warm-up's, eager on its side stream
         assert len(_counters(mine, "flow.dis.chunk")) == len(_counters(mine, "flow.dis.pyramid")) == dis_spans
-        assert _counters(mine, "fastpath.gray") == [{"gray.read_bytes": clip.nbytes,
-                                                     "gray.written_bytes": clip.nbytes // 3}]
+        assert _counters(mine, "fastpath.gray") == [{}]
