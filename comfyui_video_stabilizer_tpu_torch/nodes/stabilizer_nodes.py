@@ -20,6 +20,7 @@ from ..utils.video_io import (
     convert_masks_for_output,
     normalize_video_input,
     reconstruct_video,
+    reserve_host_outputs,
 )
 from .comfy_compat import ComfyExtension, ProgressBar, check_interrupt, io
 
@@ -119,32 +120,35 @@ def _run_stabilizer(engine, frames, frame_rate, framing_mode, transform_mode,
 
 def _stabilizer_call(engine, frames, frame_rate, framing_mode, transform_mode,
                      camera_lock, strength, smooth, keep_fov, padding_color, device):
-    context = normalize_video_input(frames, device=device)
-    padding_rgb = parse_padding_color(padding_color)
-    n = context.frame_count
-    progress_total = max(1, max(0, n - 1) + n)
-    pbar = ProgressBar(progress_total)
+    # the host outputs are mapped behind the upload and the engine where
+    # their shape is the input's; dropped if the call raises
+    with reserve_host_outputs(frames, device, framing_mode) as reserved:
+        context = normalize_video_input(frames, device=device)
+        padding_rgb = parse_padding_color(padding_color)
+        n = context.frame_count
+        progress_total = max(1, max(0, n - 1) + n)
+        pbar = ProgressBar(progress_total)
 
-    def on_progress(done: int, total: int) -> None:
-        pbar.update_absolute(min(done, progress_total), progress_total)
+        def on_progress(done: int, total: int) -> None:
+            pbar.update_absolute(min(done, progress_total), progress_total)
 
-    result = engine(
-        context,
-        framing_mode,
-        transform_mode,
-        camera_lock,
-        strength,
-        smooth,
-        keep_fov,
-        padding_rgb,
-        frame_rate,
-        progress=on_progress,
-        interrupt_check=check_interrupt,
-        device=device,
-    )
-    pbar.update_absolute(progress_total, progress_total)
-    video_payload = reconstruct_video(result.frames, context)
-    mask_payload = convert_masks_for_output(result.masks)
+        result = engine(
+            context,
+            framing_mode,
+            transform_mode,
+            camera_lock,
+            strength,
+            smooth,
+            keep_fov,
+            padding_rgb,
+            frame_rate,
+            progress=on_progress,
+            interrupt_check=check_interrupt,
+            device=device,
+        )
+        pbar.update_absolute(progress_total, progress_total)
+        video_payload = reconstruct_video(result.frames, context, reserved.frames)
+        mask_payload = convert_masks_for_output(result.masks, reserved.masks)
     return video_payload, mask_payload, result.meta
 
 

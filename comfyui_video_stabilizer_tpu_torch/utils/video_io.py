@@ -24,6 +24,11 @@ call, ``_new_host_f32``) on torch's intra-op threads while the next
 slots' copies run.  Any other tensor takes one ``.to("cpu",
 torch.float32)``.
 
+The stabilizer node's two outputs have the input's shape under ``crop``
+and ``crop_and_pad``, so :func:`reserve_host_outputs` has them mapped and
+populated on one background thread while the call uploads and computes,
+and the ring places the slots into them.
+
 A context may hold frame shards (parallel/mesh.py::FrameShards, made by
 parallel/production.py::sharded_video_context), and a result on a mesh
 of more than one shard holds them too; :func:`reconstruct_video` and
@@ -35,8 +40,10 @@ from __future__ import annotations
 import math
 import mmap
 import threading
+import time
+from concurrent.futures import Future, ThreadPoolExecutor
 from dataclasses import dataclass
-from typing import Any, Dict, List, Literal, Tuple
+from typing import Any, Dict, List, Literal, Optional, Tuple
 
 import numpy as np
 import torch
@@ -45,6 +52,7 @@ from ..ops.warp import will_stream
 from ..parallel.mesh import FrameShards, lead_device
 from . import profiling as P
 from .device import resolve_device
+from .meshinfo import active_mesh
 
 _FRAME_KEYS = ("frames", "images", "video")
 
@@ -100,10 +108,14 @@ def _level_count(device: torch.device) -> torch.Tensor:
     return torch.full((), 255.0, dtype=torch.float32, device=device)
 
 
+def _chw(frame_shape) -> bool:
+    """True when a 3-D frame shape reads as channels first."""
+    return frame_shape[0] in (1, 3, 4) and frame_shape[0] < frame_shape[-1]
+
+
 def _normalize_batch(arr: torch.Tensor, origin: str, detect_chw: bool = True):
     """4-D batch -> (float32 RGB batch, FrameAdapter), on arr's device."""
-    first = arr[0]
-    channel_first = detect_chw and first.shape[0] in (1, 3, 4) and first.shape[0] < first.shape[-1]
+    channel_first = detect_chw and _chw(arr.shape[1:])
     if channel_first:
         arr = arr.movedim(1, -1)
     squeeze_last_dim = arr.shape[-1] == 1
@@ -139,7 +151,7 @@ def _as_tensor(value: Any):
 def _frame_layout(frame: torch.Tensor):
     """Per-frame layout rules; returns (HWC frame, channel_first, squeeze)."""
     channel_first = False
-    if frame.ndim == 3 and frame.shape[0] in (1, 3, 4) and frame.shape[0] < frame.shape[-1]:
+    if frame.ndim == 3 and _chw(frame.shape):
         channel_first = True
         frame = frame.movedim(0, -1)
     elif frame.ndim == 4 and frame.shape[0] == 1:
@@ -287,15 +299,122 @@ def _new_host_f32(shape) -> torch.Tensor:
     return torch.frombuffer(buf, dtype=torch.float32).view(shape)
 
 
-def _staged_to_cpu(t: torch.Tensor) -> torch.Tensor:
-    """A contiguous float32 CUDA tensor copied into new pageable host memory
-    through its device's pinned ring.  A chunk's copy into its slot is
+_POPULATOR: Optional[ThreadPoolExecutor] = None
+_POPULATOR_LOCK = threading.Lock()
+
+
+def _populator() -> ThreadPoolExecutor:
+    """The process's one thread that maps and populates reserved outputs,
+    started at the first reservation."""
+    global _POPULATOR
+    with _POPULATOR_LOCK:
+        if _POPULATOR is None:
+            _POPULATOR = ThreadPoolExecutor(max_workers=1, thread_name_prefix="cvst-populate")
+    return _POPULATOR
+
+
+def _populate(shape: Tuple[int, ...]) -> Tuple[torch.Tensor, int]:
+    """``_new_host_f32(shape)`` and the microseconds it took (on the worker)."""
+    start = time.perf_counter_ns()
+    out = _new_host_f32(shape)
+    return out, (time.perf_counter_ns() - start) // 1000
+
+
+class ReservedOutput:
+    """One float32 host output of a known shape, mapped and populated by
+    ``_new_host_f32`` on the populate worker while the caller works.  It
+    is spent once: the egress takes it, or it is dropped, and a dropped
+    buffer is unmapped as soon as the worker has finished with it (the
+    caller never waits for that)."""
+
+    def __init__(self, shape: Tuple[int, ...]):
+        self.numel = math.prod(shape)
+        self._future: Optional[Future] = _populator().submit(_populate, tuple(shape))
+
+    def take(self, t: torch.Tensor) -> Optional[torch.Tensor]:
+        """The buffer viewed as ``t``'s shape, waited for in an
+        ``io.egress.reserve_wait`` span that counts the worker's
+        ``io.host_populate_us``; None (the buffer dropped) when its element
+        count is not ``t``'s or the worker's mapping raised."""
+        future, self._future = self._future, None
+        if future is None or t.numel() != self.numel:
+            if future is not None:
+                future.cancel()
+            return None
+        with P.span("io.egress.reserve_wait", t.device) as s:
+            try:
+                out, us = future.result()
+            except OSError:
+                return None  # the egress maps its own output, and raises there if memory is short
+            s.count("io.host_populate_us", us)
+        return out.view(t.shape)
+
+    def drop(self) -> None:
+        future, self._future = self._future, None
+        if future is not None:
+            future.cancel()  # a population still queued never runs
+
+
+@dataclass
+class HostOutputs:
+    """A node call's reserved frames and masks (None: not reserved); as a
+    context, it drops on exit whatever the egress did not take."""
+
+    frames: Optional[ReservedOutput] = None
+    masks: Optional[ReservedOutput] = None
+
+    def __enter__(self) -> "HostOutputs":
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        for reserved in (self.frames, self.masks):
+            if reserved is not None:
+                reserved.drop()
+        return False
+
+
+def _reservable_shape(value: Any, dev: torch.device, framing_mode: str) -> Optional[Tuple[int, int, int]]:
+    """(N, H, W) of the stabilizer's outputs for ``value`` when they can be
+    reserved before its upload: on a CUDA device with ``MAP_POPULATE``,
+    no mesh of more than one device, a 4-D tensor or array that does not
+    stream, and a framing that keeps the input's size; else None.  H and W
+    follow ``_normalize_batch``'s CHW test (``_chw``) on the first frame's
+    shape."""
+    if dev.type != "cuda" or framing_mode not in ("crop", "crop_and_pad") or _MAP_POPULATE is None:
+        return None
+    mesh = active_mesh()
+    if mesh is not None and mesh.size > 1:
+        return None
+    frames = next((value[k] for k in _FRAME_KEYS if k in value), None) if isinstance(value, dict) else value
+    if (not isinstance(frames, (torch.Tensor, np.ndarray)) or frames.ndim != 4 or not frames.shape[0]
+            or _streams(frames.shape[0], frames[0])):
+        return None
+    first = tuple(int(d) for d in frames.shape[1:])
+    height, width = first[1:] if _chw(first) else first[:2]
+    return int(frames.shape[0]), height, width
+
+
+def reserve_host_outputs(value: Any, device: torch.device, framing_mode: str) -> HostOutputs:
+    """The stabilizer node's (N, H, W, 3) frames and (N, H, W) masks for the
+    input ``value``, reserved in that order on the populate worker when
+    :func:`_reservable_shape` allows, else nothing reserved."""
+    shape = _reservable_shape(value, device, framing_mode)
+    if shape is None:
+        return HostOutputs()
+    return HostOutputs(ReservedOutput((*shape, 3)), ReservedOutput(shape))
+
+
+def _staged_to_cpu(t: torch.Tensor, out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """A contiguous float32 CUDA tensor copied through its device's pinned
+    ring into ``out`` (a contiguous float32 CPU tensor of ``t``'s shape),
+    else into new pageable host memory.  A chunk's copy into its slot is
     queued on the device's current stream, so it follows the work that
     wrote the tensor; the host waits for the chunk's event, places the slot
     into its range of the output (a CPU ``copy_``, which the intra-op
     threads share) and only then queues the copy that refills the slot, so
     the other slots' copies run behind the host's work."""
-    out = _new_host_f32(t.shape)
+    if out is None:
+        out = _new_host_f32(t.shape)
     src, dst = t.view(-1), out.view(-1)
     ring = _ring(t.device)
     depth = len(ring.slots)
@@ -322,32 +441,39 @@ def _staged_to_cpu(t: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _to_cpu_f32(x: Any) -> torch.Tensor:
+def _to_cpu_f32(x: Any, reserved: Optional[ReservedOutput] = None) -> torch.Tensor:
     """``x`` as a contiguous float32 CPU tensor, in an ``io.egress.copy``
     span that counts the bytes the copy moves from a device (``io.d2h_bytes``;
-    0 from the host) and those of them staged through the pinned ring
-    (``io.d2h_staged_bytes``)."""
+    0 from the host), those of them staged through the pinned ring
+    (``io.d2h_staged_bytes``) and those placed into ``reserved``
+    (``io.d2h_reserved_bytes``).  The ring takes ``reserved`` when it has
+    ``x``'s element count; otherwise it is dropped."""
     on_device = isinstance(x, (torch.Tensor, FrameShards)) and lead_device(x).type != "cpu"
     with P.span("io.egress.copy", lead_device(x) if on_device else None) as s:
         if isinstance(x, FrameShards):
             x = x.gather("cpu")
         t = (x if isinstance(x, torch.Tensor) else torch.from_numpy(np.asarray(x))).detach()
         staged = t.is_cuda and t.dtype == torch.float32 and t.is_contiguous()
-        out = _staged_to_cpu(t) if staged else t.to("cpu", torch.float32).contiguous()
+        if reserved is not None and not staged:
+            reserved.drop()
+        into = reserved.take(t) if reserved is not None and staged else None
+        out = _staged_to_cpu(t, into) if staged else t.to("cpu", torch.float32).contiguous()
         s.count("io.d2h_bytes", out.nbytes if on_device else 0)
         s.count("io.d2h_staged_bytes", out.nbytes if staged else 0)
+        s.count("io.d2h_reserved_bytes", out.nbytes if into is not None else 0)
     return out
 
 
-def reconstruct_video(frames: Any, context: VideoContext) -> Any:
-    """Pack frames into a contiguous float32 BHWC CPU tensor payload."""
+def reconstruct_video(frames: Any, context: VideoContext, reserved: Optional[ReservedOutput] = None) -> Any:
+    """Pack frames into a contiguous float32 BHWC CPU tensor payload (placed
+    into ``reserved`` where it serves: ``_to_cpu_f32``)."""
     with P.span("io.egress"):
-        return _reconstruct_video(frames, context)
+        return _reconstruct_video(frames, context, reserved)
 
 
-def _reconstruct_video(frames: Any, context: VideoContext) -> Any:
+def _reconstruct_video(frames: Any, context: VideoContext, reserved: Optional[ReservedOutput]) -> Any:
     if getattr(frames, "ndim", None) == 4:
-        stacked = _to_cpu_f32(frames)
+        stacked = _to_cpu_f32(frames, reserved)
     else:
         frame_list: List[Any] = list(frames)
         stacked = torch.stack([_to_cpu_f32(f) for f in frame_list]) if frame_list else None
@@ -360,15 +486,16 @@ def _reconstruct_video(frames: Any, context: VideoContext) -> Any:
     return stacked
 
 
-def convert_masks_for_output(masks: Any) -> torch.Tensor:
-    """Internal masks -> (N, H, W) float32 CPU tensor."""
+def convert_masks_for_output(masks: Any, reserved: Optional[ReservedOutput] = None) -> torch.Tensor:
+    """Internal masks -> (N, H, W) float32 CPU tensor (placed into
+    ``reserved`` where it serves: ``_to_cpu_f32``)."""
     with P.span("io.egress"):
-        return _convert_masks_for_output(masks)
+        return _convert_masks_for_output(masks, reserved)
 
 
-def _convert_masks_for_output(masks: Any) -> torch.Tensor:
+def _convert_masks_for_output(masks: Any, reserved: Optional[ReservedOutput]) -> torch.Tensor:
     if getattr(masks, "ndim", None) in (3, 4):
-        stacked = _to_cpu_f32(masks)
+        stacked = _to_cpu_f32(masks, reserved)
         if stacked.shape[0] == 0:
             return torch.zeros((1, 1, 1), dtype=torch.float32)
         return (stacked[..., 0] if stacked.ndim == 4 else stacked).contiguous()

@@ -6,19 +6,28 @@ into new memory from ``_new_host_f32``);
 everything else takes the one ``.to("cpu", torch.float32)`` it took
 before the ring.  On the CPU: the chunk planner, the new output memory,
 the ring's loop on stand-in slots and events, and every input the ring does not serve,
-bitwise what the plain copy returns, with ``io.d2h_staged_bytes`` at 0.
+bitwise what the plain copy returns, with ``io.d2h_staged_bytes`` at 0.  The node's
+reserved outputs (``reserve_host_outputs``): their shapes against ``_normalize_batch``'s,
+the calls that reserve nothing, the ring placing into one, and one dropped, abandoned or
+whose mapping raised.
 
 The ``cuda`` cases hold the ring to ``.cpu()`` bitwise on the card, at
 sizes below a slot and past the whole ring, after work still queued on
 the stream, with no device memory allocated, and count the bytes of a
-node call (``--noconftest``: this file imports no JAX):
+node call, placed into reserved outputs, bitwise those of a call that
+reserves nothing (``--noconftest``: this file imports no JAX):
 
     python -m pytest --noconftest tests/test_torch_egress.py -q -m cuda
 """
 
+import errno
 import gc
+import json
+import mmap
 import sys
 import threading
+import types
+import weakref
 
 import numpy as np
 import pytest
@@ -26,7 +35,9 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from comfyui_video_stabilizer_tpu_torch.nodes import stabilizer_nodes as SN  # noqa: E402
-from comfyui_video_stabilizer_tpu_torch.parallel.mesh import FrameShards  # noqa: E402
+from comfyui_video_stabilizer_tpu_torch.ops import warp as W  # noqa: E402
+from comfyui_video_stabilizer_tpu_torch.parallel.mesh import FrameShards, make_mesh  # noqa: E402
+from comfyui_video_stabilizer_tpu_torch.utils import meshinfo  # noqa: E402
 from comfyui_video_stabilizer_tpu_torch.utils import profiling as P  # noqa: E402
 from comfyui_video_stabilizer_tpu_torch.utils import video_io as V  # noqa: E402
 
@@ -85,8 +96,10 @@ def recorder():
     P.drain()
 
 
-def _plain_to_cpu_f32(x):
-    """The egress's copy before the ring: one ``.to("cpu", torch.float32)``."""
+def _plain_to_cpu_f32(x, reserved=None):
+    """The egress's copy before the ring: one ``.to("cpu", torch.float32)``
+    (these inputs come with no reservation)."""
+    assert reserved is None
     if isinstance(x, FrameShards):
         x = x.gather("cpu")
     t = x if isinstance(x, torch.Tensor) else torch.from_numpy(np.asarray(x))
@@ -142,7 +155,8 @@ def test_frames_the_ring_does_not_serve_come_back_as_before(recorder, monkeypatc
         out, before = out["frames"], before["frames"]
     assert out.dtype == torch.float32 and out.is_contiguous() and out.shape == before.shape
     assert torch.equal(_bits(out), _bits(before))
-    assert records and all(r == {"io.d2h_bytes": 0, "io.d2h_staged_bytes": 0} for r in records)
+    assert records and all(r == {"io.d2h_bytes": 0, "io.d2h_staged_bytes": 0, "io.d2h_reserved_bytes": 0}
+                           for r in records)
 
 
 @pytest.mark.parametrize("kind", list(MASK_INPUTS))
@@ -154,7 +168,8 @@ def test_masks_the_ring_does_not_serve_come_back_as_before(recorder, monkeypatch
         before = V.convert_masks_for_output(MASK_INPUTS[kind]())
     assert out.dtype == torch.float32 and out.is_contiguous() and out.shape == before.shape
     assert out.ndim == 3 and torch.equal(_bits(out), _bits(before))
-    assert records and all(r == {"io.d2h_bytes": 0, "io.d2h_staged_bytes": 0} for r in records)
+    assert records and all(r == {"io.d2h_bytes": 0, "io.d2h_staged_bytes": 0, "io.d2h_reserved_bytes": 0}
+                           for r in records)
 
 
 class _Event:
@@ -279,6 +294,215 @@ def test_one_ring_a_device_under_threads(monkeypatch):
     assert len(made) == 2 and all(got[i] is V._RINGS[d] for i, d in enumerate(devices))
 
 
+# ---- the node's reserved outputs ----
+
+CUDA = torch.device("cuda", 0)  # a device name only: nothing below touches a card
+
+
+@pytest.fixture
+def worker():
+    """The populate worker's mappings: ``mapped`` holds a weak reference
+    to each mmap ``video_io`` makes on it and ``made`` the calling thread's
+    too, each with whether the worker made it; the worker waits at
+    ``gate`` (open by default), with ``waiting`` set, and raises ENOMEM
+    when ``fail`` is set.  The worker is left idle."""
+    log = types.SimpleNamespace(mapped=[], gate=threading.Event(), waiting=threading.Event(), fail=False)
+    log.gate.set()
+
+    def logged_mmap(*args, **kwargs):
+        on_worker = threading.current_thread().name.startswith("cvst-populate")
+        if on_worker:
+            log.waiting.set()
+            assert log.gate.wait(timeout=60)
+            if log.fail:
+                raise OSError(errno.ENOMEM, "Cannot allocate memory")
+        buf = mmap.mmap(*args, **kwargs)
+        log.mapped.append((on_worker, weakref.ref(buf)))
+        return buf
+
+    fake = types.SimpleNamespace(**{k: getattr(mmap, k) for k in dir(mmap) if k.isupper()}, mmap=logged_mmap)
+    with pytest.MonkeyPatch.context() as m:
+        m.setattr(V, "mmap", fake)
+        yield log
+        log.gate.set()
+        _worker_idle()
+
+
+def _worker_idle():
+    """Wait until the populate worker has run everything queued before."""
+    assert V._populator().submit(int).result(timeout=60) == 0
+
+
+def _live(log):
+    gc.collect()
+    return [on_worker for on_worker, ref in log.mapped if ref() is not None]
+
+
+LAYOUTS = {  # the input's shape -> the outputs' (N, H, W), as _normalize_batch lays the frames out
+    "hwc_3": (2, 6, 10, 3), "hwc_1": (2, 6, 10, 1), "hwc_4": (2, 6, 10, 4), "hwc_2": (2, 6, 10, 2),
+    "chw_3": (2, 3, 6, 10), "chw_1": (2, 1, 6, 10), "chw_4": (2, 4, 6, 10),
+    "hwc_tall_3": (2, 3, 5, 3),  # 3 rows, not channels: 3 < 3 fails the CHW test
+    "hwc_narrow": (2, 4, 3, 3),  # 4 rows of 3 pixels
+    "one_frame": (1, 7, 9, 3),
+}
+
+
+@pytest.mark.parametrize("container", ["tensor", "numpy", "dict"])
+@pytest.mark.parametrize("layout", list(LAYOUTS))
+def test_reserved_shapes_are_the_normalized_clips(layout, container):
+    shape = LAYOUTS[layout]
+    clip = torch.rand(shape)
+    value = {"tensor": clip, "numpy": clip.numpy(), "dict": {"frames": clip, "fps": 8.0}}[container]
+    normalized = V.normalize_video_input(value, device="cpu").frames
+    for framing in ("crop", "crop_and_pad"):
+        assert V._reservable_shape(value, CUDA, framing) == tuple(normalized.shape[:3])
+    assert normalized.shape[3] == 3
+
+
+def _clip_streams(monkeypatch):
+    monkeypatch.setattr(W, "CHUNK_BUDGET_BYTES", 1 << 10)
+    return torch.rand(4, 6, 10, 3)
+
+
+NOT_RESERVED = {
+    "expand": lambda m: (torch.rand(4, 6, 10, 3), CUDA, "expand"),
+    "cpu": lambda m: (torch.rand(4, 6, 10, 3), torch.device("cpu"), "crop_and_pad"),
+    "frame_list": lambda m: (list(torch.rand(4, 6, 10, 3)), CUDA, "crop_and_pad"),
+    "dict_of_frame_list": lambda m: ({"frames": list(torch.rand(4, 6, 10, 3))}, CUDA, "crop"),
+    "three_dims": lambda m: (torch.rand(4, 6, 10), CUDA, "crop_and_pad"),
+    "empty": lambda m: (torch.rand(0, 6, 10, 3), CUDA, "crop_and_pad"),
+    "streamed": lambda m: (_clip_streams(m), CUDA, "crop_and_pad"),
+    "no_map_populate": lambda m: (m.setattr(V, "_MAP_POPULATE", None), torch.rand(4, 6, 10, 3))[1:] + (CUDA, "crop"),
+}
+
+
+@pytest.mark.parametrize("case", list(NOT_RESERVED))
+def test_calls_that_reserve_nothing(monkeypatch, case):
+    value, dev, framing = NOT_RESERVED[case](monkeypatch)
+
+    def refuse(*a, **k):
+        raise AssertionError("a population was submitted")
+
+    monkeypatch.setattr(V, "_populator", refuse)
+    assert V._reservable_shape(value, dev, framing) is None
+    with V.reserve_host_outputs(value, dev, framing) as reserved:
+        assert reserved.frames is None and reserved.masks is None
+
+
+def test_a_mesh_of_more_than_one_device_reserves_nothing():
+    clip = torch.rand(4, 6, 10, 3)
+    with meshinfo.set_mesh(make_mesh(devices=["cpu"] * 2)):
+        assert V._reservable_shape(clip, CUDA, "crop_and_pad") is None
+    with meshinfo.set_mesh(make_mesh(devices=["cpu"])):
+        assert V._reservable_shape(clip, CUDA, "crop_and_pad") == (4, 6, 10)
+
+
+def test_reservation_maps_frames_then_masks_on_the_worker(worker):
+    with V.reserve_host_outputs(torch.rand(3, 6, 10, 3), CUDA, "crop_and_pad") as reserved:
+        assert (reserved.frames.numel, reserved.masks.numel) == (3 * 6 * 10 * 3, 3 * 6 * 10)
+        _worker_idle()
+        assert [on_worker for on_worker, _ in worker.mapped] == [True, True]
+    assert _live(worker) == []  # neither taken: both dropped on exit
+
+
+@pytest.mark.parametrize("slots", [2, 3])
+@pytest.mark.parametrize("shape, reserved_shape", [((4, 6, 10, 3), (4, 6, 10, 3)), ((4, 6, 10), (4, 6, 10)),
+                                                   ((4, 6, 10, 1), (4, 6, 10)), ((29,), (29,))])
+def test_ring_places_into_a_reserved_output_as_into_a_new_one(recorder, worker, monkeypatch, shape, reserved_shape,
+                                                              slots):
+    """The ring's loop on CPU slots of 7 elements: the reserved buffer, viewed
+    as the source's shape (masks may come as (N, H, W, 1)), is the output,
+    bitwise the output of a new mapping; the wait is its own span with the
+    worker's population time."""
+    ring, _ = _stand_in_ring(monkeypatch, slots, 7)
+    src = torch.randn(shape)
+    src.view(-1)[::5] = -0.0
+    reserved = V.ReservedOutput(reserved_shape)
+    into = reserved.take(src)
+    assert into.shape == src.shape and into.dtype == torch.float32 and into.is_contiguous()
+    out = V._staged_to_cpu(src, into)
+    assert out is into
+    fresh = V._staged_to_cpu(src)
+    assert torch.equal(_bits(out), _bits(fresh)) and torch.equal(_bits(out), _bits(src))
+    (wait,) = [r for r in P.drain() if r.name == "io.egress.reserve_wait"]
+    assert wait.counters["io.host_populate_us"] >= 0  # a root here: it also takes the watched counters
+    assert reserved.take(src) is None  # spent
+    assert [on_worker for on_worker, _ in worker.mapped] == [True, False]
+
+
+def test_a_reservation_of_another_element_count_is_dropped(recorder, worker):
+    reserved = V.ReservedOutput((4, 6, 10))
+    _worker_idle()
+    assert reserved.take(torch.zeros(4, 6, 11)) is None
+    assert [r.name for r in P.drain()] == []  # nothing waited for
+    assert _live(worker) == []
+
+
+def test_an_abandoned_reservation_is_unmapped_once_the_worker_is_done(worker):
+    """The worker held at its first mapping: dropping the reservation does
+    not wait for it, the masks' population (still queued) never runs, and
+    the frames' buffer is unmapped once the worker lets it go."""
+    worker.gate.clear()
+    with V.reserve_host_outputs(torch.rand(3, 6, 10, 3), CUDA, "crop") as reserved:
+        frames = reserved.frames
+        assert worker.waiting.wait(timeout=60)
+    assert not worker.gate.is_set() and frames.take(torch.zeros(3, 6, 10, 3)) is None
+    worker.gate.set()
+    _worker_idle()
+    assert [on_worker for on_worker, _ in worker.mapped] == [True]
+    assert _live(worker) == []
+
+
+def test_a_worker_whose_mapping_raises_leaves_the_egress_its_own(recorder, worker, monkeypatch):
+    _stand_in_ring(monkeypatch, 3, 7)
+    worker.fail = True
+    src = torch.randn(4, 6, 10)
+    reserved = V.ReservedOutput(tuple(src.shape))
+    assert reserved.take(src) is None
+    out = V._staged_to_cpu(src, None)
+    assert torch.equal(_bits(out), _bits(src))
+    assert [on_worker for on_worker, _ in worker.mapped] == [False]  # mapped by the egress's thread
+    (wait,) = [r for r in P.drain() if r.name == "io.egress.reserve_wait"]
+    assert "io.host_populate_us" not in wait.counters
+
+
+class _Interrupted(Exception):
+    pass
+
+
+@pytest.mark.parametrize("kind", ["flow", "classic"])
+def test_node_call_with_a_reservation_the_cpu_egress_drops(worker, monkeypatch, kind):
+    """On the CPU the egress never takes a reservation (its outputs are no
+    CUDA tensors): forced, it is dropped and the outputs are those of a call
+    that reserves nothing; a call interrupted while the worker still maps
+    returns without waiting for it, and leaves nothing mapped."""
+    clip = _frames(n=5, h=48, w=64)
+    node = {"flow": SN.VideoStabilizerFlow, "classic": SN.VideoStabilizerClassic}[kind]
+    args = (16.0, "crop_and_pad", "similarity", False, 0.7, 0.5, 0.6, "#7F7F7F")
+    plain = node.execute(clip, *args, device="cpu")
+    monkeypatch.setattr(V, "_reservable_shape", lambda value, dev, framing: tuple(value.shape[:3]))
+    reserved = node.execute(clip, *args, device="cpu")
+    _worker_idle()
+    assert [on_worker for on_worker, _ in worker.mapped] == [True, True]
+    for a, b in zip(plain[:2], reserved[:2]):
+        assert torch.equal(_bits(a), _bits(b))
+    assert json.dumps(plain[2], sort_keys=True, default=str) == json.dumps(reserved[2], sort_keys=True, default=str)
+    assert _live(worker) == []
+
+    def interrupt():
+        raise _Interrupted
+
+    worker.mapped.clear()
+    worker.gate.clear()
+    monkeypatch.setattr(SN, "check_interrupt", interrupt)
+    with pytest.raises(_Interrupted):
+        node.execute(clip, *args, device="cpu")
+    assert not worker.gate.is_set()
+    worker.gate.set()
+    _worker_idle()
+    assert _live(worker) == []
+
+
 # ---- on the card ----
 
 @pytest.fixture
@@ -339,18 +563,85 @@ def test_ring_waits_for_work_queued_on_the_stream(cuda):
     assert torch.equal(out, pattern.cpu().to(torch.float32))
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("kind", ["flow", "classic"])
-def test_node_call_stages_every_byte_of_its_egress(recorder, cuda, kind):
+NODES = {"flow": SN.VideoStabilizerFlow, "classic": SN.VideoStabilizerClassic}
+WIDGETS = (16.0, "crop_and_pad", "similarity", False, 0.7, 0.5, 0.6, "#7F7F7F")
+
+
+def _shaken_clip():
+    """Nine 120 x 240 CPU frames of a smooth scene shifted a few pixels each."""
     rng = np.random.default_rng(5)
     yy, xx = np.mgrid[0:136, 0:256].astype(np.float32)
     scene = np.stack([0.5 + 0.4 * np.sin(xx / 5.0 + c) * np.cos(yy / 7.0 - c) for c in range(3)], -1)
     shifts = rng.integers(0, 16, size=(9, 2))
-    clip = torch.from_numpy(np.stack([scene[dy:dy + 120, dx:dx + 240] for dy, dx in shifts]).astype(np.float32))
-    node = {"flow": SN.VideoStabilizerFlow, "classic": SN.VideoStabilizerClassic}[kind]
-    frames, masks, meta = node.execute(clip, 16.0, "crop_and_pad", "similarity", False, 0.7, 0.5, 0.6, "#7F7F7F",
-                                       device="cuda")
+    return torch.from_numpy(np.stack([scene[dy:dy + 120, dx:dx + 240] for dy, dx in shifts]).astype(np.float32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["flow", "classic"])
+def test_node_call_stages_every_byte_of_its_egress(recorder, cuda, kind):
+    clip = _shaken_clip()
+    node = NODES[kind]
+    frames, masks, meta = node.execute(clip, *WIDGETS, device="cuda")
     timing = meta["timing"]["io.egress.copy"]
     assert timing["io.d2h_bytes"] == frames.nbytes + masks.nbytes
     assert timing["io.d2h_staged_bytes"] == timing["io.d2h_bytes"]
     assert not frames.is_pinned() and not masks.is_pinned()
+
+
+def _meta_json(meta):
+    return json.dumps({k: v for k, v in meta.items() if k != "timing"}, sort_keys=True, default=str)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["flow", "classic"])
+def test_node_call_places_its_egress_into_reserved_outputs(recorder, cuda, monkeypatch, kind):
+    """Frames and masks placed into the outputs reserved before the upload
+    (``io.d2h_reserved_bytes == io.d2h_bytes``, one wait each): bitwise the
+    outputs and meta of the same call with nothing reserved, with the same
+    device memory, peak and after."""
+    clip, node = _shaken_clip(), NODES[kind]
+
+    def call():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(cuda)
+        out = node.execute(clip, *WIDGETS, device="cuda")
+        torch.cuda.synchronize()
+        return out, torch.cuda.max_memory_allocated(cuda), torch.cuda.memory_allocated(cuda)
+
+    call()  # the ring, the kernels and any graph made
+    (frames, masks, meta), peak, after = call()
+    copy = meta["timing"]["io.egress.copy"]
+    assert copy["io.d2h_reserved_bytes"] == copy["io.d2h_bytes"] == frames.nbytes + masks.nbytes
+    assert meta["timing"]["io.egress.reserve_wait"]["n"] == 2
+    assert not frames.is_pinned() and not masks.is_pinned() and frames.is_contiguous() and masks.is_contiguous()
+    monkeypatch.setattr(V, "_reservable_shape", lambda value, dev, framing: None)
+    (frames0, masks0, meta0), peak0, after0 = call()
+    assert meta0["timing"]["io.egress.copy"]["io.d2h_reserved_bytes"] == 0
+    assert "io.egress.reserve_wait" not in meta0["timing"]
+    assert frames.shape == frames0.shape and masks.shape == masks0.shape
+    assert torch.equal(_bits(frames), _bits(frames0)) and torch.equal(_bits(masks), _bits(masks0))
+    assert _meta_json(meta) == _meta_json(meta0)
+    assert (peak, after) == (peak0, after0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("held", [True, False])
+def test_an_interrupted_node_call_leaves_no_live_reservation(cuda, worker, monkeypatch, held):
+    """Interrupted at the engine's first poll, with the worker still mapping
+    (held) or done: the call raises without waiting for it, and nothing it
+    reserved stays mapped once the worker is idle."""
+
+    def interrupt():
+        raise _Interrupted
+
+    clip = _shaken_clip()
+    SN.VideoStabilizerFlow.execute(clip, *WIDGETS, device="cuda")  # warm
+    worker.mapped.clear()
+    if held:
+        worker.gate.clear()
+    monkeypatch.setattr(SN, "check_interrupt", interrupt)
+    with pytest.raises(_Interrupted):
+        SN.VideoStabilizerFlow.execute(clip, *WIDGETS, device="cuda")
+    worker.gate.set()
+    _worker_idle()
+    assert _live(worker) == []

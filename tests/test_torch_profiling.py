@@ -113,7 +113,7 @@ def test_node_call_span_tree_on_the_cpu(recorder, monkeypatch, kind, fast):
     # on the CPU no byte crosses a device; the counters are there, at 0
     assert [r.counters for r in recs if r.name == "io.ingest.copy"] == [{"io.h2d_bytes": 0}]
     assert [r.counters for r in recs if r.name == "io.egress.copy"] == \
-        [{"io.d2h_bytes": 0, "io.d2h_staged_bytes": 0}] * 2
+        [{"io.d2h_bytes": 0, "io.d2h_staged_bytes": 0, "io.d2h_reserved_bytes": 0}] * 2
     timing = meta["timing"]
     assert list(timing) == sorted(tree, key=lambda name: min(r.start_ns for r in recs if r.name == name))
     assert timing["io.egress.copy"]["n"] == 2 and timing["io.egress"]["parent"] == "node.call"
@@ -379,6 +379,7 @@ def test_spans_on_the_card_take_device_time_and_never_wait(recorder, monkeypatch
     assert sum(r.counters.get("io.h2d_bytes", 0) for r in recs) == clip.nbytes
     assert sum(r.counters.get("io.d2h_bytes", 0) for r in recs) == frames.nbytes + masks.nbytes
     assert sum(r.counters.get("io.d2h_staged_bytes", 0) for r in recs) == frames.nbytes + masks.nbytes
+    assert sum(r.counters.get("io.d2h_reserved_bytes", 0) for r in recs) == frames.nbytes + masks.nbytes
     assert meta["timing"]["node.call"]["fastpath.served"] == 1
     assert all(r.device_ms is not None for r in recs if r.name.startswith(("io.ingest", "io.egress.", "fastpath.")))
 
