@@ -5,9 +5,9 @@
 On the card, at each cell's own size.  The lower reading of each number
 is the largest that sound arithmetic gives: short runs of the program
 (the cell's set-up, a window of ``--seconds`` at its own load, the
-check) on ``--seeds`` seeds, all in this one process, and the
-reference's sound variants (``engine.VARIANTS``: its sums in another
-order, its trajectory in float64) against the reference on
+check) on ``--seeds`` seeds, all in this one process, and the sound
+variants of the configuration's reference (its ``VARIANTS``: the default
+reference's sums in another order, its trajectory in float64) against it on
 ``--variant-seeds`` seeds.  The upper reading is the smallest that the
 control gives: the reference put in the program's place with every
 hand-off between its stages held in bfloat16, on ``--control-seeds``
@@ -31,7 +31,6 @@ import torch  # noqa: E402
 
 from benchmark import check, core  # noqa: E402
 from benchmark.inputs import clips  # noqa: E402
-from benchmark.reference import engine  # noqa: E402
 
 SEED_BASE = 3_000_000_000
 
@@ -40,11 +39,12 @@ EXACT = ("modes_off", "meta_off", "outputs_off")
 
 
 def reference_readings(cell, seed: int, device, kinds, clip_size=None):
-    """{kind: numbers} of the reference computed as each of ``kinds`` asks
-    (keyword arguments of ``engine.stabilize``: ``store``, ``tf32``,
+    """{kind: numbers} of the cell's reference computed as each of ``kinds``
+    asks (keyword arguments of its ``stabilize``: ``store``, ``tf32``,
     ``variant``) and put in the program's place, against the reference,
     on clip 0 of ``seed``'s pool."""
     conf = cell.config
+    engine = cell.reference()
     n, h, w = clip_size or (conf["clip"]["frames"], conf["clip"]["height"], conf["clip"]["width"])
     clip = clips.make_clip(n, h, w, clips.sub_seed(seed, 0), cell.traffic["clip"], device)
     settings = engine.settings_of(conf)
@@ -105,7 +105,7 @@ def main() -> int:
             core.log(f"[program] {name} seed {seed}: " + json.dumps(runs[-1]["numbers"]))
         for i in range(args.variant_seeds):
             seed = SEED_BASE + 15485863 + 7919 * i
-            got = reference_readings(cell, seed, device, {v: {"variant": v} for v in engine.VARIANTS})
+            got = reference_readings(cell, seed, device, {v: {"variant": v} for v in cell.reference().VARIANTS})
             for v, numbers in got.items():
                 variants.append({"seed": seed, "variant": v, "numbers": numbers})
                 core.log(f"[variant {v}] {name} seed {seed}: " + json.dumps(numbers))

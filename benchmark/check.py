@@ -1,12 +1,19 @@
 """How ``correct`` is decided: the program's outputs against the plain
 reference's, number by number, each against its limit.
 
+The reference is whichever the configuration names (the default's
+``engine.py`` states the contract): the path converter and the corner
+distance come from the module that defines the ``Result`` handed in, the
+path width from ``Result.path``, the framing mode from
+``Result.framing["mode"]``.
+
 The numbers (``NUMBERS``), each the worst over the clip:
 
 - ``modes_off``: transitions whose estimated mode differs (exact).
 - ``motion_px``: the widest distance between where the program's and the
   reference's per-transition matrices put a frame corner, in px.
-- ``path_px``: the same for the integrated and the target camera paths.
+- ``path_px``: the same for the integrated and the target camera paths,
+  read at the reference path's width (infinite where the program's differs).
 - ``warp_px``: the same for the applied warp (``stabilization_warp`` and
   ``motion_meta``'s matrices).
 - ``frames_mae``: the worst frame's mean absolute difference of the
@@ -24,12 +31,11 @@ from __future__ import annotations
 import json
 import math
 import pathlib
+import sys
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
-
-from .reference import engine as ref_engine
 
 NUMBERS = ("modes_off", "motion_px", "path_px", "warp_px", "frames_mae", "masks_off", "framing_px",
            "ratio_gap", "meta_off", "outputs_off")
@@ -37,17 +43,22 @@ LIMITS_DIR = pathlib.Path(__file__).resolve().parent / "limits"
 _FRAME_BLOCK = 8
 
 
-def limits_of(config_name: str) -> Dict[str, Optional[float]]:
+def limits_of(config_name: str, limits_dir: pathlib.Path = LIMITS_DIR) -> Dict[str, Optional[float]]:
     """Each number's limit; None for a number that is read but not held,
     because its control did not separate from sound arithmetic."""
-    limits = json.loads((LIMITS_DIR / f"{config_name}.json").read_text())["limits"]
+    limits = json.loads((limits_dir / f"{config_name}.json").read_text())["limits"]
     missing = set(NUMBERS) - set(limits)
     if missing:
         raise KeyError(f"limits/{config_name}.json lacks {sorted(missing)}")
     return {k: None if limits[k] is None else float(limits[k]) for k in NUMBERS}
 
 
-def _corner_px(a, b, width: int, height: int) -> float:
+def engine_of(ref):
+    """The reference module that made ``ref``: the one defining its ``Result``."""
+    return sys.modules[type(ref).__module__]
+
+
+def _corner_px(engine, a, b, width: int, height: int) -> float:
     try:
         a = np.asarray(a, np.float64)
         b = np.asarray(b, np.float64)
@@ -55,7 +66,24 @@ def _corner_px(a, b, width: int, height: int) -> float:
         return math.inf
     if a.shape != b.shape or a.ndim != 3 or a.shape[1:] != (3, 3):
         return math.inf
-    return ref_engine.corner_gap_px(a, b, width, height)
+    return engine.corner_gap_px(a, b, width, height)
+
+
+def _path_px(engine, motion: dict, ref, width: int, height: int) -> float:
+    """The widest corner gap of the integrated and the target paths, the
+    program's read at the width of the reference's path."""
+    d = ref.path.shape[-1]
+    gaps = []
+    for key, want in (("path", ref.path), ("target_path", ref.target_path)):
+        try:
+            got = np.asarray(motion.get(key, []), np.float64)
+        except (TypeError, ValueError):
+            return math.inf
+        if got.size % d:
+            return math.inf
+        gaps.append(_corner_px(engine, engine.to_matrices(got.reshape(-1, d)), engine.to_matrices(want),
+                               width, height))
+    return max(gaps)
 
 
 def _worst_frame(prog: torch.Tensor, ref: torch.Tensor, fn) -> float:
@@ -77,7 +105,7 @@ def _output_faults(frames, masks, n: int, h: int, w: int, device_type: str) -> i
     return faults
 
 
-def _meta_faults(meta, ref: ref_engine.Result, estimator: str, settings, n: int, w: int, h: int) -> int:
+def _meta_faults(meta, ref, estimator: str, settings, n: int, w: int, h: int) -> int:
     mm = meta.get("motion_meta", {})
     sw = meta.get("stabilization_warp", {})
     fr = meta.get("framing", {})
@@ -85,7 +113,7 @@ def _meta_faults(meta, ref: ref_engine.Result, estimator: str, settings, n: int,
         (meta.get("frames"), n),
         (meta.get("transform_mode_requested"), settings["transform_mode"]),
         (meta.get("transform_mode_applied"), ref.modes[-1] if ref.modes else settings["transform_mode"]),
-        (fr.get("mode"), "crop_and_pad"),
+        (fr.get("mode"), ref.framing["mode"]),
         (fr.get("input_size"), [w, h]),
         (fr.get("padding_color_rgb"), ref.framing["padding_color_rgb"]),
         (fr.get("padding_detected"), ref.framing["padding_detected"]),
@@ -108,9 +136,10 @@ def _meta_faults(meta, ref: ref_engine.Result, estimator: str, settings, n: int,
     return sum(1 for got, want in expected if got != want)
 
 
-def compare(frames, masks, meta, ref: ref_engine.Result, estimator: str, settings,
-            output_device: str) -> Dict[str, float]:
-    """Every number of ``NUMBERS`` for one call's outputs against the reference of its clip."""
+def compare(frames, masks, meta, ref, estimator: str, settings, output_device: str) -> Dict[str, float]:
+    """Every number of ``NUMBERS`` for one call's outputs against ``ref``, the
+    ``Result`` of its clip from the configuration's reference."""
+    engine = engine_of(ref)
     n, h, w = ref.masks.shape
     em = meta.get("estimated_motion", {})
     trans = em.get("per_transition", [])
@@ -119,14 +148,12 @@ def compare(frames, masks, meta, ref: ref_engine.Result, estimator: str, setting
     out = {
         "modes_off": float(sum(1 for t, m in zip(trans, ref.modes) if t.get("mode") != m)
                            + abs(len(trans) - len(ref.modes))),
-        "motion_px": _corner_px([t.get("matrix") for t in trans], ref.motion, w, h),
-        "path_px": max(_corner_px(ref_engine.to_matrices(np.asarray(em.get(k, []), np.float64).reshape(-1, 4)),
-                                  ref_engine.to_matrices(v), w, h)
-                       for k, v in (("path", ref.path), ("target_path", ref.target_path))),
+        "motion_px": _corner_px(engine, [t.get("matrix") for t in trans], ref.motion, w, h),
+        "path_px": _path_px(engine, em, ref, w, h),
         "warp_px": max(
-            _corner_px([f.get("applied_matrix") for f in meta.get("stabilization_warp", {}).get("per_frame", [])],
-                       ref.final, w, h),
-            _corner_px([f.get("matrix") for f in meta.get("motion_meta", {}).get("per_frame", [])],
+            _corner_px(engine, [f.get("applied_matrix")
+                                for f in meta.get("stabilization_warp", {}).get("per_frame", [])], ref.final, w, h),
+            _corner_px(engine, [f.get("matrix") for f in meta.get("motion_meta", {}).get("per_frame", [])],
                        ref.final, w, h)),
         "meta_off": float(_meta_faults(meta, ref, estimator, settings, n, w, h)),
         "outputs_off": float(_output_faults(frames, masks, n, h, w, output_device)),

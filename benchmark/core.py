@@ -6,7 +6,10 @@ per-layer metric is a file of its own, found by the names in
 ``BENCHMARK.json``: ``configs/<config>.json`` (the ``file`` of the
 configuration), ``traffic/<traffic>.json``, ``entries/<entry>.py`` (the
 traffic's ``entry``), ``metrics/<metric>.py`` (a ``read(obs)`` that
-returns a number or None) and ``limits/<config>.json``.
+returns a number or None), ``limits/<config>.json`` and the plain
+reference, the package the configuration's ``reference`` names
+(``reference/`` when it names none; the default's ``engine.py`` states
+what the harness calls).
 
 The loop is closed with one caller: a call starts when the previous one
 has returned and its outputs are synchronised, and calls alternate over
@@ -26,6 +29,8 @@ from __future__ import annotations
 
 import bisect
 import contextlib
+import hashlib
+import importlib
 import importlib.util
 import json
 import math
@@ -44,11 +49,11 @@ import torch
 
 from . import check, stats, tracing
 from .inputs import clips
-from .reference import engine as ref_engine
 
 HERE = pathlib.Path(__file__).resolve().parent
 ROOT = HERE.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "comfyui_video_stabilizer_tpu")
+DEFAULT_REFERENCE = "reference"
 _NAME_CHARS = 100
 
 
@@ -84,6 +89,25 @@ def load_file(path: pathlib.Path, name: str):
     return module
 
 
+def load_reference(base: pathlib.Path, name: str):
+    """The ``engine`` module of the reference package ``base/name``.  The
+    package is loaded by path under a name of its own, made from its
+    directory, so that its relative imports resolve inside that directory
+    and two copies never share a module; a second call returns the first's."""
+    package_dir = (base / name).resolve()
+    if not package_dir.is_relative_to(base.resolve()) or not all(
+            (package_dir / f).is_file() for f in ("__init__.py", "engine.py")):
+        raise FileNotFoundError(f"reference {name!r}: no package with an engine.py under {base}")
+    digest = hashlib.sha1(str(package_dir).encode()).hexdigest()[:12]
+    package = f"benchmark_reference_{''.join(c if c.isalnum() else '_' for c in name)}_{digest}"
+    if package not in sys.modules:
+        spec = importlib.util.spec_from_file_location(package, package_dir / "__init__.py",
+                                                      submodule_search_locations=[str(package_dir)])
+        sys.modules[package] = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(sys.modules[package])
+    return importlib.import_module(package + ".engine")
+
+
 @dataclass
 class Cell:
     name: str
@@ -102,6 +126,10 @@ class Cell:
     def entry(self):
         return load_file(self.base / "entries" / f"{self.traffic['entry']}.py",
                          f"benchmark_entry_{self.traffic['entry']}").Entry
+
+    def reference(self):
+        """The configuration's plain reference (its ``engine`` module)."""
+        return load_reference(self.base, self.config.get("reference", DEFAULT_REFERENCE))
 
 
 def _applies(metric: dict, cell: str, reported) -> bool:
@@ -157,6 +185,7 @@ class Observation:
     counters: Dict[str, int]
     profile: Optional[tracing.Profile]
     hand_kernels: List[str] = field(default_factory=list)
+    latencies: List[float] = field(default_factory=list)  # each window call's seconds
 
 
 def power_limit() -> str:
@@ -255,7 +284,8 @@ def run_cell(cell: Cell, seed: int, seconds: float, traced: bool, device: torch.
     conf, traf = cell.config, cell.traffic
     n, h, w = clip_size or (conf["clip"]["frames"], conf["clip"]["height"], conf["clip"]["width"])
     c = conf["clip"]["channels"]
-    limits = check.limits_of(cell.config_name)
+    limits = check.limits_of(cell.config_name, cell.base / "limits")
+    ref_engine = cell.reference()
     on_host = traf["clip_on"] == "host"
 
     t_made = time.perf_counter()
@@ -333,7 +363,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, traced: bool, device: torch.
     result = {"correct": False, "attempted": calls, "failed": failed}
     if traced:
         obs = Observation((n, h, w, c), spans, {"calls": calls, "graph_replays": replays}, prof,
-                          tracing.hand_kernels(pathlib.Path(cuda_build.CSRC_DIR)))
+                          tracing.hand_kernels(pathlib.Path(cuda_build.CSRC_DIR)), latencies)
         metrics = {}
         for m in cell.per_layer:
             value = cell.reader(m["name"])(obs)

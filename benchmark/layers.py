@@ -31,6 +31,13 @@ def engine_call_ms(obs):
     return _median_span(obs, "engine.call")
 
 
+def call_ms_p95(obs):
+    """The 95th percentile of every call of the traced window, in ms (host
+    clock, each call ended by a synchronise, the benchmark's spans open
+    inside it)."""
+    return 1e3 * stats.percentile(obs.latencies, 95) if obs.latencies else None
+
+
 def graph_replays_per_call(obs):
     """The growth of the fast path's ``GRAPH_STATS["replays"]`` over the window's calls, a call."""
     calls = obs.counters.get("calls", 0)

@@ -9,6 +9,31 @@ padding masks again.  Only the modes the benchmark's configurations run
 are here (crop_and_pad; similarity with its translation fallback);
 anything else raises.
 
+The contract of a reference.  A configuration names its reference with
+``"reference": "<dir>"`` (``reference``, this package, when absent): a
+directory under ``benchmark/`` holding a package (``__init__.py``) with an
+``engine.py``.  The harness loads it by path as a package of its own, so
+a copy's relative imports resolve inside the copy, and calls only these
+names of its ``engine``:
+
+- ``settings_of(config)``: the node settings of a configuration;
+- ``stabilize(frames, estimator, settings, store=None, tf32=False,
+  variant=None)`` -> ``Result``: the reference of one call (``store`` the
+  control's dtype, ``tf32`` the TF32 control ``calibrate.py`` prints,
+  ``variant`` one of ``VARIANTS``);
+- ``VARIANTS``: the sound variants the limits leave room for;
+- ``as_node_outputs(result, estimator, settings)``: (frames, masks,
+  meta) laid out as the node returns them;
+- ``corner_gap_px(a, b, w, h)``: the widest corner distance of two
+  stacks of (N, 3, 3) matrices;
+- ``to_matrices(params)``: path parameters of any width the reference
+  writes (2 translation, 4 similarity, 8 perspective) -> (N, 3, 3).
+
+``Result`` is defined in ``engine.py`` with the fields below; the check
+takes the converter and ``corner_gap_px`` from the module that defines
+the ``Result`` it is handed, the path width from ``Result.path``, and the
+framing mode it expects from ``Result.framing["mode"]``.
+
 ``store`` is the control: a dtype every tensor is rounded through where
 one stage hands it to the next (the input clip, the flow samples or the
 tracks' displacements, the per-transition matrices, the camera path and
@@ -55,8 +80,8 @@ class Result:
 
     modes: List[str]
     motion: np.ndarray          # (N-1, 3, 3) per-transition matrices, full resolution
-    path: np.ndarray            # (N, 4) integrated similarity parameters
-    target_path: np.ndarray     # (N, 4)
+    path: np.ndarray            # (N, D) integrated parameters, D as ``to_matrices`` reads them
+    target_path: np.ndarray     # (N, D)
     final: np.ndarray           # (N, 3, 3) float32 applied warp
     frames: torch.Tensor        # (N, H, W, 3) float32
     masks: torch.Tensor         # (N, H, W) float32, 1 where padded
@@ -427,7 +452,7 @@ def as_node_outputs(res: Result, estimator: str, settings: Dict[str, object]):
         "transform_mode_requested": settings["transform_mode"],
         "transform_mode_applied": res.modes[-1],
         "framing": dict(res.framing),
-        "stabilization_warp": {"source_size": [w, h], "output_size": [w, h], "framing_mode": "crop_and_pad",
+        "stabilization_warp": {"source_size": [w, h], "output_size": [w, h], "framing_mode": res.framing["mode"],
                                "matrix_convention": "source_to_stabilized",
                                "per_frame": [{"index": i, "applied_matrix": m} for i, m in enumerate(final)]},
         "motion_meta": {"version": 2, "source": f"estimated_{estimator}", "frame_count": n,
@@ -454,13 +479,26 @@ def settings_of(config: Dict[str, object]) -> Dict[str, object]:
 
 
 def to_matrices(p: np.ndarray) -> np.ndarray:
-    """(..., 4) [tx, ty, theta, log scale] -> (..., 3, 3) similarity matrices, float64."""
+    """(..., D) path parameters -> (..., 3, 3) float64 matrices, by the width D:
+    2 [tx, ty] translation, 4 [tx, ty, theta, log scale] similarity,
+    8 [a-1, b, tx, c, d-1, ty, g, h] perspective."""
     p = np.asarray(p, np.float64)
     out = np.zeros(p.shape[:-1] + (3, 3))
-    s, ct, st = np.exp(p[..., 3]), np.cos(p[..., 2]), np.sin(p[..., 2])
-    out[..., 0, 0], out[..., 0, 1], out[..., 0, 2] = s * ct, -s * st, p[..., 0]
-    out[..., 1, 0], out[..., 1, 1], out[..., 1, 2] = s * st, s * ct, p[..., 1]
     out[..., 2, 2] = 1.0
+    if p.shape[-1] == 2:
+        out[..., 0, 0] = out[..., 1, 1] = 1.0
+        out[..., 0, 2], out[..., 1, 2] = p[..., 0], p[..., 1]
+    elif p.shape[-1] == 4:
+        s, ct, st = np.exp(p[..., 3]), np.cos(p[..., 2]), np.sin(p[..., 2])
+        out[..., 0, 0], out[..., 0, 1], out[..., 0, 2] = s * ct, -s * st, p[..., 0]
+        out[..., 1, 0], out[..., 1, 1], out[..., 1, 2] = s * st, s * ct, p[..., 1]
+    elif p.shape[-1] == 8:
+        out[..., :2, :] = p[..., :6].reshape(p.shape[:-1] + (2, 3))
+        out[..., 0, 0] += 1.0
+        out[..., 1, 1] += 1.0
+        out[..., 2, 0], out[..., 2, 1] = p[..., 6], p[..., 7]
+    else:
+        raise ValueError(f"no transform has {p.shape[-1]} path parameters")
     return out
 
 

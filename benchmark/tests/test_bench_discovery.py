@@ -21,7 +21,10 @@ def test_every_cell_resolves_to_its_files(name):
     assert [m["name"] for m in cell.end_to_end] == [
         m["name"] for m in SPEC["end_to_end"] if name in m.get("workloads", [name])]
     assert {m["name"] for m in cell.end_to_end} >= {"setup_s", "peak_mem_gib"}
-    assert {core.quantity(m["name"]) for m in cell.end_to_end} == set(core.QUANTITIES)
+    quantities = {core.quantity(m["name"]) for m in cell.end_to_end}
+    assert quantities <= set(core.QUANTITIES) and {"frames_per_s", "setup_s"} <= quantities
+    if "call_ms_p95" not in quantities:  # a tail too wide for its bound is read per layer
+        assert any(m["name"].endswith("call_ms_p95") for m in cell.per_layer)
     for m in cell.per_layer:
         assert callable(cell.reader(m["name"]))
     assert set(core.check.limits_of(cell.config_name)) == set(core.check.NUMBERS)
@@ -38,8 +41,9 @@ def test_every_file_named_in_the_spec_exists_under_paths():
 def test_an_added_config_traffic_entry_and_metric_are_taken_with_no_edit(tmp_path):
     base = tmp_path / "benchmark"
     shutil.copytree(ROOT / "benchmark", base, ignore=shutil.ignore_patterns("tests", "__pycache__"))
+    shutil.copytree(base / "reference", base / "reference_720p")
     conf = json.loads((base / "configs" / "flow_1080p.json").read_text())
-    conf["name"] = "flow_720p"
+    conf.update(name="flow_720p", reference="reference_720p")
     conf["clip"].update(height=720, width=1280)
     (base / "configs" / "flow_720p.json").write_text(json.dumps(conf))
     traffic = json.loads((base / "traffic" / "resident.json").read_text())
@@ -56,6 +60,10 @@ def test_an_added_config_traffic_entry_and_metric_are_taken_with_no_edit(tmp_pat
                               "source": "program_counter", "layer": "echo", "moves": "setup_s"})
     cell = core.find_cell("flow_720p.echo", spec=spec, root=tmp_path, base=base)
     assert cell.config["clip"]["height"] == 720
+    engine = cell.reference()   # the configuration's own copy of the reference, and its modules
+    assert pathlib.Path(engine.__file__).parent == (base / "reference_720p").resolve()
+    assert pathlib.Path(engine.dis.__file__).parent == (base / "reference_720p").resolve()
+    assert core.find_cell("flow_1080p.resident").reference() is not engine
     assert cell.entry()(cell.config, "cpu").config is cell.config
     assert "echo.calls" in [m["name"] for m in cell.per_layer]   # no workloads key: every setup_s cell
     obs = core.Observation((1, 1, 1, 3), None, {"calls": 7}, None)

@@ -1,5 +1,6 @@
 """What the benchmark may load and read."""
 
+import json
 import pathlib
 import re
 
@@ -32,8 +33,10 @@ def test_no_benchmark_source_imports_jax_or_the_jax_package():
 
 
 def test_the_reference_and_the_inputs_import_nothing_of_the_program():
-    for sub in ("reference", "inputs", "rooflines"):
-        for p in (BENCH / sub).glob("*.py"):
+    references = {json.loads(p.read_text()).get("reference", core.DEFAULT_REFERENCE)
+                  for p in (BENCH / "configs").glob("*.json")} | {core.DEFAULT_REFERENCE}
+    for sub in sorted(references) + ["inputs", "rooflines"]:
+        for p in (BENCH / sub).rglob("*.py"):
             assert "comfyui_video_stabilizer" not in p.read_text(), p
 
 

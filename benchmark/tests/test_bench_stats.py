@@ -45,6 +45,13 @@ def test_idle_share_is_the_unbusy_share_of_the_calls_spans():
     assert layers.idle_share(core.Observation((1, 1, 1, 3), None, {}, None)) is None
 
 
+def test_the_per_layer_tail_is_the_95th_percentile_of_every_window_call():
+    # 20 calls of 100..119 ms (seconds on the host clock): between the 19th and 20th order statistics
+    obs = core.Observation((1, 1, 1, 3), None, {}, None, [], [0.100 + 0.001 * i for i in range(20)])
+    assert layers.call_ms_p95(obs) == pytest.approx(118.05)
+    assert layers.call_ms_p95(core.Observation((1, 1, 1, 3), None, {}, None)) is None
+
+
 def test_a_session_is_read_between_its_marker_kernels():
     pads = [("spin_kernel", 0.001 * i, 0.001 * i + 0.0009) for i in range(3)]
     marks = [("spin_kernel", 0.010, 0.011), ("spin_kernel", 0.050, 0.051),

@@ -31,7 +31,7 @@ def test_a_small_run_of_the_cell_is_correct_with_every_number_0():
     result, compared = core.run_cell(cell, SEED, 0.3, False, torch.device("cpu"), time.perf_counter(),
                                      clip_size=SMALL)
     assert result["correct"] and result["failed"] == 0, compared
-    assert set(result["metrics"]) == {"node_frames_per_s", "node_call_ms_p95", "peak_mem_gib", "setup_s"}
+    assert set(result["metrics"]) == {"node_frames_per_s", "peak_mem_gib", "setup_s"}  # its tail is per layer
     assert all(value == 0.0 for value, _ in compared.values()), compared
 
 
