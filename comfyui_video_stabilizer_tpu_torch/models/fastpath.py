@@ -735,8 +735,10 @@ def _flow_estimate(grays, strength, keep_fov, *, decimation, seed, mode, camera_
     )
     if decimation > 1:
         samples = samples * float(decimation)  # back to working px units
-    pts = FL._grid_points(h_work, w_work, FL.SAMPLE_STEP, lead_device(grays))
-    fits = FL._fused_fits_device(samples, pts, seed, want_persp, RS.DEFAULT_HYPOTHESES)
+    dev = lead_device(grays)
+    pts = FL._grid_points(h_work, w_work, FL.SAMPLE_STEP, dev)
+    with P.span("fastpath.fits", dev):  # eager routes only: no span opens inside a capture
+        fits = FL._fused_fits_device(samples, pts, seed, want_persp, RS.DEFAULT_HYPOTHESES)
     total_pts = (((h_work + FL.SAMPLE_STEP - 1) // FL.SAMPLE_STEP)
                  * ((w_work + FL.SAMPLE_STEP - 1) // FL.SAMPLE_STEP))
     return _traj_program(
@@ -1079,6 +1081,7 @@ def _dispatch_and_collect(
                       rect=crop_fin["rect"])
     with P.span("fastpath.fetch", dev):
         diag = fetch_packed(bundle)
+        P.count("fastpath.persp_transitions", int(np.count_nonzero(diag["chosen"] == _MODE_IDX["perspective"])))
     final = diag["final"]
     if not np.isfinite(final).all():
         return None  # the engine re-runs the host path

@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from ..parallel.mesh import FrameShards
+from ..utils import profiling as P
 from . import cuda_build
 
 _LUMA = np.array([0.299, 0.587, 0.114], np.float32)
@@ -195,7 +196,7 @@ def gray_for_estimation(
     The caller must have checked :func:`can_decimate` for
     ``decimation`` > 1.  Integer factors (and no resize) are one
     :func:`gray_pool` call; other factors pool the gray by the area
-    matrices.
+    matrices, in span ``gray.area_resize`` (one a chunk of a host clip).
     """
     if isinstance(frames, FrameShards):
         return frames.map(lambda f: gray_for_estimation(f, working_size, quantize, decimation))
@@ -218,7 +219,10 @@ def gray_for_estimation(
 
     def one(chunk: torch.Tensor) -> torch.Tensor:
         gray = gray_pool(_as_frames(chunk), fy, fx, quantize)
-        return gray if weights is None else area_resize(gray, working_size, weights)
+        if weights is None:
+            return gray
+        with P.span("gray.area_resize", dev):
+            return area_resize(gray, working_size, weights)
 
     if frames.device.type != "cpu" or dev.type == "cpu":
         return one(frames.to(dev))

@@ -41,15 +41,18 @@ FAST_TREE = {
 }
 HOST_TREE = {**{k: v for k, v in FAST_TREE.items() if not k.startswith("fastpath.")},
              "engine.gray": "engine.call", "engine.estimate": "engine.call", "engine.warp": "engine.call"}
-# Flow's DIS, under the estimation span of its engine
+# Flow's DIS, under the estimation span of its engine; the fast path's
+# eager Flow fits after it
 DIS_TREE = {"flow.dis.chunk": None, "flow.dis.pyramid": "flow.dis.chunk"}
+FITS_TREE = {"fastpath.fits": "fastpath.estimate"}
 
 
 def _tree(kind, fast):
     tree = FAST_TREE if fast else HOST_TREE
     if kind != "flow":
         return tree
-    return {**tree, **DIS_TREE, "flow.dis.chunk": "fastpath.estimate" if fast else "engine.estimate"}
+    return {**tree, **DIS_TREE, "flow.dis.chunk": "fastpath.estimate" if fast else "engine.estimate",
+            **(FITS_TREE if fast else {})}
 
 
 def _clip(n=5, h=64, w=80, seed=3):
@@ -128,7 +131,7 @@ def test_api_call_attaches_its_own_spans(recorder, monkeypatch):
     result = stabilize_flow(context, *WIDGETS[1:7], (127, 127, 127), 16.0, device="cpu")
     assert result.meta["timing"]["engine.call"]["parent"] is None
     assert set(result.meta["timing"]) == {k for k, v in FAST_TREE.items() if v and v.startswith("engine")} \
-        | {"engine.call"} | set(DIS_TREE)
+        | {"engine.call"} | set(DIS_TREE) | set(FITS_TREE)
     calls = {r.call for r in P.drain()}
     assert len(calls) == 2  # the ingest, then the engine: two roots
 
@@ -326,6 +329,40 @@ def test_off_the_new_spans_are_the_shared_null_context(recorder, monkeypatch):
     _refuse_cuda(monkeypatch)
     _, _, meta = _node("flow", _clip(n=5, h=122, w=216))
     assert "timing" not in meta and P.drain() == []
+
+
+PERSP_WIDGETS = (24.0, "crop_and_pad", "perspective", True, 0.7, 0.5, 0.6, "#7F7F7F")
+
+
+@pytest.mark.parametrize("fast, on", [(True, True), (False, True), (True, False)],
+                         ids=["fast-path", "host-engine", "off"])
+def test_a_perspective_call_on_an_area_resized_gray(recorder, monkeypatch, fast, on):
+    """A locked perspective Flow call on 5 frames of 40 x 1000: the longest
+    side over 960 gives a working size of 960 x 38, which no integer pool
+    of the clip gives, so the gray goes through the area weights in
+    ``gray.area_resize``, under the engine's gray span; the fast path's
+    eager fits record ``fastpath.fits``, and its fetch counts the
+    transitions kept in perspective.  Off, nothing is recorded and no
+    CUDA call made."""
+    monkeypatch.setenv("CVST_FASTPATH", "1" if fast else "0")
+    recorder.enable_timing(on)
+    if not on:
+        _refuse_cuda(monkeypatch)
+    _, _, meta = SN.VideoStabilizerFlow.execute(_clip(n=5, h=40, w=1000), *PERSP_WIDGETS, device="cpu")
+    recs = P.drain()
+    if not on:
+        assert "timing" not in meta and recs == []
+        return
+    timing = meta["timing"]
+    assert timing["gray.area_resize"]["parent"] == ("fastpath.gray" if fast else "engine.gray")
+    assert len(_counters(recs, "gray.area_resize")) == 1
+    modes = [t["mode"] for t in meta["estimated_motion"]["per_transition"]]
+    assert meta["camera_lock"] is True and modes.count("perspective") > 0
+    if fast:
+        assert timing["fastpath.fits"]["parent"] == "fastpath.estimate"
+        assert timing["fastpath.fetch"]["fastpath.persp_transitions"] == modes.count("perspective")
+    else:
+        assert not any(name.startswith("fastpath.") for name in timing)
 
 
 @pytest.fixture
